@@ -1,0 +1,221 @@
+"""Dense transformer blocks (kinds "global" and "local"): init, state
+and apply in prefill, chunked-prefill and decode modes.
+
+Ported from ``repro/models/blocks.py``, cut to the dense self-attention
+path. A block is an ``nn.Module`` holding its retention gate (or None);
+the apply functions are plain functions over it. Attention goes
+through ``kernels.ops``, which runs the CUDA kernels on the card and
+their plain versions on the CPU. Block apply returns (x_out, new_state,
+None).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.core import gates as gates_lib
+from repro_torch.core.cache import cache_insert, cache_topm_merge, init_cache
+from repro_torch.core.gates import Gate
+from repro_torch.kernels import ops
+from repro_torch.models.common import (MLP, RMSNorm, apply_rope, dense,
+                                       dense_apply, mlp_apply,
+                                       rmsnorm_apply, to_dtype)
+
+DENSE_KINDS = ("global", "local")
+
+
+def _require_dense(kind: str):
+    if kind not in DENSE_KINDS:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported to repro_torch yet; "
+            f"ported: {DENSE_KINDS}")
+
+
+class Attention(nn.Module):
+    def __init__(self, cfg, dtype, device, generator):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.wq = dense(cfg.d_model, cfg.q_dim, bias=cfg.qkv_bias, **kw)
+        self.wk = dense(cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias, **kw)
+        self.wv = dense(cfg.d_model, cfg.kv_dim, bias=cfg.qkv_bias, **kw)
+        self.wo = dense(cfg.q_dim, cfg.d_model, **kw)
+
+
+class DenseBlock(nn.Module):
+    """Pre-norm self-attention + SwiGLU FFN, with an optional retention
+    gate (``gate``) that scores the keys this block caches."""
+
+    def __init__(self, cfg, kind: str, *, device, generator):
+        super().__init__()
+        _require_dense(kind)
+        dtype = to_dtype(cfg.dtype)
+        self.kind = kind
+        self.norm1 = RMSNorm(cfg.d_model, device=device)
+        self.attn = Attention(cfg, dtype, device, generator)
+        self.norm2 = RMSNorm(cfg.d_model, device=device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device,
+                       generator=generator)
+        self.gate = None
+
+
+def init_block(cfg, kind: str, *, device, generator) -> DenseBlock:
+    return DenseBlock(cfg, kind, device=device, generator=generator)
+
+
+def init_block_gate(cfg, kind: str, *, device, generator):
+    """Retention gate for a block that owns a growing KV cache."""
+    _require_dense(kind)
+    if not cfg.trimkv:
+        return None
+    return Gate(cfg.d_model, cfg.gate_hidden, cfg.num_kv_heads,
+                cfg.gate_bias_init, device=device, generator=generator)
+
+
+def init_block_state(cfg, kind: str, batch: int, budget: int, dtype,
+                     device):
+    _require_dense(kind)
+    M = (min(budget, cfg.window) if (kind == "local" and cfg.window > 0)
+         else budget)
+    return init_cache(batch, cfg.num_kv_heads, M, cfg.head_dim, dtype,
+                      device)
+
+
+def _window(cfg, kind) -> int:
+    return cfg.window if kind == "local" else 0
+
+
+def _split_heads(x, n_heads, head_dim):
+    return x.reshape(x.shape[:-1] + (n_heads, head_dim))
+
+
+def _qkv(block: DenseBlock, cfg, normed, positions):
+    """normed [B, T, d], positions [B, T] -> post-RoPE q [B, T, Hq, D],
+    k and v [B, T, Hkv, D]."""
+    a = block.attn
+    q = _split_heads(dense_apply(a.wq, normed), cfg.num_heads, cfg.head_dim)
+    k = _split_heads(dense_apply(a.wk, normed), cfg.num_kv_heads,
+                     cfg.head_dim)
+    v = _split_heads(dense_apply(a.wv, normed), cfg.num_kv_heads,
+                     cfg.head_dim)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v.contiguous()
+
+
+def _probs_to_kv(probs, cfg):
+    """Fold grouped-query probs [B, Hq, M] to per-kv-head [B, Hkv, M]."""
+    B, Hq, M = probs.shape
+    group = Hq // cfg.num_kv_heads
+    return probs.reshape(B, cfg.num_kv_heads, group, M).mean(dim=2)
+
+
+def _beta(block, cfg, normed):
+    """Retention scores beta [..., Hkv] float32 (all ones without a
+    gate)."""
+    if block.gate is not None and cfg.trimkv:
+        return gates_lib.gate_beta(block.gate, normed)
+    return torch.ones(normed.shape[:-1] + (cfg.num_kv_heads,),
+                      dtype=torch.float32, device=normed.device)
+
+
+def _require_no_attn_aux(policy):
+    if policy.needs_attn:
+        raise NotImplementedError(
+            f"policy {policy.name!r} consumes attention probabilities, "
+            f"which the port does not hand to policies yet")
+
+
+def _ffn_residual(block, cfg, x):
+    return x + mlp_apply(block.ffn, rmsnorm_apply(block.norm2.scale, x,
+                                                  cfg.norm_eps))
+
+
+def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy):
+    """x_t: [B, d]; state: the block's slot cache; t: [B] per-lane
+    position of this token. Attends over (cache ∪ in-flight token), then
+    evicts (Alg. 1). The cache is updated in place (see
+    core.cache.cache_insert). Returns (x_out [B, d], cache, None)."""
+    _require_no_attn_aux(policy)
+    cache = state
+    B = x_t.shape[0]
+    normed = rmsnorm_apply(block.norm1.scale, x_t, cfg.norm_eps)
+    positions = torch.as_tensor(t, dtype=torch.int32,
+                                device=x_t.device).expand(B)[:, None]
+    q, k, v = _qkv(block, cfg, normed[:, None], positions)
+    q_t, k_t, v_t = q[:, 0], k[:, 0], v[:, 0]              # [B,H,D]
+    beta_t = _beta(block, cfg, normed)                      # [B,Hkv]
+    # the policy reads no attention probabilities (needs_attn is False),
+    # so the kernel skips them; TRIM-KV discards them in the JAX block
+    out = ops.decode_attention(q_t, cache["k"], cache["v"], cache["pos"], t,
+                               window=_window(cfg, block.kind),
+                               new_kv=(k_t, v_t),
+                               return_probs=policy.needs_attn)
+    inc = 1.0 if policy.name == "trimkv" else None
+    cache = cache_insert(cache, k_t, v_t, beta_t, t, policy.keep_scores,
+                         incoming_score=inc)
+    x = x_t + dense_apply(block.attn.wo,
+                          out.reshape(B, cfg.q_dim).to(x_t.dtype))
+    return _ffn_residual(block, cfg, x), cache, None
+
+
+def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
+                        budget, obs_window=32, q_offset=0):
+    """Single-shot prefill over x [B, T, d] into an empty cache: causal
+    attention through the retention kernel, then the top-M merge of the
+    prompt's keys by keep score at t = q_offset + T - 1."""
+    del budget, obs_window  # the cache carries M; no attention-aux policy
+    _require_no_attn_aux(policy)
+    B, T, _ = x.shape
+    normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
+    positions = (q_offset + torch.arange(T, device=x.device))[None].expand(
+        B, T)
+    q, k, v = _qkv(block, cfg, normed, positions)
+    out = ops.retention_attention(q, k, v, causal=True,
+                                  window=_window(cfg, block.kind),
+                                  q_offset=q_offset)
+    beta_c = _beta(block, cfg, normed).transpose(1, 2)     # [B,Hkv,T]
+    aux_c = torch.zeros_like(beta_c)
+    k_c, v_c = k.transpose(1, 2), v.transpose(1, 2)         # [B,Hkv,T,D]
+    pos_c = positions[:, None].expand(B, cfg.num_kv_heads, T).to(torch.int32)
+    t_end = q_offset + T - 1
+    chunk_scores = policy.chunk_scores(pos_c=pos_c, beta_c=beta_c,
+                                       aux_c=aux_c, k_c=k_c, t=t_end)
+    cache = cache_topm_merge(state, k_c, v_c, beta_c, pos_c, aux_c, t_end,
+                             policy.keep_scores, chunk_scores)
+    x = x + dense_apply(block.attn.wo, out.reshape(B, T, cfg.q_dim))
+    return _ffn_residual(block, cfg, x), cache, None
+
+
+def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
+                              policy, obs_window=32, n_valid=None):
+    """Continue prefill with chunk x [B, C, d]. t0: [B] position of the
+    chunk's first token; n_valid: real tokens in the chunk (None = all
+    C). Tail positions beyond n_valid are padding: position -1, masked
+    out of attention, never kept. Attends through the chunk kernel, then
+    merges the top M of (cache ∪ chunk) at t = t0 + n_valid - 1."""
+    del obs_window
+    _require_no_attn_aux(policy)
+    B, C, _ = x.shape
+    dev = x.device
+    normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
+    idx = torch.arange(C, device=dev)
+    t0b = torch.as_tensor(t0, dtype=torch.int32, device=dev).expand(B)
+    positions = t0b[:, None] + idx[None, :]
+    nv = C if n_valid is None else int(n_valid)
+    chunk_pos = torch.where(idx[None, :] < nv, positions,
+                            torch.full_like(positions, -1)).to(torch.int32)
+    t_end = t0b + (nv - 1)                                  # [B]
+    q, k, v = _qkv(block, cfg, normed, positions)
+    out, _ = ops.chunk_attention(q, k, v, state, chunk_pos,
+                                 window=_window(cfg, block.kind),
+                                 need_probs=policy.needs_attn)
+    beta_c = _beta(block, cfg, normed).transpose(1, 2)     # [B,Hkv,C]
+    aux_c = torch.zeros_like(beta_c)
+    k_c, v_c = k.transpose(1, 2), v.transpose(1, 2)
+    pos_c = chunk_pos[:, None].expand(B, cfg.num_kv_heads, C)
+    chunk_scores = policy.chunk_scores(pos_c=pos_c, beta_c=beta_c,
+                                       aux_c=aux_c, k_c=k_c, t=t_end)
+    cache = cache_topm_merge(state, k_c, v_c, beta_c, pos_c, aux_c, t_end,
+                             policy.keep_scores, chunk_scores)
+    x = x + dense_apply(block.attn.wo, out.reshape(B, C, cfg.q_dim))
+    return _ffn_residual(block, cfg, x), cache, None

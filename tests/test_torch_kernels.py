@@ -1,0 +1,180 @@
+"""The port's plain attention versions against the JAX package's Pallas
+kernels (interpret mode on the CPU, as tests/test_kernels.py runs them).
+
+Every input is drawn once with numpy from a fixed seed and handed to
+both. Tolerance: 2e-5 absolute and relative in float32, the bar of
+tests/test_kernels.py — the two sides sum in different orders.
+The CUDA kernels themselves run only on a card: chip_smoke.py holds
+each against these plain versions there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import ops
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def _np(x):
+    return np.asarray(x, np.float32)
+
+
+def _close(got, want, msg=""):
+    np.testing.assert_allclose(_np(got), _np(want), err_msg=msg, **TOL)
+
+
+def _slot_positions(rng, B, Hkv, M, t, empty_frac=0.3):
+    """Post-eviction slot positions: distinct, out of order, below t,
+    with some slots empty (-1)."""
+    pos = np.full((B, Hkv, M), -1, np.int32)
+    for b in range(B):
+        for h in range(Hkv):
+            n = int(M * (1 - empty_frac))
+            slots = rng.choice(M, size=n, replace=False)
+            pos[b, h, slots] = rng.choice(t, size=n, replace=False)
+    return pos
+
+
+# ------------------------------------------------------------- decode
+
+
+# each option on and off, in six combinations
+@pytest.mark.parametrize("window,with_new,return_probs,lane_clock", [
+    (0, False, False, False), (16, True, True, True), (0, True, True, False),
+    (16, False, True, True), (16, True, False, False), (0, True, False, True),
+])
+def test_decode_attention_matches_pallas(window, with_new, return_probs,
+                                         lane_clock):
+    rng = np.random.RandomState(0)
+    B, Hq, Hkv, M, D = 2, 4, 2, 40, 32
+    q = rng.randn(B, Hq, D).astype(np.float32)
+    kc = rng.randn(B, Hkv, M, D).astype(np.float32)
+    vc = rng.randn(B, Hkv, M, D).astype(np.float32)
+    kn = rng.randn(B, Hkv, D).astype(np.float32)
+    vn = rng.randn(B, Hkv, D).astype(np.float32)
+    t = np.array([70, 55], np.int32) if lane_clock else 70
+    pos = _slot_positions(rng, B, Hkv, M, 55)
+    new_j = (jnp.asarray(kn), jnp.asarray(vn)) if with_new else None
+    new_t = (torch.as_tensor(kn), torch.as_tensor(vn)) if with_new else None
+    want = jops.decode_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(pos),
+        jnp.asarray(t), window=window, new_kv=new_j,
+        return_probs=return_probs, impl="pallas")
+    got = ops.decode_attention(
+        torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
+        torch.as_tensor(pos), torch.as_tensor(t), window=window,
+        new_kv=new_t, return_probs=return_probs)
+    if not return_probs:
+        want, got = (want,), (got,)
+    assert len(got) == len(want)
+    for name, g, w in zip(("out", "probs", "p_new"), got, want):
+        _close(g, w, name)
+
+
+def test_decode_attention_all_slots_empty():
+    """An empty cache without the in-flight token attends to nothing:
+    zero output and zero probabilities, as the Pallas kernel gives."""
+    B, Hq, Hkv, M, D = 1, 2, 1, 40, 32
+    q = np.random.RandomState(1).randn(B, Hq, D).astype(np.float32)
+    kc = np.ones((B, Hkv, M, D), np.float32)
+    pos = np.full((B, Hkv, M), -1, np.int32)
+    want = jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(kc), jnp.asarray(pos), 3,
+                                 return_probs=True, impl="pallas")
+    got = ops.decode_attention(torch.as_tensor(q), torch.as_tensor(kc),
+                               torch.as_tensor(kc), torch.as_tensor(pos), 3,
+                               return_probs=True)
+    for g, w in zip(got, want):
+        _close(g, w)
+        assert not _np(g).any()
+
+
+# -------------------------------------------------------------- chunk
+
+
+@pytest.mark.parametrize("Hq,Hkv,need_probs,window", [
+    (2, 2, False, 0), (4, 2, True, 12), (2, 2, True, 12), (4, 2, False, 0),
+])
+def test_chunk_attention_matches_pallas(Hq, Hkv, need_probs, window):
+    rng = np.random.RandomState(2)
+    B, C, M, D = 2, 24, 40, 32
+    t0 = np.array([60, 48], np.int32)
+    n_valid = np.array([24, 17])                       # ragged tail on lane 1
+    q = rng.randn(B, C, Hq, D).astype(np.float32)
+    kc = rng.randn(B, C, Hkv, D).astype(np.float32)
+    vc = rng.randn(B, C, Hkv, D).astype(np.float32)
+    cache = {"k": rng.randn(B, Hkv, M, D).astype(np.float32),
+             "v": rng.randn(B, Hkv, M, D).astype(np.float32),
+             "pos": _slot_positions(rng, B, Hkv, M, 48)}
+    idx = np.arange(C)
+    chunk_pos = np.where(idx[None] < n_valid[:, None], t0[:, None] + idx,
+                         -1).astype(np.int32)
+    want = jops.chunk_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        {k: jnp.asarray(v) for k, v in cache.items()}, jnp.asarray(chunk_pos),
+        window=window, need_probs=need_probs, impl="pallas")
+    got = ops.chunk_attention(
+        torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
+        {k: torch.as_tensor(v) for k, v in cache.items()},
+        torch.as_tensor(chunk_pos), window=window, need_probs=need_probs)
+    _close(got[0], want[0], "out")
+    if need_probs:
+        _close(got[1], want[1], "probs_cache")
+    else:
+        assert got[1] is None and want[1] is None
+    # padded queries give zero
+    assert not _np(got[0])[1, 17:].any()
+
+
+def test_chunk_attention_empty_cache_first_chunk():
+    """The first chunk of a prompt sees an empty cache: only the causal
+    chunk keys count, and the cache probabilities are all zero."""
+    rng = np.random.RandomState(3)
+    B, C, Hq, Hkv, M, D = 1, 16, 4, 2, 40, 32
+    q = rng.randn(B, C, Hq, D).astype(np.float32)
+    kc = rng.randn(B, C, Hkv, D).astype(np.float32)
+    vc = rng.randn(B, C, Hkv, D).astype(np.float32)
+    cache = {"k": np.zeros((B, Hkv, M, D), np.float32),
+             "v": np.zeros((B, Hkv, M, D), np.float32),
+             "pos": np.full((B, Hkv, M), -1, np.int32)}
+    chunk_pos = np.arange(C, dtype=np.int32)
+    want = jops.chunk_attention(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+        {k: jnp.asarray(v) for k, v in cache.items()}, jnp.asarray(chunk_pos),
+        impl="pallas")
+    got = ops.chunk_attention(
+        torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
+        {k: torch.as_tensor(v) for k, v in cache.items()},
+        torch.as_tensor(chunk_pos))
+    _close(got[0], want[0], "out")
+    _close(got[1], want[1], "probs_cache")
+    assert not _np(got[1]).any()
+
+
+# ---------------------------------------------------------- retention
+
+
+@pytest.mark.parametrize("use_beta,q_offset,window", [
+    (False, 0, 0), (True, 0, 0), (False, 0, 24), (True, 30, 0),
+    (True, 30, 24),
+])
+def test_retention_attention_matches_pallas(use_beta, q_offset, window):
+    rng = np.random.RandomState(4)
+    B, Tq, Hq, Hkv, D = 2, 70, 4, 2, 32
+    Tk = Tq + q_offset
+    q = rng.randn(B, Tq, Hq, D).astype(np.float32)
+    k = rng.randn(B, Tk, Hkv, D).astype(np.float32)
+    v = rng.randn(B, Tk, Hkv, D).astype(np.float32)
+    lb = (-np.abs(rng.randn(B, Tk, Hkv)) * 0.05).astype(np.float32)
+    want = jops.retention_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(lb) if use_beta else None, window=window,
+        q_offset=q_offset, impl="pallas")
+    got = ops.retention_attention(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        torch.as_tensor(lb) if use_beta else None, window=window,
+        q_offset=q_offset)
+    _close(got, want)
