@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Builds the three attention kernels from src/repro_torch/kernels/csrc
-with nvcc, then:
+Builds the three attention kernels and the two capacity-loss kernels
+from src/repro_torch/kernels/csrc with nvcc, then:
 
 1. kernels — each CUDA kernel against its plain PyTorch version on the
    card at the main-path shapes (Hq 32, Hkv 8, D 128, B 4, M 512,
@@ -21,7 +21,33 @@ with nvcc, then:
 3. parity — the same config cut to 2 layers in float32, one set of
    weights on the card (kernels) and on the CPU (plain versions):
    teacher-forced logits within 1e-3 and identical slot positions in
-   every layer, after single-shot and after chunked prefill.
+   every layer, after single-shot and after chunked prefill;
+4. capacity — the capacity-loss forward and backward kernels against
+   their plain versions (core.losses.capacity_loss_chunked,
+   capacity_loss_bwd_torch) at B 1, H 8, T 4096, M 256, at T 1000, at
+   the beta = 1.0 tie (S_t = t + 1 meets M) and at B 2: value within
+   rel 1e-5, S within rel 1e-5, gradient within rel 1e-4 of its
+   largest entry; times the forward, the backward and the plain
+   forward + backward, and prints the bound: the least float32 work
+   (one multiply-add per (t, i) pair forward, two per pair over budget
+   backward) at 67 TFLOP/s;
+5. train — gate distillation of trimkv-paper-4b at full width (36
+   layers, bf16, random weights from a seed, fresh gates at bias 18)
+   for 3 train_step calls on batch 1 x 4096 tokens, M 256: asserts
+   the exact capacity-kernel launch counts (per step 72 forward —
+   36 in the student forward and 36 again when backward recomputes
+   each checkpointed block — and 36 backward), finite loss, kl, ntp,
+   cap and grad norm, cap > 0, gates changed and base weights
+   bit-identical (against a copy on the host); prints seconds per
+   step, tokens/s, peak device memory and the capacity kernels' share
+   of a step;
+6. train parity — the full-width config cut to 2 layers in float32,
+   one set of weights on the card (kernels) and on the CPU (plain
+   versions), T 256, M 64, perturbed gate biases: loss within rel
+   1e-4 and gate gradients within rel 1e-3 of their largest entry;
+   adamw_update on the CPU's gradients gives the same gates on both
+   within atol 1e-6; one train_step on each gives the same loss
+   within rel 1e-4 and moves the gates.
 
 Prints the card's name and power limit and a {"kernels": [...]} line,
 then, as the last line, {"ok": true, "device": {...}}. Any failure
@@ -33,6 +59,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -42,9 +69,10 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, dense bf16
-# tensor-core FLOP/s
+# tensor-core FLOP/s, float32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}   # abs and rel, see check()
 
 
@@ -93,10 +121,10 @@ def check(name, got, want, dtype):
     return e
 
 
-def bound_ms(n_bytes, n_flops):
-    return max(n_bytes / HBM_BYTES_PER_S, n_flops / BF16_FLOPS) * 1e3, \
-        "bytes" if n_bytes / HBM_BYTES_PER_S >= n_flops / BF16_FLOPS \
-        else "operations"
+def bound_ms(n_bytes, n_flops, flops_per_s=BF16_FLOPS):
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_flops / flops_per_s
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 # ------------------------------------------------------------ kernels
@@ -311,6 +339,124 @@ def retention_phase(g):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
 
 
+# ------------------------------------------------------ capacity loss
+
+
+def capacity_phase(g):
+    import torch
+    from repro_torch.kernels.capacity_loss import (
+        capacity_loss_bwd_cuda, capacity_loss_bwd_torch,
+        capacity_loss_fwd_cuda, capacity_loss_torch, occupancy_torch)
+
+    def log_beta(B, T, H, mode):
+        if mode == "tie":                       # beta = 1.0 exactly
+            return torch.zeros((B, T, H), device="cuda")
+        if mode == "train start":               # gates at bias 18 (+ noise)
+            x = 18.0 + torch.randn((B, T, H), generator=g, device="cuda")
+        else:                                   # beta spread below 1
+            x = 6.0 + 4.0 * torch.randn((B, T, H), generator=g,
+                                        device="cuda")
+        return -torch.nn.functional.softplus(-x)
+
+    def rel(got, want, scale=None):
+        scale = want.abs().max() if scale is None else scale
+        return ((got - want).abs().max() / scale.clamp(min=1e-30)).item()
+
+    cases = [  # name, B, H, T, M, mode
+        ("main path (B 1, H 8, T 4096, M 256)", 1, 8, 4096, 256,
+         "train start"),
+        ("spread beta, T 1000 (ragged tile)", 1, 8, 1000, 256, "spread"),
+        ("beta = 1.0 tie at M 256", 1, 8, 4096, 256, "tie"),
+        ("spread beta, B 2, H 8", 2, 8, 4096, 256, "spread"),
+    ]
+    gout = torch.tensor(0.7, device="cuda")
+    main_err = None
+    for name, B, H, T, M, mode in cases:
+        lb = log_beta(B, T, H, mode).contiguous()
+        loss, S = capacity_loss_fwd_cuda(lb, M)
+        dlb = capacity_loss_bwd_cuda(lb, S, M, gout)
+        want_S = occupancy_torch(lb)
+        x = lb.clone().requires_grad_(True)
+        want = capacity_loss_torch(x, M)
+        (auto,) = torch.autograd.grad(want * gout, x)
+        want_dlb = capacity_loss_bwd_torch(lb, want_S, M, gout)
+        torch.cuda.synchronize()
+        errs = {"value": rel(loss, want.detach(), want.detach().abs()),
+                "S": rel(S, want_S),
+                "grad": rel(dlb, want_dlb),
+                "grad vs autograd": rel(dlb, auto)}
+        for k, tol in (("value", 1e-5), ("S", 1e-5), ("grad", 1e-4),
+                       ("grad vs autograd", 1e-4)):
+            if not errs[k] <= tol:
+                raise AssertionError(f"capacity {name}: {k} rel err "
+                                     f"{errs[k]:.3e} beyond {tol}")
+        if not (torch.isfinite(dlb).all() and float(loss) > 0):
+            raise AssertionError(f"capacity {name}: loss {float(loss)}")
+        if mode == "tie" and not torch.equal(S[:, M - 1], torch.full_like(
+                S[:, M - 1], float(M))):
+            raise AssertionError("capacity tie: S_{M-1} != M")
+        log(f"  capacity {name:<40} loss {float(loss):.6e}  rel err value "
+            f"{errs['value']:.2e} S {errs['S']:.2e} (tol 1e-5) grad "
+            f"{errs['grad']:.2e} / autograd {errs['grad vs autograd']:.2e} "
+            f"(tol 1e-4)")
+        if name.startswith("main"):
+            main_err = (dlb - want_dlb).abs().max().item(), \
+                (loss - want).abs().item()
+            main = (lb, S)
+
+    # timing at the main-path shape: each train step calls these on one
+    # layer's log_beta [1, 4096, 8]
+    lb, S = main
+    B, T, H, M = 1, 4096, 8, 256
+    fwd_ms = time_ms(lambda i=0: capacity_loss_fwd_cuda(lb, M), 100)
+    bwd_ms = time_ms(lambda i=0: capacity_loss_bwd_cuda(lb, S, M, gout), 100)
+    plain_fwd = time_ms(lambda i=0: capacity_loss_torch(lb, M), 10)
+    plain_bwd = time_ms(lambda i=0: capacity_loss_bwd_torch(lb, S, M, gout),
+                        10)
+
+    def plain_fwd_bwd(i=0):
+        x = lb.clone().requires_grad_(True)
+        torch.autograd.grad(capacity_loss_torch(x, M), x)
+
+    plain_both = time_ms(plain_fwd_bwd, 5)
+    # least work, in float32 FLOPs (the tolerance needs float32): an exp
+    # per (t, i) pair is not needed, since beta_i^(t0+j-i) = beta_i^j *
+    # beta_i^(t0-i) makes a row block's sums a product of the power
+    # table beta_i^j (j < k) with one carry per (block, column); that is
+    # one multiply-add per pair (2 FLOPs) in the forward, and two in the
+    # backward (sum_t w_t (t-i) beta_i^(t-i) splits into the weights w_t
+    # and j * w_t against the same powers), with exps and the table
+    # 1/k of that. The backward needs only the pairs of rows over budget
+    # (weight != 0) in this run's S.
+    fwd_pairs = B * H * T * (T + 1) // 2
+    over = (S - M >= 0).float()
+    bwd_pairs = int((over * torch.arange(1, T + 1, device="cuda")).sum())
+    # bytes: the forward reads lb and writes S, the backward reads lb and
+    # S and writes the gradient (float32 each)
+    fwd_bound, fwd_by = bound_ms(2 * B * H * T * 4, 2 * fwd_pairs,
+                                 FP32_FLOPS)
+    bwd_bound, bwd_by = bound_ms(3 * B * H * T * 4, 4 * bwd_pairs,
+                                 FP32_FLOPS)
+    log(f"  capacity timing (B 1, H 8, T 4096, M 256): forward {fwd_ms:.4f}"
+        f" ms (bound {fwd_bound:.4f}, {fwd_pairs / 1e6:.1f} M pairs x 2 "
+        f"FLOPs), backward {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, "
+        f"{bwd_pairs / 1e6:.1f} M pairs x 4 FLOPs) at {FP32_FLOPS:.3g} "
+        f"float32 FLOP/s; plain forward {plain_fwd:.3f} ms, backward "
+        f"{plain_bwd:.3f} ms, forward + autograd backward "
+        f"{plain_both:.3f} ms")
+    src = "src/repro_torch/kernels/csrc/capacity_loss.cu"
+    return [
+        {"name": "capacity_loss", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/capacity_loss.py:55",
+         "max_abs_err": main_err[1], "ms": fwd_ms, "plain_ms": plain_fwd,
+         "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None},
+        {"name": "capacity_loss_bwd", "route": "cuda", "source": src,
+         "replaces": "src/repro/kernels/capacity_loss.py:55",
+         "max_abs_err": main_err[0], "ms": bwd_ms, "plain_ms": plain_bwd,
+         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None},
+    ]
+
+
 # -------------------------------------------------------------- serve
 
 
@@ -350,10 +496,10 @@ def serve_phase():
     tokens, _, _ = make_batch("copy", 0, B, P, cfg.vocab_size)
     L = cfg.num_layers
     n_chunks = -(-P // chunk)
+    none = dict.fromkeys(ops.KERNELS, 0)        # serving trains nothing
     expect = {
-        False: {"retention_attention": L, "chunk_attention": 0,
-                "decode_attention": L * N},
-        True: {"retention_attention": 0, "chunk_attention": L * n_chunks,
+        False: {**none, "retention_attention": L, "decode_attention": L * N},
+        True: {**none, "chunk_attention": L * n_chunks,
                "decode_attention": L * N},
     }
     results = {}
@@ -431,6 +577,150 @@ def parity_phase():
     return worst
 
 
+# -------------------------------------------------------------- train
+
+
+def train_phase(kernel_ms):
+    """Three distillation steps of trimkv-paper-4b at full width on the
+    card. Returns the launch counts of the run."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import distill
+
+    cfg = get_config("trimkv-paper-4b")
+    B, Tn, steps = 1, 4096, 3
+    train_cfg = TrainConfig(seq_len=Tn, capacity_M=256, lambda_cap=1.0)
+    model = T.init_params(cfg, seed=0, device="cuda")
+    T.init_gate_params(model, cfg, seed=1)
+    gates = T.gate_parameters(model)
+    gate_ids = {id(p) for p in gates}
+    base = [p for p in model.parameters() if id(p) not in gate_ids]
+    # the bit-check copy stays on the host, out of the peak device memory
+    base0 = [p.cpu() for p in base]
+    gates0 = [p.clone() for p in gates]
+    state, opt_cfg = distill.make_train_state(cfg, train_cfg, model)
+    data = batches(DataConfig(batch=B, seq_len=Tn))
+    L = cfg.num_layers
+    expect = dict.fromkeys(ops.KERNELS, 0)
+    expect.update(capacity_loss=2 * L * steps, capacity_loss_bwd=L * steps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    secs = []
+    for _ in range(steps):
+        b = next(data)
+        batch = {k: torch.as_tensor(b[k], device="cuda")
+                 for k in ("tokens", "lm_labels")}
+        t0 = time.perf_counter()
+        state, m = distill.train_step(state, batch, cfg=cfg,
+                                      train_cfg=train_cfg, opt_cfg=opt_cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()) or m["cap"] <= 0:
+            raise AssertionError(f"train step {len(secs) - 1}: {m}")
+        log(f"train step {len(secs) - 1} ({b['task']}): {secs[-1]:.3f} s, "
+            f"loss {m['loss']:.4f} kl {m['kl']:.4e} ntp {m['ntp']:.4f} "
+            f"cap {m['cap']:.4f} grad_norm {m['grad_norm']:.4e} "
+            f"lr {m['lr']:.3e}")
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if launches != expect:
+        raise AssertionError(f"train launches {launches}, expected {expect}")
+    if not all(torch.equal(p.cpu(), q) for p, q in zip(base, base0)):
+        raise AssertionError("a base weight changed in training")
+    moved = max((p - q).abs().max().item() for p, q in zip(gates, gates0))
+    if not moved > 0:
+        raise AssertionError("the gates did not change")
+    step_s = sum(secs[1:]) / (steps - 1)
+    cap_ms = (2 * L * kernel_ms["capacity_loss"]
+              + L * kernel_ms["capacity_loss_bwd"])
+    log(f"train: {cfg.name} {L} layers {cfg.dtype}, batch {B} x {Tn} "
+        f"tokens, M {train_cfg.capacity_M}: launches {launches}; steps "
+        f"{[round(s, 3) for s in secs]} s, {step_s:.3f} s per step after "
+        f"the first = {B * Tn / step_s:.1f} train tokens/s; peak device "
+        f"memory {peak / 2**30:.2f} GiB; capacity kernels {cap_ms:.3f} ms "
+        f"per step = {cap_ms / (step_s * 1e3) * 100:.3f} % of a step (timed "
+        f"kernel ms x launches); largest gate change {moved:.3e}")
+    del state, model, base, base0, gates, gates0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_parity_phase():
+    """Card (kernels) vs CPU (plain versions) on the full-width config cut
+    to 2 layers, float32, one set of weights: the loss and the gate
+    gradients; the optimizer on identical gradients; one train_step."""
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_update, init_opt_state
+    from repro_torch.train import distill
+
+    cfg = dataclasses.replace(get_config("trimkv-paper-4b"), num_layers=2,
+                              dtype="float32")
+    train_cfg = TrainConfig(seq_len=256, capacity_M=64)
+    gpu = T.init_params(cfg, seed=6, device="cuda")
+    T.init_gate_params(gpu, cfg, seed=7)
+    perturb_gates(gpu, seed=8)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    b = next(batches(DataConfig(batch=1, seq_len=256)))
+    out = []
+    for model in (gpu, cpu):
+        dev = model.device
+        batch = {k: torch.as_tensor(b[k], device=dev)
+                 for k in ("tokens", "lm_labels")}
+        state, opt_cfg = distill.make_train_state(cfg, train_cfg, model)
+        gates = T.gate_parameters(model)
+        gates0 = [p.detach().clone() for p in gates]
+        loss, _ = distill.distill_loss(model, cfg, train_cfg,
+                                       batch["tokens"], batch["lm_labels"])
+        grads = torch.autograd.grad(loss, gates)
+        state, m = distill.train_step(state, batch, cfg=cfg,
+                                      train_cfg=train_cfg, opt_cfg=opt_cfg)
+        moved = max((p - q).abs().max().item()
+                    for p, q in zip(gates, gates0))
+        out.append({"loss": loss.item(), "grads": [g.cpu() for g in grads],
+                    "gates0": gates0, "opt_cfg": opt_cfg, "moved": moved,
+                    "m": {k: float(v) for k, v in m.items()}})
+    card, host = out
+    loss_rel = abs(card["loss"] - host["loss"]) / abs(host["loss"])
+    grad_rel = max(((a - b_).abs().max() / b_.abs().max()).item()
+                   for a, b_ in zip(card["grads"], host["grads"]))
+    # the first AdamW step moves an entry by about lr * sign(g), so a
+    # gradient entry within the card-vs-CPU noise may step either way:
+    # the optimizer is held on identical (the CPU's) gradients instead
+    step = []
+    for side, dev in ((card, "cuda"), (host, "cpu")):
+        params = [p.to(dev) for p in side["gates0"]]
+        new, _, _ = adamw_update(
+            side["opt_cfg"], [g.to(dev) for g in host["grads"]],
+            init_opt_state(params), params)
+        step.append([p.cpu() for p in new])
+    opt_err = max((a - b_).abs().max().item() for a, b_ in zip(*step))
+    step_rel = abs(card["m"]["loss"] - host["m"]["loss"]) / abs(
+        host["m"]["loss"])
+    if not (loss_rel <= 1e-4 and grad_rel <= 1e-3 and opt_err <= 1e-6
+            and step_rel <= 1e-4 and host["m"]["cap"] > 0
+            and card["moved"] > 0 and host["moved"] > 0):
+        raise AssertionError(
+            f"train parity: loss rel {loss_rel:.3e}, grad rel "
+            f"{grad_rel:.3e}, optimizer {opt_err:.3e}, train_step loss rel "
+            f"{step_rel:.3e}, cap {host['m']['cap']}, gates moved "
+            f"{card['moved']:.3e} / {host['moved']:.3e}")
+    log(f"train parity: loss {card['loss']:.6f} (card) vs "
+        f"{host['loss']:.6f} (CPU), rel {loss_rel:.2e} (tol 1e-4); gate "
+        f"grads rel {grad_rel:.2e} (tol 1e-3); adamw_update on identical "
+        f"gradients max |diff| {opt_err:.2e} (tol 1e-6); train_step loss "
+        f"rel {step_rel:.2e} (tol 1e-4), cap {card['m']['cap']:.6f} vs "
+        f"{host['m']['cap']:.6f}, gates moved {card['moved']:.2e} / "
+        f"{host['moved']:.2e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -457,8 +747,15 @@ def main() -> int:
         log("kernels (kernel vs plain version on the card):")
         kernels = [decode_phase(g), chunk_phase(g), retention_phase(g)]
         torch.cuda.empty_cache()
+    kernels += capacity_phase(g)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
         launches, _ = serve_phase()
     parity_phase()
+    train_launches = train_phase({k["name"]: k["ms"] for k in kernels})
+    launches.update({k: train_launches[k]
+                     for k in ("capacity_loss", "capacity_loss_bwd")})
+    train_parity_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0:

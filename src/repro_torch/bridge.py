@@ -1,5 +1,5 @@
-"""Load the JAX package's weights into the port, and give the port's
-decode state the JAX package's layout.
+"""Load the JAX package's weights into the port, give the port's
+retention gates and decode state the JAX package's layout.
 
 The JAX pytrees arrive as numpy arrays (the caller runs
 ``jax.device_get``); this module imports no JAX. In those trees the
@@ -94,12 +94,54 @@ def gates_from_jax(np_gates, cfg, model: Transformer) -> Transformer:
     return model
 
 
+def _stack_layers(per_layer, cfg):
+    """Per-layer numpy subtrees -> the JAX layout: ``layers`` a tuple of
+    U subtrees with leaves stacked on a leading R axis (None when
+    R = 0), ``tail`` a tuple of the num_layers % U layers after them."""
+    U, R, _ = _unit_and_counts(cfg)
+    layers = None
+    if R > 0:
+        layers = tuple(
+            _stack([per_layer[r * U + u] for r in range(R)])
+            for u in range(U))
+    return {"layers": layers, "tail": tuple(per_layer[R * U:])}
+
+
+def _stack(trees):
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return np.stack(trees)
+
+
+def _dense_to_numpy(lin):
+    p = {"w": lin.weight.detach().float().cpu().numpy().T.copy()}
+    if lin.bias is not None:
+        p["b"] = lin.bias.detach().float().cpu().numpy()
+    return p
+
+
+def gates_to_jax(model: Transformer, cfg):
+    """The model's retention gates as numpy leaves in the layout of
+    ``T.init_gate_params``' tree (the inverse of ``gates_from_jax``):
+    per layer {"w1": {"w": [d, hidden]}, "w2": {"w": [hidden, Hkv]},
+    "b": [Hkv]}, None for a layer without a gate."""
+    per_layer = [
+        None if block.gate is None else {
+            "w1": _dense_to_numpy(block.gate.w1),
+            "w2": _dense_to_numpy(block.gate.w2),
+            "b": block.gate.b.detach().float().cpu().numpy()}
+        for block in model.layers]
+    return _stack_layers(per_layer, cfg)
+
+
 def state_to_numpy(state, cfg):
     """The port's decode state in the JAX package's layout: ``t`` [B],
     ``layers`` a tuple of U dicts with leaves [R, B, ...] (None when
     R = 0), ``tail`` a tuple of per-layer dicts. bfloat16 leaves come
     back as float32 (numpy has no bfloat16)."""
-    U, R, tail = _unit_and_counts(cfg)
 
     def host_leaf(v):
         v = v.detach().cpu()
@@ -107,11 +149,4 @@ def state_to_numpy(state, cfg):
 
     host = [{k: host_leaf(v) for k, v in st.items()}
             for st in state["layers"]]
-    layers = None
-    if R > 0:
-        layers = tuple(
-            {k: np.stack([host[r * U + u][k] for r in range(R)])
-             for k in host[u]}
-            for u in range(U))
-    return {"t": state["t"].cpu().numpy(), "layers": layers,
-            "tail": tuple(host[R * U:])}
+    return {"t": state["t"].cpu().numpy(), **_stack_layers(host, cfg)}

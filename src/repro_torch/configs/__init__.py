@@ -3,6 +3,7 @@ from repro_torch.configs.base import (
     PORTED_ARCHS,
     ModelConfig,
     ServeConfig,
+    TrainConfig,
     get_config,
     get_smoke_config,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "PORTED_ARCHS",
     "ModelConfig",
     "ServeConfig",
+    "TrainConfig",
     "get_config",
     "get_smoke_config",
 ]

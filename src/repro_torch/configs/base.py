@@ -1,7 +1,8 @@
 """Config dataclasses for the PyTorch port.
 
-A copy of the JAX package's ``ModelConfig`` (field for field, so one
-config describes the same model in both packages) and a ``ServeConfig``
+Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (field
+for field, so one config describes the same model and the same
+training in both packages) and a ``ServeConfig``
 cut down to the knobs the dense TRIM-KV serving path reads. The port
 imports nothing from the JAX package, so the architecture table and
 the lookup helpers live here too; an architecture the port cannot run
@@ -84,6 +85,24 @@ class ModelConfig:
         while len(out) < self.num_layers:
             out.extend(unit)
         return tuple(out[: self.num_layers])
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    learning_rate: float = 2e-4       # paper App. B.1
+    weight_decay: float = 0.01        # paper App. B.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    capacity_M: int = 256             # paper Sec 5.1: M=256 (math), 1024 (long-ctx)
+    lambda_cap: float = 1.0           # paper Sec 5.1
+    use_kl: bool = True
+    use_ntp: bool = True
+    use_cap: bool = True
+    remat: bool = True
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.models.common import LOG_BETA_MIN, dense, dense_apply
+from repro_torch.models.common import (LOG_BETA_MIN, const, dense,
+                                       dense_apply)
 
 
 class Gate(nn.Module):
@@ -37,5 +38,9 @@ def gate_beta(g: Gate, x):
 
 
 def gate_log_beta(g: Gate, x):
-    """log(beta) as -softplus(-logits), clamped at LOG_BETA_MIN."""
-    return torch.clamp(-F.softplus(-gate_logits(g, x)), min=LOG_BETA_MIN)
+    """log(beta) as -softplus(-logits), clamped at LOG_BETA_MIN. The
+    clamp is ``torch.maximum`` against a cached tensor: its gradient at
+    the bound is 0.5, as ``jnp.maximum``'s (``torch.clamp`` would give
+    1)."""
+    lb = -F.softplus(-gate_logits(g, x))
+    return torch.maximum(lb, const(LOG_BETA_MIN, lb.device))

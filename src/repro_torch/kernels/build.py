@@ -28,12 +28,14 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; each returns cudaError_t
 SIGNATURES = {
     "decode_attention_launch": [_I] + [_P] * 10 + [_I] * 6 + [_P],
     "chunk_attention_launch": [_I] + [_P] * 9 + [_I] * 7 + [_P],
     "retention_attention_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P],
+    "capacity_loss_fwd_launch": [_P] * 3 + [_I] * 2 + [_F, _P],
+    "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 3 + [_F, _P],
 }
 
 _lib = None

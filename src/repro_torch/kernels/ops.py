@@ -1,13 +1,19 @@
-"""Dispatch for the attention kernels, by device.
+"""Dispatch for the attention and capacity-loss kernels, by device.
 
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor goes to the hand-written CUDA kernel, which launches or raises —
 there is no fallback from one to the other. ``LAUNCHES`` counts the
-kernel launches made through these functions, one per call that
-reaches a kernel; CPU calls count nothing.
+kernel launches made through these functions, one per launch: the
+capacity loss counts its forward kernel under ``capacity_loss`` and,
+when autograd runs its backward, the backward kernel under
+``capacity_loss_bwd``. CPU calls count nothing.
 """
 from __future__ import annotations
 
+import torch
+
+from repro_torch.kernels.capacity_loss import (CapacityLoss,
+                                               capacity_loss_torch)
 from repro_torch.kernels.chunk_attention import (chunk_attention_cuda,
                                                  chunk_attention_torch)
 from repro_torch.kernels.decode_attention import (decode_attention_cuda,
@@ -15,7 +21,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
 from repro_torch.kernels.retention_attention import (
     retention_attention_cuda, retention_attention_torch)
 
-KERNELS = ("decode_attention", "chunk_attention", "retention_attention")
+KERNELS = ("decode_attention", "chunk_attention", "retention_attention",
+           "capacity_loss", "capacity_loss_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -26,6 +33,10 @@ def reset_launches():
 
 def _on_cpu(x) -> bool:
     return x.device.type == "cpu"
+
+
+def _launched(name: str):
+    LAUNCHES[name] += 1
 
 
 def decode_attention(q_t, k_cache, v_cache, pos, t, *, window=0,
@@ -66,3 +77,20 @@ def retention_attention(q, k, v, log_beta=None, *, causal=True, window=0,
     LAUNCHES["retention_attention"] += 1
     return retention_attention_cuda(q, k, v, log_beta, causal=causal,
                                     window=window, q_offset=q_offset)
+
+
+def capacity_loss_log(log_beta, M: float):
+    """L_cap from log_beta [B, T, H] (the gates' log-space output), the
+    form training calls; differentiable. See kernels/capacity_loss.py."""
+    if _on_cpu(log_beta):
+        return capacity_loss_torch(log_beta, M)
+    return CapacityLoss.apply(log_beta, M, _launched)
+
+
+def capacity_loss(beta, M: float):
+    """L_cap from beta [B, T, H], taking logs as capacity_loss_pallas
+    does: log(max(beta, 1e-30))."""
+    b = beta.float()
+    return capacity_loss_log(
+        torch.log(torch.maximum(b, torch.full((), 1e-30, device=b.device))),
+        M)

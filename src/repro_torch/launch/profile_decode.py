@@ -11,9 +11,10 @@ chunks of 512 under budget 512, then:
    clock when the Python loop returns (the enqueue; PyTorch returns
    before the card finishes) and once after a synchronize (the wall);
 2. runs 8 more under torch.profiler (CPU and CUDA) and prints the
-   device busy time per step (the sum of the kernels' self time), the
-   card's idle share of the untraced wall (1 - busy / wall), and the
-   top operators by host and by device time.
+   device busy time and the kernel launches per step (the sum of the
+   kernels' self time and calls), the card's idle share of the
+   untraced wall (1 - busy / wall), and the top operators by host and
+   by device time.
 
 When enqueue and wall are equal and the idle share is high, decode is
 bound by the host's launches, not by the card.
@@ -70,16 +71,17 @@ def main():
         traced_wall = (time.perf_counter() - t0) / STEPS
     events = prof.key_averages()
     # kernels only: an operator's own row repeats its kernels' time
-    busy = sum(e.self_device_time_total for e in events
-               if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation) / 1e3 / STEPS
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / STEPS
+    launches = sum(e.count for e in kernels) / STEPS
     print(f"decode step, {cfg.name} {cfg.num_layers} layers, batch {B}, "
           f"budget {BUDGET}: enqueue {enqueue * 1e3:.2f} ms, wall "
           f"{wall * 1e3:.2f} ms ({B / wall:.1f} tok/s)")
     print(f"traced ({len(events)} distinct ops): wall "
           f"{traced_wall * 1e3:.2f} ms, device busy "
-          f"{busy:.2f} ms per step; idle share of the untraced wall "
-          f"{1 - busy / (wall * 1e3):.3f}")
+          f"{busy:.2f} ms and {launches:.0f} kernel launches per step; "
+          f"idle share of the untraced wall {1 - busy / (wall * 1e3):.3f}")
     print(events.table(sort_by="self_cpu_time_total", row_limit=12))
     print(events.table(sort_by="self_device_time_total", row_limit=12))
 

@@ -1,5 +1,5 @@
 """Dense transformer blocks (kinds "global" and "local"): init, state
-and apply in prefill, chunked-prefill and decode modes.
+and apply in prefill, chunked-prefill, decode and training modes.
 
 Ported from ``repro/models/blocks.py``, cut to the dense self-attention
 path. A block is an ``nn.Module`` holding its retention gate (or None);
@@ -17,7 +17,8 @@ from repro_torch.core import gates as gates_lib
 from repro_torch.core.cache import cache_insert, cache_topm_merge, init_cache
 from repro_torch.core.gates import Gate
 from repro_torch.kernels import ops
-from repro_torch.models.common import (MLP, RMSNorm, apply_rope, dense,
+from repro_torch.models.common import (MLP, RMSNorm, apply_rope,
+                                       chunked_attention, dense,
                                        dense_apply, mlp_apply,
                                        rmsnorm_apply, to_dtype)
 
@@ -219,3 +220,41 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
                              policy.keep_scores, chunk_scores)
     x = x + dense_apply(block.attn.wo, out.reshape(B, C, cfg.q_dim))
     return _ffn_residual(block, cfg, x), cache, None
+
+
+# ======================================================== block: train
+
+
+def self_attn_train(block: DenseBlock, cfg, x, *, gated, cap_M,
+                    q_offset=0):
+    """Training-mode (full-sequence) self-attention over x [B, T, d];
+    retention-gated when ``gated`` (paper Eq. 3): log_beta from the
+    gate biases the logits, and with ``cap_M`` the block's L_cap goes
+    through ``ops.capacity_loss_log`` (the CUDA kernels on the card).
+    Attention itself is the plain ``chunked_attention``, as the JAX
+    package computes it in XLA. Returns (out [B, T, d], cap scalar)."""
+    B, T, _ = x.shape
+    normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
+    positions = (q_offset + torch.arange(T, device=x.device))[None].expand(
+        B, T)
+    q, k, v = _qkv(block, cfg, normed, positions)
+    log_beta = None
+    cap = torch.zeros((), dtype=torch.float32, device=x.device)
+    if gated and block.gate is not None:
+        log_beta = gates_lib.gate_log_beta(block.gate, normed)  # [B,T,Hkv]
+        if cap_M is not None:
+            cap = ops.capacity_loss_log(log_beta, cap_M)
+    out = chunked_attention(q, k, v, log_beta=log_beta, causal=True,
+                            window=_window(cfg, block.kind),
+                            q_offset=q_offset, q_block=cfg.attn_q_block,
+                            kv_block=cfg.attn_kv_block)
+    return dense_apply(block.attn.wo, out.reshape(B, T, cfg.q_dim)), cap
+
+
+def apply_block_train(block: DenseBlock, cfg, x, *, gated=False,
+                      cap_M=None):
+    """Training forward of a dense block over x [B, T, d]. Returns
+    (x_out, cap): the block's capacity loss, zero when not gated."""
+    _require_dense(block.kind)
+    attn_out, cap = self_attn_train(block, cfg, x, gated=gated, cap_M=cap_M)
+    return _ffn_residual(block, cfg, x + attn_out), cap

@@ -1,5 +1,5 @@
 """The dense stack: init, logits, decode state, single-shot and chunked
-prefill, decode, sampling and the token loops.
+prefill, decode, sampling, the token loops and the training forward.
 
 Ported from ``repro/models/transformer.py`` (dense path). The model is
 a ``Transformer`` module holding its blocks in order; the JAX package's
@@ -15,8 +15,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models import blocks
-from repro_torch.models.common import (RMSNorm, dense, resolve_device,
-                                       rmsnorm_apply, to_dtype)
+from repro_torch.models.common import (RMSNorm, checkpointed, dense,
+                                       resolve_device, rmsnorm_apply,
+                                       to_dtype)
 
 
 class Transformer(nn.Module):
@@ -73,6 +74,18 @@ def init_gate_params(model: Transformer, cfg, *, seed: int = 1):
         if gate is not None:
             block.gate = gate.requires_grad_(False)
     return model
+
+
+def num_gate_layers(cfg) -> int:
+    return sum(1 for k in cfg.layer_kinds()
+               if cfg.trimkv and k in ("global", "local", "cross"))
+
+
+def gate_parameters(model: Transformer):
+    """The retention gates' parameters, in layer order: what training
+    updates (the base stays frozen)."""
+    return [p for block in model.layers if block.gate is not None
+            for p in block.gate.parameters()]
 
 
 def compute_logits(model: Transformer, cfg, hidden):
@@ -196,3 +209,28 @@ def teacher_force_loop(model: Transformer, cfg, state, tokens, policy):
         state, logits = decode_step(model, cfg, state, tokens[:, i], policy)
         preds.append(torch.argmax(logits, dim=-1))
     return state, torch.stack(preds, dim=1)
+
+
+def forward_train(model: Transformer, cfg, tokens, *, gated=False,
+                  cap_M=None, remat=False):
+    """tokens: [B, T] -> (hidden [B, T, d], aux).
+
+    aux = {"cap": summed per-layer capacity losses, "n_gate_layers":
+    python int}. When ``gated``, attention uses the retention bias
+    (student); otherwise vanilla attention (teacher). ``remat`` runs
+    each block under ``torch.utils.checkpoint`` (non-reentrant), keeping
+    only the residual stream between blocks; backward recomputes the
+    block, its L_cap forward included. Without autograd (the teacher
+    under ``torch.no_grad``) nothing is checkpointed."""
+    h = _embed(model, tokens)
+    cap_total = torch.zeros((), dtype=torch.float32, device=h.device)
+
+    def body(block, h):
+        return blocks.apply_block_train(block, cfg, h, gated=gated,
+                                        cap_M=cap_M)
+
+    for block in model.layers:
+        h, cap = checkpointed(body, block, h) if remat else body(block, h)
+        cap_total = cap_total + cap
+    h = rmsnorm_apply(model.final_norm.scale, h, cfg.norm_eps)
+    return h, {"cap": cap_total, "n_gate_layers": num_gate_layers(cfg)}

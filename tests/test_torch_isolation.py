@@ -47,7 +47,8 @@ def test_importing_the_port_loads_no_jax():
     """tests/conftest.py imports jax in this process, so the check runs
     in a fresh interpreter."""
     res = _run("import sys, repro_torch.serve.engine, "
-               "repro_torch.launch.serve, repro_torch.bridge; "
+               "repro_torch.launch.serve, repro_torch.bridge, "
+               "repro_torch.launch.train, repro_torch.checkpoint; "
                "bad = [m for m in sys.modules "
                "if m.split('.')[0] in ('jax', 'repro')]; "
                "print(bad); assert not bad")
@@ -76,12 +77,18 @@ def test_cpu_tensors_count_no_kernel_launches():
     ops.chunk_attention(f(1, 4, 2, 16), f(1, 4, 1, 16), f(1, 4, 1, 16),
                         cache, torch.arange(4, dtype=torch.int32) + 9)
     ops.retention_attention(f(1, 4, 2, 16), f(1, 4, 1, 16), f(1, 4, 1, 16))
+    lb = (-f(1, 40, 2).abs()).requires_grad_(True)
+    ops.capacity_loss_log(lb, 4).backward()
+    ops.capacity_loss(f(1, 40, 2).sigmoid(), 4)
     assert ops.LAUNCHES == dict.fromkeys(ops.KERNELS, 0)
+    assert set(ops.KERNELS) >= {"capacity_loss", "capacity_loss_bwd"}
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises; it never computes on the
     CPU itself."""
+    from repro_torch.kernels.capacity_loss import (capacity_loss_bwd_cuda,
+                                                   capacity_loss_fwd_cuda)
     from repro_torch.kernels.retention_attention import \
         retention_attention_cuda
 
@@ -89,14 +96,24 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         retention_attention_cuda(x, x[:, :, :1].contiguous(),
                                  x[:, :, :1].contiguous())
+    lb = torch.zeros((1, 40, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        capacity_loss_fwd_cuda(lb, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        capacity_loss_bwd_cuda(lb, torch.zeros((2, 40)), 4, torch.ones(()))
 
 
 def test_entry_points_refuse_without_a_card():
     """Entry points default to the card and never fall back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA card")
-    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs import TrainConfig, get_smoke_config
+    from repro_torch.data.pipeline import DataConfig
     from repro_torch.models import transformer as T
+    from repro_torch.train.trainer import train_loop
 
+    cfg = get_smoke_config("trimkv-paper-4b")
     with pytest.raises(RuntimeError, match="cuda"):
-        T.init_params(get_smoke_config("trimkv-paper-4b"))
+        T.init_params(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train_loop(cfg, TrainConfig(), DataConfig(), steps=1)

@@ -1,21 +1,40 @@
-"""The port's plain attention versions against the JAX package's Pallas
-kernels (interpret mode on the CPU, as tests/test_kernels.py runs them).
+"""The port's plain kernel versions against the JAX package's Pallas
+kernels (interpret mode on the CPU, as tests/test_kernels.py runs them)
+and, for the capacity loss's gradient, against jax.grad of the JAX
+package's differentiable capacity_loss_chunked.
 
 Every input is drawn once with numpy from a fixed seed and handed to
-both. Tolerance: 2e-5 absolute and relative in float32, the bar of
-tests/test_kernels.py — the two sides sum in different orders.
-The CUDA kernels themselves run only on a card: chip_smoke.py holds
-each against these plain versions there.
+both. Tolerances: attention 2e-5 absolute and relative in float32, the
+bar of tests/test_kernels.py — the two sides sum in different orders;
+the capacity loss rtol 1e-5 (atol 1e-7) on the value and rtol 1e-4
+(atol 1e-7) on the log-space value and its gradient, the bars of the
+capacity tests there. The CUDA kernels themselves run only on a card:
+chip_smoke.py holds each against these plain versions there.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.losses import capacity_loss_chunked as jax_capacity_chunked
 from repro.kernels import ops as jops
+from repro_torch.core.losses import capacity_loss_ref
 from repro_torch.kernels import ops
+from repro_torch.kernels.capacity_loss import (capacity_loss_bwd_torch,
+                                               occupancy_torch)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are small: one intra-op thread. A pool of eight
+    takes ~10 ms to wake for each op while XLA's own pool is live."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np(x):
@@ -178,3 +197,101 @@ def test_retention_attention_matches_pallas(use_beta, q_offset, window):
         torch.as_tensor(lb) if use_beta else None, window=window,
         q_offset=q_offset)
     _close(got, want)
+
+
+# ------------------------------------------------------- capacity loss
+
+
+def _sigmoid(x):
+    return 1.0 / (1.0 + np.exp(-x))
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla", "ref"])
+@pytest.mark.parametrize("B,H,T", [(1, 1, 64), (2, 3, 200), (1, 2, 257)])
+@pytest.mark.parametrize("M", [1, 8, 64])
+def test_capacity_loss_matches_jax(impl, B, H, T, M):
+    """L_cap from beta against capacity_loss_pallas and the chunked XLA
+    path, on the grid of tests/test_kernels.py; the port's O(T^2)
+    oracle against the JAX package's."""
+    rng = np.random.RandomState(10)
+    beta = _sigmoid(2.0 * rng.randn(B, T, H)).astype(np.float32)
+    want = jops.capacity_loss(jnp.asarray(beta), float(M), impl=impl)
+    if impl == "ref":
+        got = capacity_loss_ref(torch.as_tensor(beta), M)
+    else:
+        got = ops.capacity_loss(torch.as_tensor(beta), M)
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-5, atol=1e-7)
+
+
+def _log_beta(rng, B, T, H):
+    """-softplus(-logits), the gates' log-space output."""
+    x = 3.0 * rng.randn(B, T, H) + 4.0      # beta from 0.5 to ~1
+    return (-np.logaddexp(0.0, -x)).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,H,T,M", [(1, 1, 64, 1), (2, 3, 200, 8),
+                                     (1, 2, 257, 64)])
+def test_capacity_loss_log_matches_jax(B, H, T, M):
+    """The log-space form training calls, value and gradient in
+    log_beta, against capacity_loss_chunked(log_beta=...) and
+    jax.grad."""
+    lb = _log_beta(np.random.RandomState(11), B, T, H)
+    want, g_want = jax.jit(jax.value_and_grad(
+        lambda x: jax_capacity_chunked(jnp.exp(x), float(M), log_beta=x)))(
+            jnp.asarray(lb))
+    lbt = torch.as_tensor(lb).requires_grad_(True)
+    got = ops.capacity_loss_log(lbt, M)
+    (g_got,) = torch.autograd.grad(got, lbt)
+    assert float(want) > 0
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(g_got.numpy(), np.asarray(g_want), rtol=1e-4,
+                               atol=1e-7)
+
+
+def _bwd_case(case):
+    """(log_beta [B, T, H], M): random gates over budget; beta = 1.0
+    exactly, where S_t = t + 1 meets the integer M at t = M - 1 (a
+    tie); beta = 0.1, where S_t < 1.12 stays under budget."""
+    if case == "random":
+        return _log_beta(np.random.RandomState(12), 2, 200, 3), 8
+    if case == "tie":
+        return np.zeros((1, 64, 2), np.float32), 8
+    return np.full((1, 32, 1), np.log(np.float32(0.1)), np.float32), 32
+
+
+@pytest.mark.parametrize("case", ["random", "tie", "under_budget"])
+def test_capacity_loss_bwd_closed_form(case):
+    """capacity_loss_bwd_torch (the backward kernel's plain version)
+    against autograd of the plain forward and against jax.grad, with an
+    incoming gradient g = 0.7."""
+    lb, M = _bwd_case(case)
+    B, T, H = lb.shape
+    g = 0.7
+    lbt = torch.as_tensor(lb)
+    S = occupancy_torch(lbt)
+    got = capacity_loss_bwd_torch(lbt, S, M, torch.tensor(g))
+    x = lbt.clone().requires_grad_(True)
+    (auto,) = torch.autograd.grad(ops.capacity_loss_log(x, M) * g, x)
+    j_grad = jax.grad(lambda x: g * jax_capacity_chunked(
+        jnp.exp(x), float(M), log_beta=x))(jnp.asarray(lb))
+    np.testing.assert_allclose(got.numpy(), auto.numpy(), rtol=1e-4,
+                               atol=1e-7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(j_grad), rtol=1e-4,
+                               atol=1e-7)
+    # S is the occupancy the loss is made of
+    t1 = torch.arange(1, T + 1, dtype=torch.float32)
+    loss = (torch.clamp(S - M, min=0) / t1).mean()
+    np.testing.assert_allclose(float(loss), float(ops.capacity_loss_log(
+        lbt, M)), rtol=1e-5, atol=1e-7)
+    if case == "tie":
+        assert torch.equal(S, t1.expand(B * H, T))    # S_{M-1} = M exactly
+        row = torch.arange(T) == M - 1
+        above, below = (capacity_loss_bwd_torch(
+            lbt, torch.where(row, S + d, S), M, torch.tensor(g))
+            for d in (0.5, -0.5))
+        # the tied row weighs half: halfway between over and under budget
+        assert (above != below).any()
+        np.testing.assert_allclose(got.numpy(), ((above + below) / 2).numpy(),
+                                   rtol=1e-6, atol=1e-9)
+    if case == "under_budget":
+        assert not got.numpy().any()
