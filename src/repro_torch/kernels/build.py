@@ -28,12 +28,17 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# head dim of the tensor-core (bfloat16) attention kernels
+TC_HEAD_DIM = 128
+
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; each returns cudaError_t
 SIGNATURES = {
     "decode_attention_launch": [_I] + [_P] * 10 + [_I] * 6 + [_P],
-    "chunk_attention_launch": [_I] + [_P] * 9 + [_I] * 7 + [_P],
-    "retention_attention_launch": [_I] + [_P] * 5 + [_I] * 9 + [_P],
+    "chunk_attention_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "retention_attention_launch": [_P] * 5 + [_I] * 9 + [_P],
+    "chunk_attention_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
+    "retention_attention_tc_launch": [_P] * 5 + [_I] * 8 + [_P],
     "capacity_loss_fwd_launch": [_P] * 3 + [_I] * 2 + [_F, _P],
     "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 3 + [_F, _P],
 }
@@ -141,6 +146,18 @@ def check_device(x):
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"kernel dtype must be bfloat16 or float32, "
                         f"got {x.dtype}")
+
+
+def check_tc(D, **tensors):
+    """Raise unless the tensor-core kernels take these (contiguous,
+    already checked) tensors: head dim TC_HEAD_DIM, and base pointers
+    16-byte aligned, as TMA needs."""
+    if D != TC_HEAD_DIM:
+        raise ValueError(f"the bfloat16 kernels take head dim "
+                         f"{TC_HEAD_DIM}, got {D}")
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: TMA needs a 16-byte-aligned base")
 
 
 def check(err: int, name: str):

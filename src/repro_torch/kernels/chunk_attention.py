@@ -2,12 +2,14 @@
 wrapper and its plain PyTorch version.
 
 Replaces the Pallas kernel ``chunk_attention_pallas``
-(``repro/kernels/chunk_attention.py``); the kernel itself is
-``csrc/chunk_attention.cu``. The C queries of a prefill chunk attend
-over the M cache slots (per-head positions, -1 empty) and causally over
-the chunk's own keys. A key is visible iff its position is >= 0 and
-0 <= q_pos - k_pos (< window when windowed); chunk_pos -1 marks the
-padded tail, whose queries give zero. Returns (out [B, C, Hq, D],
+(``repro/kernels/chunk_attention.py``) with two CUDA kernels, one per
+dtype: bfloat16 runs ``csrc/chunk_attention_tc.cu`` (wgmma and TMA on
+the tensor cores, head dim 128), float32 runs
+``csrc/chunk_attention.cu`` (CUDA-core FMAs). The C queries of a
+prefill chunk attend over the M cache slots (per-head positions, -1
+empty) and causally over the chunk's own keys. A key is visible iff
+its position is >= 0 and 0 <= q_pos - k_pos (< window when windowed);
+chunk_pos -1 marks the padded tail, whose queries give zero. Returns (out [B, C, Hq, D],
 probs_cache [B, Hkv, C, M] float32 — normalized attention over the
 cache slots averaged over each GQA group — or None when need_probs is
 False).
@@ -65,9 +67,13 @@ def chunk_attention_torch(q, k_c, v_c, cache_k, cache_v, cache_pos,
 
 def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
                          chunk_pos, *, window=0, need_probs=True):
-    """Launch ``csrc/chunk_attention.cu``. Same contract as the plain
-    version; every tensor must be a contiguous CUDA tensor, q/k/v and
-    the cache in one dtype (bfloat16 or float32), positions int32."""
+    """Launch the kernel of q's dtype: bfloat16
+    ``csrc/chunk_attention_tc.cu`` (head dim 128, 16-byte-aligned
+    tensors, as TMA reads them; M + C up to ~8,000 keys, the positions
+    it keeps in shared memory), float32 ``csrc/chunk_attention.cu``.
+    Same contract as the plain version; every tensor must be a
+    contiguous CUDA tensor, q/k/v and the cache in one dtype, positions
+    int32."""
     build.check_device(q)
     dev, dt = q.device, q.dtype
     B, C, Hq, D = q.shape
@@ -85,12 +91,19 @@ def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
     out = torch.empty_like(q)
     probs = (torch.empty((B, Hq, C, M), dtype=torch.float32, device=dev)
              if need_probs else None)
-    err = build.library().chunk_attention_launch(
-        int(dt == torch.bfloat16), q.data_ptr(), k_c.data_ptr(),
-        v_c.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(),
-        cache_pos.data_ptr(), cp2.data_ptr(), out.data_ptr(),
-        None if probs is None else probs.data_ptr(), B, C, Hq, Hkv, M, D,
-        int(window), torch.cuda.current_stream(dev).cuda_stream)
+    ptrs = (q.data_ptr(), k_c.data_ptr(), v_c.data_ptr(),
+            cache_k.data_ptr(), cache_v.data_ptr(), cache_pos.data_ptr(),
+            cp2.data_ptr(), out.data_ptr(),
+            None if probs is None else probs.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dt == torch.bfloat16:
+        build.check_tc(D, q=q, k_c=k_c, v_c=v_c, cache_k=cache_k,
+                       cache_v=cache_v, out=out)
+        err = build.library().chunk_attention_tc_launch(
+            *ptrs, B, C, Hq, Hkv, M, int(window), stream)
+    else:
+        err = build.library().chunk_attention_launch(
+            *ptrs, B, C, Hq, Hkv, M, D, int(window), stream)
     build.check(err, "chunk_attention")
     if not need_probs:
         return out, None

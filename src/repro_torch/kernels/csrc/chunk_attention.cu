@@ -1,15 +1,16 @@
-// Flash chunk-query attention over (slot cache ∪ chunk), for Hopper
-// (sm_90a).
+// Flash chunk-query attention over (slot cache ∪ chunk) in float32,
+// for Hopper (sm_90a): the float32 route (bf16 runs
+// chunk_attention_tc.cu).
 //
 // Replaces the Pallas TPU kernel `chunk_attention_pallas`
-// (src/repro/kernels/chunk_attention.py, body `_chunk_kernel`): the C
-// queries of a prefill chunk attend over the M cache slots (per-head
-// cache_pos, -1 empty) and then causally over the chunk's own keys,
-// which come as a separate operand. A key is visible iff its position
-// is >= 0 and 0 <= q_pos - k_pos (< window when windowed); padded
-// queries (chunk_pos = -1) see nothing and give zero. Optional
-// normalized probabilities over the cache slots, per q head
-// [B, Hq, C, M]; the wrapper averages them over each GQA group.
+// (src/repro/kernels/chunk_attention.py, body `_chunk_kernel`) for
+// float32 tensors: the C queries of a prefill chunk attend over the M
+// cache slots (per-head cache_pos, -1 empty) and then causally over
+// the chunk's own keys, which come as a separate operand. A key is
+// visible iff its position is >= 0 and 0 <= q_pos - k_pos (< window
+// when windowed); padded queries (chunk_pos = -1) see nothing and give
+// zero. Optional normalized probabilities over the cache slots, per q
+// head [B, Hq, C, M]; the wrapper averages them over each GQA group.
 //
 // Design: one CTA per (lane, q head, tile of 16 queries). It walks the
 // cache tiles, then the chunk tiles, 32 keys at a time
@@ -18,26 +19,26 @@
 // loaded.
 //
 // Bound on the H100: operations. At the main-path shape (B=4, C=512,
-// Hq=32, Hkv=8, M=512, D=128, bf16) a full cache and a causal chunk give
+// Hq=32, Hkv=8, M=512, D=128) a full cache and a causal chunk give
 // 4 * B * Hq * D * C * (M + (C + 1) / 2) ~ 25.8 GFLOP per call, about
-// 26 us at 989 TF/s bf16; the 4.2 MB of K/V it must read take 1.3 us.
+// 0.38 ms at 67 TF/s float32 outside the tensor cores; the ~101 MB it
+// must move take 30 us.
 //
-// What the simple design leaves on the table: Q.K and P.V run as
-// float32 FMAs on the CUDA cores out of shared memory, not on the
-// tensor cores (wgmma), so the kernel is bound by shared-memory
-// bandwidth at a few percent of the bf16 peak; each of the C / 16
-// q tiles of a head re-reads the whole cache and chunk (from L2), and
-// loads are scalar with a barrier per tile instead of a TMA ring.
+// What the simple design leaves on the table: Q.K and P.V run as FMAs
+// out of shared memory, so the kernel is bound by shared-memory
+// bandwidth; each of the C / 16 q tiles of a head re-reads the whole
+// cache and chunk (from L2), and loads are scalar with a barrier per
+// tile instead of a TMA ring.
 #include "flash_tile.cuh"
 
 using namespace flash;
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-chunk_kernel(const T *__restrict__ q, const T *__restrict__ k_c,
-             const T *__restrict__ v_c, const T *__restrict__ cache_k,
-             const T *__restrict__ cache_v, const int *__restrict__ cache_pos,
-             const int *__restrict__ chunk_pos, T *__restrict__ out,
+chunk_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
+             const float *__restrict__ v_c, const float *__restrict__ cache_k,
+             const float *__restrict__ cache_v,
+             const int *__restrict__ cache_pos,
+             const int *__restrict__ chunk_pos, float *__restrict__ out,
              float *__restrict__ probs, int C, int Hq, int Hkv, int M, int D,
              int window, float scale) {
   extern __shared__ float smem_f[];
@@ -112,34 +113,21 @@ chunk_kernel(const T *__restrict__ q, const T *__restrict__ k_c,
 }
 
 extern "C" int chunk_attention_launch(
-    int is_bf16, const void *q, const void *k_c, const void *v_c,
-    const void *cache_k, const void *cache_v, const void *cache_pos,
-    const void *chunk_pos, void *out, void *probs, int B, int C, int Hq,
-    int Hkv, int M, int D, int window, void *stream) {
+    const void *q, const void *k_c, const void *v_c, const void *cache_k,
+    const void *cache_v, const void *cache_pos, const void *chunk_pos,
+    void *out, void *probs, int B, int C, int Hq, int Hkv, int M, int D,
+    int window, void *stream) {
   if (D > MAX_D || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int n_qt = (C + TQ - 1) / TQ;
   const int n_mt = (M + TK - 1) / TK;
   const size_t smem = Smem::bytes(D, probs ? n_mt : 0);
   const float scale = 1.0f / sqrtf((float)D);
-  dim3 grid(B * Hq * n_qt), block(NT);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    err = allow_smem((const void *)chunk_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    chunk_kernel<T><<<grid, block, smem, st>>>(
-        (const T *)q, (const T *)k_c, (const T *)v_c, (const T *)cache_k,
-        (const T *)cache_v, (const int *)cache_pos, (const int *)chunk_pos,
-        (T *)out, (float *)probs, C, Hq, Hkv, M, D, window, scale);
-  } else {
-    using T = float;
-    err = allow_smem((const void *)chunk_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    chunk_kernel<T><<<grid, block, smem, st>>>(
-        (const T *)q, (const T *)k_c, (const T *)v_c, (const T *)cache_k,
-        (const T *)cache_v, (const int *)cache_pos, (const int *)chunk_pos,
-        (T *)out, (float *)probs, C, Hq, Hkv, M, D, window, scale);
-  }
+  cudaError_t err = allow_smem((const void *)chunk_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  chunk_kernel<<<B * Hq * n_qt, NT, smem, (cudaStream_t)stream>>>(
+      (const float *)q, (const float *)k_c, (const float *)v_c,
+      (const float *)cache_k, (const float *)cache_v, (const int *)cache_pos,
+      (const int *)chunk_pos, (float *)out, (float *)probs, C, Hq, Hkv, M, D,
+      window, scale);
   return (int)cudaGetLastError();
 }

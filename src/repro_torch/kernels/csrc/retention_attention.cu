@@ -1,13 +1,14 @@
-// Retention-gated causal flash attention, for Hopper (sm_90a).
+// Retention-gated causal flash attention in float32, for Hopper
+// (sm_90a): the float32 route (bf16 runs retention_attention_tc.cu).
 //
 // Replaces the Pallas TPU kernel `retention_attention_pallas`
-// (src/repro/kernels/retention_attention.py, body `_flash_kernel`):
-// attention of q [B, Tq, Hq, D] over k, v [B, Tk, Hkv, D] with GQA, an
-// optional causal mask and window measured from the absolute query
-// position q_offset + row, and an optional retention bias
-// (q_pos - i) * log_beta_i added to the logits of visible keys
-// (log_beta [B, Tk, Hkv] float32). Single-shot prefill runs it causal
-// with no bias; the bias serves the gated training forward.
+// (src/repro/kernels/retention_attention.py, body `_flash_kernel`) for
+// float32 tensors: attention of q [B, Tq, Hq, D] over k, v
+// [B, Tk, Hkv, D] with GQA, an optional causal mask and window measured
+// from the absolute query position q_offset + row, and an optional
+// retention bias (q_pos - i) * log_beta_i added to the logits of
+// visible keys (log_beta [B, Tk, Hkv] float32). A float32 model's
+// single-shot prefill runs it causal with no bias.
 //
 // Design: one CTA per (lane, q head, tile of 16 queries). The key
 // tiles it walks are cut to those the causal mask and window leave
@@ -16,15 +17,15 @@
 // mean of the masked values there; no caller produces such a row).
 //
 // Bound on the H100: operations. At the main-path shape (B=4, T=2000,
-// Hq=32, D=128, causal, bf16) the visible pairs need
-// 4 * B * Hq * D * T (T + 1) / 2 ~ 131 GFLOP, about 0.13 ms at
-// 989 TF/s bf16; the 2 * 4 * 2000 * 8 * 128 * 2 B = 33 MB of K/V and
-// 131 MB of q and out take about 0.05 ms.
+// Hq=32, D=128, causal) the visible pairs need
+// 4 * B * Hq * D * T (T + 1) / 2 ~ 131 GFLOP, about 2.0 ms at
+// 67 TF/s float32 outside the tensor cores; the 2 * 4 * 2000 * 8 *
+// 128 * 4 B = 66 MB of K/V and 262 MB of q and out take about 0.1 ms.
 //
-// What the simple design leaves on the table: Q.K and P.V are float32
-// FMAs on the CUDA cores out of shared memory rather than wgmma on the
-// tensor cores, tiles are 16 x 32, and K/V are re-read by every q tile
-// of every head in the group with scalar loads and a barrier per tile.
+// What the simple design leaves on the table: Q.K and P.V are FMAs
+// out of shared memory with tiles of 16 x 32, and K/V are re-read by
+// every q tile of every head in the group with scalar loads and a
+// barrier per tile.
 #include "flash_tile.cuh"
 
 using namespace flash;
@@ -40,11 +41,10 @@ struct RetentionMask {
   }
 };
 
-template <typename T>
 __global__ void __launch_bounds__(NT)
-retention_kernel(const T *__restrict__ q, const T *__restrict__ k,
-                 const T *__restrict__ v, const float *__restrict__ log_beta,
-                 T *__restrict__ out, int Tq, int Tk, int Hq, int Hkv, int D,
+retention_kernel(const float *__restrict__ q, const float *__restrict__ k,
+                 const float *__restrict__ v,
+                 const float *__restrict__ log_beta, float *__restrict__ out, int Tq, int Tk, int Hq, int Hkv, int D,
                  int causal, int window, int q_offset, float scale) {
   extern __shared__ float smem_f[];
   const int n_qt = (Tq + TQ - 1) / TQ;
@@ -91,30 +91,18 @@ retention_kernel(const T *__restrict__ q, const T *__restrict__ k,
 }
 
 extern "C" int retention_attention_launch(
-    int is_bf16, const void *q, const void *k, const void *v,
-    const void *log_beta, void *out, int B, int Tq, int Tk, int Hq, int Hkv,
-    int D, int causal, int window, int q_offset, void *stream) {
+    const void *q, const void *k, const void *v, const void *log_beta,
+    void *out, int B, int Tq, int Tk, int Hq, int Hkv, int D, int causal,
+    int window, int q_offset, void *stream) {
   if (D > MAX_D || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   const int n_qt = (Tq + TQ - 1) / TQ;
   const size_t smem = Smem::bytes(D, 0);
   const float scale = 1.0f / sqrtf((float)D);
-  dim3 grid(B * Hq * n_qt), block(NT);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    err = allow_smem((const void *)retention_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    retention_kernel<T><<<grid, block, smem, st>>>(
-        (const T *)q, (const T *)k, (const T *)v, (const float *)log_beta,
-        (T *)out, Tq, Tk, Hq, Hkv, D, causal, window, q_offset, scale);
-  } else {
-    using T = float;
-    err = allow_smem((const void *)retention_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    retention_kernel<T><<<grid, block, smem, st>>>(
-        (const T *)q, (const T *)k, (const T *)v, (const float *)log_beta,
-        (T *)out, Tq, Tk, Hq, Hkv, D, causal, window, q_offset, scale);
-  }
+  cudaError_t err = allow_smem((const void *)retention_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  retention_kernel<<<B * Hq * n_qt, NT, smem, (cudaStream_t)stream>>>(
+      (const float *)q, (const float *)k, (const float *)v,
+      (const float *)log_beta, (float *)out, Tq, Tk, Hq, Hkv, D, causal,
+      window, q_offset, scale);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,11 @@
 A tensor on the CPU goes to the kernel's plain PyTorch version; a CUDA
 tensor goes to the hand-written CUDA kernel, which launches or raises —
 there is no fallback from one to the other. ``LAUNCHES`` counts the
-kernel launches made through these functions, one per launch: the
+kernel launches made through these functions, one per launch. The
+attention kernels count under the name of the kernel that ran: bfloat16
+retention and chunk attention run the tensor-core kernels
+(``retention_attention``, ``chunk_attention``), float32 the CUDA-core
+kernels (``retention_attention_f32``, ``chunk_attention_f32``). The
 capacity loss counts its forward kernel under ``capacity_loss`` and,
 when autograd runs its backward, the backward kernel under
 ``capacity_loss_bwd``. CPU calls count nothing.
@@ -22,6 +26,7 @@ from repro_torch.kernels.retention_attention import (
     retention_attention_cuda, retention_attention_torch)
 
 KERNELS = ("decode_attention", "chunk_attention", "retention_attention",
+           "chunk_attention_f32", "retention_attention_f32",
            "capacity_loss", "capacity_loss_bwd")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
@@ -37,6 +42,12 @@ def _on_cpu(x) -> bool:
 
 def _launched(name: str):
     LAUNCHES[name] += 1
+
+
+def _route(name: str, x) -> str:
+    """The launch count of x's attention kernel: the tensor-core one for
+    bfloat16, the float32 one otherwise."""
+    return name if x.dtype == torch.bfloat16 else name + "_f32"
 
 
 def decode_attention(q_t, k_cache, v_cache, pos, t, *, window=0,
@@ -63,7 +74,7 @@ def chunk_attention(q, k_c, v_c, cache, chunk_pos, *, window=0,
     if _on_cpu(q):
         return chunk_attention_torch(*args, window=window,
                                      need_probs=need_probs)
-    LAUNCHES["chunk_attention"] += 1
+    LAUNCHES[_route("chunk_attention", q)] += 1
     return chunk_attention_cuda(*args, window=window, need_probs=need_probs)
 
 
@@ -74,7 +85,7 @@ def retention_attention(q, k, v, log_beta=None, *, causal=True, window=0,
     if _on_cpu(q):
         return retention_attention_torch(q, k, v, log_beta, causal=causal,
                                          window=window, q_offset=q_offset)
-    LAUNCHES["retention_attention"] += 1
+    LAUNCHES[_route("retention_attention", q)] += 1
     return retention_attention_cuda(q, k, v, log_beta, causal=causal,
                                     window=window, q_offset=q_offset)
 

@@ -2,12 +2,15 @@
 its plain PyTorch version.
 
 Replaces the Pallas kernel ``retention_attention_pallas``
-(``repro/kernels/retention_attention.py``); the kernel itself is
-``csrc/retention_attention.cu``. Attention of q [B, Tq, Hq, D] over
-k, v [B, Tk, Hkv, D] with GQA, an optional causal mask and window from
-the absolute query position q_offset + row, and an optional retention
-bias (q_pos - i) * log_beta_i on visible logits (log_beta [B, Tk, Hkv]
-float32). Single-shot prefill calls it causal with log_beta None.
+(``repro/kernels/retention_attention.py``) with two CUDA kernels, one
+per dtype: bfloat16 runs ``csrc/retention_attention_tc.cu`` (wgmma and
+TMA on the tensor cores, head dim 128), float32 runs
+``csrc/retention_attention.cu`` (CUDA-core FMAs). Attention of q
+[B, Tq, Hq, D] over k, v [B, Tk, Hkv, D] with GQA, an optional causal
+mask and window from the absolute query position q_offset + row, and
+an optional retention bias (q_pos - i) * log_beta_i on visible logits
+(log_beta [B, Tk, Hkv] float32). Single-shot prefill calls it causal
+with log_beta None.
 
 ``kernels.ops.retention_attention`` picks the version by the tensors'
 device; call that, not these.
@@ -54,9 +57,11 @@ def retention_attention_torch(q, k, v, log_beta=None, *, causal=True,
 
 def retention_attention_cuda(q, k, v, log_beta=None, *, causal=True,
                              window=0, q_offset=0):
-    """Launch ``csrc/retention_attention.cu``. Same contract as the
-    plain version; contiguous CUDA tensors, q/k/v in one dtype (bfloat16
-    or float32), log_beta float32, q_offset a Python int."""
+    """Launch the kernel of q's dtype: bfloat16
+    ``csrc/retention_attention_tc.cu`` (head dim 128, 16-byte-aligned
+    tensors, as TMA reads them), float32 ``csrc/retention_attention.cu``.
+    Same contract as the plain version; contiguous CUDA tensors, q/k/v
+    in one dtype, log_beta float32, q_offset a Python int."""
     build.check_device(q)
     dev, dt = q.device, q.dtype
     B, Tq, Hq, D = q.shape
@@ -70,10 +75,17 @@ def retention_attention_cuda(q, k, v, log_beta=None, *, causal=True,
         build.check_tensor("log_beta", log_beta, (B, Tk, Hkv),
                            torch.float32, dev)
     out = torch.empty_like(q)
-    err = build.library().retention_attention_launch(
-        int(dt == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        None if log_beta is None else log_beta.data_ptr(), out.data_ptr(),
-        B, Tq, Tk, Hq, Hkv, D, int(bool(causal)), int(window),
-        int(q_offset), torch.cuda.current_stream(dev).cuda_stream)
+    lb = None if log_beta is None else log_beta.data_ptr()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    opts = (int(bool(causal)), int(window), int(q_offset), stream)
+    if dt == torch.bfloat16:
+        build.check_tc(D, q=q, k=k, v=v, out=out)
+        err = build.library().retention_attention_tc_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lb, out.data_ptr(), B,
+            Tq, Tk, Hq, Hkv, *opts)
+    else:
+        err = build.library().retention_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lb, out.data_ptr(),
+            B, Tq, Tk, Hq, Hkv, D, *opts)
     build.check(err, "retention_attention")
     return out

@@ -1,0 +1,162 @@
+"""Planted faults against chip_smoke.py's limits for the bf16 attention
+kernels: a sound build must stay within every limit, and each planted
+fault must exceed one.
+
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults
+
+Needs one CUDA card and the repository's chip_smoke.py. For the sources
+as they are and for each fault in FAULTS (one textual change to a
+tensor-core kernel source) it copies src/repro_torch and chip_smoke.py
+into a temporary directory, applies the change, and runs, in a fresh
+process that builds that copy's kernels, chip_smoke's kernel phases
+that the fault touches and, where listed, its bf16 serving parity,
+with every limit lifted. Each bf16 case gives its row-relative error
+(chip_smoke.row_errors) and the parity its logit gap; the script
+prints every reading beside its limit, the largest reading of the
+sound build per kind, and exits non-zero unless the sound build stays
+within every limit and each fault exceeds at least one.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[3]
+CSRC = "src/repro_torch/kernels/csrc"
+
+# name, file, text, replacement, phases read
+FAULTS = [
+    ("retention: key tile 0 skipped by q tiles from row 1024",
+     "retention_attention_tc.cu", "const int t_begin = j_begin / BN;",
+     "const int t_begin = j_begin / BN + (r0 >= 1024);", ("retention",)),
+    ("retention: key tile 0 skipped by q tiles from row 128",
+     "retention_attention_tc.cu", "const int t_begin = j_begin / BN;",
+     "const int t_begin = j_begin / BN + (r0 >= 128);",
+     ("retention", "parity")),
+    ("chunk: cache tile 0 never loaded", "chunk_attention_tc.cu",
+     "if (vis[t]) list[n++] = t;", "if (vis[t] && t != 0) list[n++] = t;",
+     ("chunk", "parity")),
+    ("chunk: probs written as 0", "chunk_attention_tc.cu",
+     "if (key < M) rows[r][key] = p[4 * j + 2 * r + e];",
+     "if (key < M) rows[r][key] = 0.f;", ("chunk",)),
+    ("chunk: probs not rescaled by exp2(m_tile - m_final)",
+     "chunk_attention_tc.cu",
+     "const float sc = fast_exp2(mrow[r][t] - st.m[r]) * inv;",
+     "const float sc = inv;", ("chunk",)),
+    ("both: O not rescaled across key tiles", "hopper_flash.cuh",
+     "for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];",
+     "for (int i = 0; i < 64; ++i) o[i] *= 1.f;", ("chunk", "retention")),
+]
+SOUND = ("decode", "chunk", "retention", "parity")
+
+
+def child(phases):
+    """Run chip_smoke's phases with the limits lifted; print the
+    readings as JSON on the last line."""
+    import torch
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+
+    build.library()
+    readings = []
+
+    def record(name, got, want, kinds=("out", "probs")):
+        errs = []
+        for g, w, kind in zip(got, want, kinds):
+            a, r = cs.row_errors(g, w)
+            readings.append({"case": name, "kind": kind, "reading": r,
+                             "limit": cs.ROW_TOL[kind]})
+            errs.append(a)
+        return max(errs)
+
+    cs.check_rows = record
+    g = torch.Generator(device="cuda")
+    with torch.no_grad():
+        for name in ("decode", "chunk", "retention"):
+            if name in phases:
+                g.manual_seed(0)      # the same inputs in every run
+                getattr(cs, f"{name}_phase")(g)
+                torch.cuda.empty_cache()
+    if "parity" in phases:
+        limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
+        try:
+            _, par = cs.parity_phase("bfloat16")
+            gaps = {m: r["kernels vs cpu"] for m, r in par.items()}
+        except AssertionError as e:     # non-finite logits
+            print(f"parity bfloat16: {e}")
+            gaps = {"run": math.inf}
+        for mode, gap in gaps.items():
+            readings.append({"case": f"parity bfloat16 {mode}",
+                             "kind": "logits", "reading": gap,
+                             "limit": limit})
+    print(json.dumps(readings), flush=True)
+
+
+def run(fault, phases):
+    """Readings of one build: the sources as they are (fault None) or
+    with one fault planted."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        shutil.copytree(ROOT / "src" / "repro_torch",
+                        tmp / "src" / "repro_torch",
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(ROOT / "chip_smoke.py", tmp)
+        if fault is not None:
+            _, name, text, new, _ = fault
+            src = tmp / CSRC / name
+            body = src.read_text()
+            if body.count(text) != 1:
+                raise RuntimeError(f"{name}: the text to change is not "
+                                   f"there exactly once: {text!r}")
+            src.write_text(body.replace(text, new))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.planted_faults",
+             "--child", ",".join(phases)], cwd=tmp, capture_output=True,
+            text=True, timeout=900,
+            env={**os.environ, "PYTHONPATH": str(tmp / "src")})
+    if proc.returncode != 0:
+        raise RuntimeError(f"run failed (rc {proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    lines = proc.stdout.strip().splitlines()
+    return json.loads(lines[-1]), [x for x in lines if x.startswith("parity")]
+
+
+def main() -> int:
+    ok = True
+    for fault in [None, *FAULTS]:
+        title = "sound build" if fault is None else f"fault: {fault[0]}"
+        readings, parity = run(fault, SOUND if fault is None else fault[4])
+        over = [r for r in readings if not r["reading"] <= r["limit"]]
+        print(f"{title}: {len(over)} of {len(readings)} readings beyond "
+              f"their limit", flush=True)
+        for line in parity:
+            print("  " + line)
+        for r in readings:
+            flag = "  BEYOND" if r in over else ""
+            print(f"  {r['case']:<56} {r['kind']:<6} {r['reading']:.3e} "
+                  f"(limit {r['limit']:g}){flag}", flush=True)
+        if fault is None:
+            for kind in sorted({r["kind"] for r in readings}):
+                worst = max(r["reading"] for r in readings
+                            if r["kind"] == kind)
+                print(f"  largest sound reading, {kind}: {worst:.3e}")
+            ok &= not over
+        else:
+            ok &= bool(over)
+    print("planted faults: " + ("every fault caught, the sound build within"
+                                " every limit" if ok else "FAILED"))
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    if sys.argv[1:2] == ["--child"]:
+        child(sys.argv[2].split(","))
+    else:
+        sys.exit(main())

@@ -24,12 +24,12 @@ from __future__ import annotations
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
 from repro_torch.core.policies import TrimKV
 from repro_torch.data.synthetic import make_batch
+from repro_torch.launch.profiling import device_kernels
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import build_engine
 
@@ -70,11 +70,8 @@ def main():
         torch.cuda.synchronize()
         traced_wall = (time.perf_counter() - t0) / STEPS
     events = prof.key_averages()
-    # kernels only: an operator's own row repeats its kernels' time
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3 / STEPS
-    launches = sum(e.count for e in kernels) / STEPS
+    _, busy, launches = device_kernels(events)
+    busy, launches = busy / STEPS, launches / STEPS
     print(f"decode step, {cfg.name} {cfg.num_layers} layers, batch {B}, "
           f"budget {BUDGET}: enqueue {enqueue * 1e3:.2f} ms, wall "
           f"{wall * 1e3:.2f} ms ({B / wall:.1f} tok/s)")

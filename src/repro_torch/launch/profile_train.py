@@ -19,11 +19,11 @@ from __future__ import annotations
 import time
 
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.data.pipeline import DataConfig, batches
+from repro_torch.launch.profiling import device_kernels
 from repro_torch.models import transformer as T
 from repro_torch.train import distill
 
@@ -57,10 +57,7 @@ def main():
         state = step(state)
         traced_wall = time.perf_counter() - t0
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation]
-    # kernels only: an operator's own row repeats its kernels' time
-    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    kernels, busy, _ = device_kernels(events)
     cap = sum(e.self_device_time_total for e in kernels
               if "capacity_" in e.key) / 1e3
     print(f"train step, {cfg.name} {cfg.num_layers} layers {cfg.dtype}, "

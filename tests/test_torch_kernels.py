@@ -114,14 +114,28 @@ def test_decode_attention_all_slots_empty():
 # -------------------------------------------------------------- chunk
 
 
-@pytest.mark.parametrize("Hq,Hkv,need_probs,window", [
-    (2, 2, False, 0), (4, 2, True, 12), (2, 2, True, 12), (4, 2, False, 0),
+def _case(*args, shape=None, id=None):
+    """A parametrized case; the cases without a shape keep the ids they
+    had before shapes were added."""
+    return pytest.param(*args, shape,
+                        id=id or "-".join(str(a) for a in args))
+
+
+@pytest.mark.parametrize("Hq,Hkv,need_probs,window,shape", [
+    _case(2, 2, False, 0), _case(4, 2, True, 12), _case(2, 2, True, 12),
+    _case(4, 2, False, 0),
+    # the tensor-core kernel's tile edges at small width: M not a
+    # multiple of 16, a lane with one valid query
+    _case(4, 2, True, 0, shape=(37, (1, 24)), id="M37-n_valid1"),
+    _case(4, 2, False, 12, shape=(37, (24, 1)), id="M37-n_valid1-window"),
 ])
-def test_chunk_attention_matches_pallas(Hq, Hkv, need_probs, window):
+def test_chunk_attention_matches_pallas(Hq, Hkv, need_probs, window, shape):
     rng = np.random.RandomState(2)
     B, C, M, D = 2, 24, 40, 32
-    t0 = np.array([60, 48], np.int32)
     n_valid = np.array([24, 17])                       # ragged tail on lane 1
+    if shape is not None:
+        M, n_valid = shape[0], np.array(shape[1])
+    t0 = np.array([60, 48], np.int32)
     q = rng.randn(B, C, Hq, D).astype(np.float32)
     kc = rng.randn(B, C, Hkv, D).astype(np.float32)
     vc = rng.randn(B, C, Hkv, D).astype(np.float32)
@@ -145,7 +159,7 @@ def test_chunk_attention_matches_pallas(Hq, Hkv, need_probs, window):
     else:
         assert got[1] is None and want[1] is None
     # padded queries give zero
-    assert not _np(got[0])[1, 17:].any()
+    assert not _np(got[0])[1, n_valid[1]:].any()
 
 
 def test_chunk_attention_empty_cache_first_chunk():
@@ -176,13 +190,21 @@ def test_chunk_attention_empty_cache_first_chunk():
 # ---------------------------------------------------------- retention
 
 
-@pytest.mark.parametrize("use_beta,q_offset,window", [
-    (False, 0, 0), (True, 0, 0), (False, 0, 24), (True, 30, 0),
-    (True, 30, 24),
+@pytest.mark.parametrize("use_beta,q_offset,window,shape", [
+    _case(False, 0, 0), _case(True, 0, 0), _case(False, 0, 24),
+    _case(True, 30, 0), _case(True, 30, 24),
+    # the tensor-core kernel's tile edges at small width: one query at
+    # the end of the keys, and Tk one past a power of two
+    _case(False, 69, 0, shape=1, id="Tq1-q_offset69"),
+    _case(True, 64, 24, shape=1, id="Tq1-q_offset64-window"),
+    _case(False, 0, 0, shape=65, id="Tk65"),
 ])
-def test_retention_attention_matches_pallas(use_beta, q_offset, window):
+def test_retention_attention_matches_pallas(use_beta, q_offset, window,
+                                            shape):
     rng = np.random.RandomState(4)
     B, Tq, Hq, Hkv, D = 2, 70, 4, 2, 32
+    if shape is not None:
+        Tq = shape
     Tk = Tq + q_offset
     q = rng.randn(B, Tq, Hq, D).astype(np.float32)
     k = rng.randn(B, Tk, Hkv, D).astype(np.float32)
