@@ -34,7 +34,7 @@ TC_HEAD_DIM = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; each returns cudaError_t
 SIGNATURES = {
-    "decode_attention_launch": [_I] + [_P] * 10 + [_I] * 6 + [_P],
+    "decode_attention_launch": [_I] + [_P] * 10 + [_I] * 8 + [_P],
     "chunk_attention_launch": [_P] * 9 + [_I] * 7 + [_P],
     "retention_attention_launch": [_P] * 5 + [_I] * 9 + [_P],
     "chunk_attention_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
@@ -148,6 +148,15 @@ def check_device(x):
                         f"got {x.dtype}")
 
 
+def check_aligned(**tensors):
+    """Raise unless every tensor's base pointer is 16-byte aligned, as
+    16-byte copies (cp.async, TMA) need."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel copies 16 bytes at a "
+                             f"time and needs a 16-byte-aligned base")
+
+
 def check_tc(D, **tensors):
     """Raise unless the tensor-core kernels take these (contiguous,
     already checked) tensors: head dim TC_HEAD_DIM, and base pointers
@@ -155,9 +164,7 @@ def check_tc(D, **tensors):
     if D != TC_HEAD_DIM:
         raise ValueError(f"the bfloat16 kernels take head dim "
                          f"{TC_HEAD_DIM}, got {D}")
-    for name, x in tensors.items():
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name}: TMA needs a 16-byte-aligned base")
+    check_aligned(**tensors)
 
 
 def check(err: int, name: str):

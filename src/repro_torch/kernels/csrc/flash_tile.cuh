@@ -1,6 +1,8 @@
-// Shared machinery of the three attention kernels: one online-softmax
-// step over a tile of TK keys for up to TQ query rows, with every
-// operand staged in shared memory as float32.
+// The float32 chunk kernel's tile machinery (chunk_attention.cu): one
+// online-softmax step over a tile of TK keys for up to TQ query rows,
+// with every operand staged in shared memory as float32; and the small
+// helpers the decode and retention kernels share with it (conversions,
+// warp reductions, cp.async copies, the shared-memory opt-in).
 //
 // A CTA is 128 threads (4 warps). In the score phase warp w owns query
 // rows w, w+4, w+8, w+12 and lane j owns key j of the tile (TK == 32),
@@ -63,12 +65,11 @@ struct Smem {
   float *a;    // [TQ]      rescale factor of the current tile
   int *qpos;   // [TQ]      query positions (-1 = padded row)
   int *kpos;   // [TK]      key positions of the current tile (-1 = none)
-  float *lb;   // [TK]      log beta of the current tile's keys
   float *mblk; // [TQ][n_tiles] running max after each cache tile (probs)
 
   static size_t bytes(int D, int n_tiles) {
     size_t f = (size_t)TQ * (D + 1) + (size_t)TK * (D + 1) +
-               (size_t)TK * D + TQ * TK + 3 * TQ + TK +
+               (size_t)TK * D + TQ * TK + 3 * TQ +
                (size_t)TQ * n_tiles;
     return f * sizeof(float) + (TQ + TK) * sizeof(int);
   }
@@ -83,7 +84,6 @@ struct Smem {
     s.m = f;    f += TQ;
     s.l = f;    f += TQ;
     s.a = f;    f += TQ;
-    s.lb = f;   f += TK;
     s.mblk = f; f += TQ * n_tiles;
     s.qpos = reinterpret_cast<int *>(f);
     s.kpos = s.qpos + TQ;
@@ -93,13 +93,12 @@ struct Smem {
 
 // Stage n rows of D elements into dst (row stride ld floats); row r of
 // the source starts at src + r * src_ld. Rows >= valid are zero-filled.
-template <typename T>
-__device__ __forceinline__ void load_rows(float *dst, int ld, const T *src,
+__device__ __forceinline__ void load_rows(float *dst, int ld, const float *src,
                                           long src_ld, int n, int valid,
                                           int D) {
   for (int e = threadIdx.x; e < n * D; e += NT) {
     int r = e / D, d = e - r * D;
-    dst[r * ld + d] = r < valid ? to_f(src[r * src_ld + d]) : 0.f;
+    dst[r * ld + d] = r < valid ? src[r * src_ld + d] : 0.f;
   }
 }
 
@@ -111,45 +110,32 @@ __device__ __forceinline__ void init_rows(const Smem &sm) {
 }
 
 // Key visibility for (row i, key j) of the tile in shared memory:
-//   PosMask   — kpos >= 0, and with causal positions qpos - kpos >= 0
-//               (and < window when window > 0);
-//   SlotMask  — decode: kpos >= 0 (and t - kpos < window), every row.
+// kpos >= 0, and with causal positions qpos - kpos >= 0 (and < window
+// when window > 0).
 struct PosMask {
   int window;
-  __device__ bool operator()(const Smem &sm, int i, int j, float &bias) const {
-    bias = 0.f;
+  __device__ bool operator()(const Smem &sm, int i, int j) const {
     int kp = sm.kpos[j];
     int dist = sm.qpos[i] - kp;
     return kp >= 0 && dist >= 0 && (window <= 0 || dist < window);
   }
 };
-struct SlotMask {
-  int window, t;
-  __device__ bool operator()(const Smem &sm, int i, int j, float &bias) const {
-    bias = 0.f;
-    int kp = sm.kpos[j];
-    return kp >= 0 && (window <= 0 || t - kp < window);
-  }
-};
 
 // True when any (row < nrows, key) pair of the staged tile is visible;
 // block-uniform, so every thread takes the same branch.
-template <class Mask>
 __device__ __forceinline__ bool tile_visible(const Smem &sm, int nrows,
-                                             const Mask &mask) {
+                                             const PosMask &mask) {
   int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   int any = 0;
-  float bias;
-  for (int i = warp; i < nrows; i += NT / 32) any |= mask(sm, i, lane, bias);
+  for (int i = warp; i < nrows; i += NT / 32) any |= mask(sm, i, lane);
   return __syncthreads_or(any) != 0;
 }
 
 // One online-softmax step over the staged tile (q, k, v, kpos in smem).
 // Leaves p (masked exp(s - m_new)), m, l and a updated and acc
 // rescaled and accumulated. Ends with a barrier.
-template <class Mask>
 __device__ __forceinline__ void tile_step(const Smem &sm, int D, int nrows,
-                                          float scale, const Mask &mask,
+                                          float scale, const PosMask &mask,
                                           float (&acc)[TQ][2]) {
   int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   for (int i = warp; i < nrows; i += NT / 32) {
@@ -157,9 +143,8 @@ __device__ __forceinline__ void tile_step(const Smem &sm, int D, int nrows,
     const float *kj = sm.k + lane * (D + 1);
     float s = 0.f;
     for (int d = 0; d < D; ++d) s = fmaf(qi[d], kj[d], s);
-    float bias;
-    bool ok = mask(sm, i, lane, bias);
-    s = ok ? s * scale + bias : NEG_INF;
+    bool ok = mask(sm, i, lane);
+    s = ok ? s * scale : NEG_INF;
     float m_prev = sm.m[i];
     float m_new = fmaxf(m_prev, warp_max(s));
     float p = ok ? expf(s - m_new) : 0.f;
@@ -194,10 +179,9 @@ __device__ __forceinline__ void tile_step(const Smem &sm, int D, int nrows,
 
 // Store row i's output acc / max(l, 1e-30) at out + i * out_ld. Starts
 // with a barrier, so the row state is complete even when no tile ran.
-template <typename T>
 __device__ __forceinline__ void store_rows(const Smem &sm, int D, int nrows,
                                            const float (&acc)[TQ][2],
-                                           T *out, long out_ld) {
+                                           float *out, long out_ld) {
   __syncthreads();
   int tid = threadIdx.x;
 #pragma unroll
@@ -207,7 +191,7 @@ __device__ __forceinline__ void store_rows(const Smem &sm, int D, int nrows,
 #pragma unroll
       for (int i = 0; i < TQ; ++i) {
         if (i < nrows)
-          out[i * out_ld + d] = from_f<T>(acc[i][dd] / fmaxf(sm.l[i], 1e-30f));
+          out[i * out_ld + d] = acc[i][dd] / fmaxf(sm.l[i], 1e-30f);
       }
     }
   }
@@ -240,6 +224,23 @@ __device__ __forceinline__ void store_raw_probs(const Smem &sm, int nrows,
       probs[i * ld + c0 + j] = visible ? sm.p[i * TK + j] : 0.f;
   }
   if (threadIdx.x < nrows) sm.mblk[threadIdx.x * n_tiles + tile] = sm.m[threadIdx.x];
+}
+
+// 16-byte asynchronous copy into shared memory; ok false zero-fills
+// the destination and reads nothing.
+__device__ __forceinline__ void cp_async16(void *dst, const void *src,
+                                           bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are pending
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 inline cudaError_t allow_smem(const void *fn, size_t bytes) {

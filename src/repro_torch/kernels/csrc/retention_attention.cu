@@ -8,101 +8,326 @@
 // from the absolute query position q_offset + row, and an optional
 // retention bias (q_pos - i) * log_beta_i added to the logits of
 // visible keys (log_beta [B, Tk, Hkv] float32). A float32 model's
-// single-shot prefill runs it causal with no bias.
-//
-// Design: one CTA per (lane, q head, tile of 16 queries). The key
-// tiles it walks are cut to those the causal mask and window leave
-// visible to its rows, so the upper triangle is never loaded. Rows
-// whose keys are all masked give zero (the Pallas kernel returns the
-// mean of the masked values there; no caller produces such a row).
+// single-shot prefill runs it causal with no bias. Head dim D <= 128,
+// a multiple of 4; rows whose keys are all masked give zero (the
+// Pallas kernel returns the mean of the masked values there; no caller
+// produces such a row).
 //
 // Bound on the H100: operations. At the main-path shape (B=4, T=2000,
 // Hq=32, D=128, causal) the visible pairs need
 // 4 * B * Hq * D * T (T + 1) / 2 ~ 131 GFLOP, about 2.0 ms at
 // 67 TF/s float32 outside the tensor cores; the 2 * 4 * 2000 * 8 *
 // 128 * 4 B = 66 MB of K/V and 262 MB of q and out take about 0.1 ms.
+// Full float32 FMAs throughout, no TF32: this route holds the card to
+// the CPU within 1e-4.
 //
-// What the simple design leaves on the table: Q.K and P.V are FMAs
-// out of shared memory with tiles of 16 x 32, and K/V are re-read by
-// every q tile of every head in the group with scalar loads and a
-// barrier per tile.
+// Design: an SGEMM-style flash kernel on the CUDA cores. One CTA of
+// 256 threads per (lane, kv head, tile of 128 / G query positions)
+// serves the G q heads of the kv head together: 128 query rows, row
+// r = (position r / G, head r % G), held in shared memory, so each K/V
+// tile is staged once for the whole group. Key tiles of 64 are copied
+// with 16-byte cp.async: K is double-buffered and the next tile's K
+// streams in during the whole of this one, while this tile's V streams
+// in during its S, so a tile takes two barriers (Q's 66 KB leave no
+// room for a second V buffer). Both products are register-blocked: a
+// thread owns an 8 x 4 block of S (rows r, r + 16, ..., keys j,
+// j + 16, ...) and an 8 x 8 block of O (8 neighbouring rows, dims
+// 4 c .. 4 c + 3 and 64 + 4 c ..), every operand read as a float4 from
+// padded rows so that a warp's reads are conflict-free. The online
+// softmax stays in registers, in base 2 (exp2f): the 16 threads of a
+// row reduce its max and sum with shuffles, and only P^T and the
+// rescale factors pass through shared memory to the P.V layout. Key
+// tiles outside the causal mask and window are never loaded; tiles
+// inside them skip the per-element mask. The heaviest (last) query
+// tiles are launched first.
+//
+// What it leaves on the table: one CTA of 8 warps per SM (202 KB of
+// shared memory, 220 registers a thread), so a barrier or a
+// shared-memory latency idles the FFMA pipes: the kernel runs at about
+// half the float32 peak; the K reads take two wavefronts a warp; the
+// diagonal tiles compute their masked half.
 #include "flash_tile.cuh"
 
-using namespace flash;
+using flash::cp_async16;
+using flash::cp_async_commit;
+using flash::cp_async_wait;
 
-struct RetentionMask {
-  int causal, window, use_beta;
-  __device__ bool operator()(const Smem &sm, int i, int j, float &bias) const {
-    int kp = sm.kpos[j];
-    int dist = sm.qpos[i] - kp;
-    bool ok = kp >= 0 && (!causal || dist >= 0) && (window <= 0 || dist < window);
-    bias = (ok && use_beta) ? (float)dist * sm.lb[j] : 0.f;
-    return ok;
-  }
-};
+namespace {
 
-__global__ void __launch_bounds__(NT)
-retention_kernel(const float *__restrict__ q, const float *__restrict__ k,
-                 const float *__restrict__ v,
-                 const float *__restrict__ log_beta, float *__restrict__ out, int Tq, int Tk, int Hq, int Hkv, int D,
-                 int causal, int window, int q_offset, float scale) {
-  extern __shared__ float smem_f[];
-  const int n_qt = (Tq + TQ - 1) / TQ;
-  Smem sm = Smem::carve(smem_f, D, 0);
-  const int qt = blockIdx.x % n_qt;
-  const int h = (blockIdx.x / n_qt) % Hq;
-  const int b = blockIdx.x / (n_qt * Hq);
-  const int kvh = h / (Hq / Hkv);
-  const int r0 = qt * TQ;
-  const int nrows = min(TQ, Tq - r0);
+constexpr int BR = 128;      // query rows per CTA
+constexpr int BK = 64;       // keys per tile
+constexpr int DP = 128;      // head dim held (D <= DP, zero-padded)
+constexpr int NTH = 256;     // threads per CTA
+constexpr int QLD = DP + 4;  // Q and K row stride in floats
+constexpr int PLD = BR + 4;  // P^T row stride in floats
+constexpr int CH = DP / 4;   // 16-byte chunks of a held row
 
-  load_rows(sm.q, D + 1, q + (((long)b * Tq + r0) * Hq + h) * D, (long)Hq * D,
-            TQ, nrows, D);
-  if (threadIdx.x < TQ) sm.qpos[threadIdx.x] = q_offset + r0 + threadIdx.x;
-  init_rows(sm);
-  float acc[TQ][2];
-#pragma unroll
-  for (int i = 0; i < TQ; ++i) acc[i][0] = acc[i][1] = 0.f;
-  const RetentionMask mask{causal, window, log_beta != nullptr};
+constexpr size_t SMEM_FLOATS = (size_t)BR * QLD + 2 * (size_t)BK * QLD +
+                               (size_t)BK * DP + (size_t)BK * PLD + 2 * BR +
+                               2 * BK;
 
-  // key range the rows of this tile can see
-  const int q_lo = q_offset + r0, q_hi = q_offset + r0 + nrows - 1;
-  int j_end = Tk;
-  if (causal) j_end = min(j_end, q_hi + 1);
-  int j_begin = 0;
-  if (window > 0) j_begin = max(0, q_lo - window + 1);
-  for (int j0 = (j_begin / TK) * TK; j0 < j_end; j0 += TK) {
-    const int valid = min(TK, Tk - j0);
-    if (threadIdx.x < TK) {
-      const int j = j0 + threadIdx.x;
-      sm.kpos[threadIdx.x] = threadIdx.x < valid ? j : -1;
-      sm.lb[threadIdx.x] =
-          (log_beta != nullptr && threadIdx.x < valid)
-              ? log_beta[((long)b * Tk + j) * Hkv + kvh] : 0.f;
-    }
-    const long row0 = (((long)b * Tk + j0) * Hkv + kvh) * D;
-    load_rows(sm.k, D + 1, k + row0, (long)Hkv * D, TK, valid, D);
-    load_rows(sm.v, D, v + row0, (long)Hkv * D, TK, valid, D);
-    __syncthreads();
-    tile_step(sm, D, nrows, scale, mask, acc);
-  }
-  store_rows(sm, D, nrows, acc, out + (((long)b * Tq + r0) * Hq + h) * D,
-             (long)Hq * D);
+__device__ __forceinline__ void cp_async4(float *dst, const float *src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
 }
+
+// max and sum over the 16 lanes that share a row of S
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__global__ void __launch_bounds__(NTH, 1)
+retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
+                     const float *__restrict__ v,
+                     const float *__restrict__ log_beta,
+                     float *__restrict__ out, int Tq, int Tk, int Hq, int Hkv,
+                     int D, int causal, int window, int q_offset,
+                     float scale) {
+  extern __shared__ __align__(16) float smem_f[];
+  float *sq = smem_f;               // [BR][QLD]
+  float *sk0 = sq + BR * QLD;       // [2][BK][QLD]  K, double-buffered
+  float *sv = sk0 + 2 * BK * QLD;   // [BK][DP]
+  float *sp = sv + BK * DP;         // [BK][PLD]  P^T of the tile
+  float *s_alpha = sp + BK * PLD;   // [BR]
+  float *s_l = s_alpha + BR;        // [BR]
+  float *s_lb0 = s_l + BR;          // [2][BK]  log beta, with K
+
+  const int G = Hq / Hkv, BQ = BR / G;  // query positions per CTA
+  const int n_qt = (Tq + BQ - 1) / BQ;
+  const int n_bh = gridDim.x / n_qt;
+  const int qt = n_qt - 1 - (int)blockIdx.x / n_bh;  // longest rows first
+  const int bh = blockIdx.x % n_bh, b = bh / Hkv, kvh = bh % Hkv;
+  const int r0 = qt * BQ;
+  const int n_rows = min(BQ, Tq - r0) * G;  // rows holding a query
+  const int nc = D / 4;
+  const bool use_beta = log_beta != nullptr;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the softmax runs in base 2: logits times log2(e), exp2f
+  const float scale2 = scale * 1.4426950408889634f;
+
+  // Q rows; padded rows and dims zero-filled
+  for (int e = tid; e < BR * CH; e += NTH) {
+    const int r = e / CH, c = e - r * CH;
+    const bool ok = r < n_rows && c < nc;
+    const long src = ok ? ((long)(b * Tq + r0 + r / G) * Hq + kvh * G + r % G) * D + 4 * c : 0;
+    cp_async16(sq + r * QLD + 4 * c, q + src, ok);
+  }
+
+  // the keys the tile's rows can see
+  const int q_lo = q_offset + r0, q_hi = q_lo + n_rows / G - 1;
+  const int j_end = causal ? min(Tk, q_hi + 1) : Tk;
+  const int j_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int t_begin = j_begin / BK;
+  const int t_end = j_end > j_begin ? (j_end + BK - 1) / BK : t_begin;
+
+  auto load_k = [&](int t) {
+    const int j0 = t * BK;
+    float *sk = sk0 + (t & 1) * BK * QLD;
+    for (int e = tid; e < BK * CH; e += NTH) {
+      const int j = e / CH, c = e - j * CH;
+      const bool ok = j0 + j < Tk && c < nc;
+      const long src = ok ? ((long)(b * Tk + j0 + j) * Hkv + kvh) * D + 4 * c : 0;
+      cp_async16(sk + j * QLD + 4 * c, k + src, ok);
+    }
+    if (use_beta && tid < BK) {
+      const bool ok = j0 + tid < Tk;
+      cp_async4(s_lb0 + (t & 1) * BK + tid,
+                log_beta + (ok ? (long)(b * Tk + j0 + tid) * Hkv + kvh : 0), ok);
+    }
+  };
+  auto load_v = [&](int t) {
+    const int j0 = t * BK;
+    for (int e = tid; e < BK * CH; e += NTH) {
+      const int j = e / CH, c = e - j * CH;
+      const bool ok = j0 + j < Tk && c < nc;
+      const long src = ok ? ((long)(b * Tk + j0 + j) * Hkv + kvh) * D + 4 * c : 0;
+      cp_async16(sv + j * DP + 4 * c, v + src, ok);
+    }
+  };
+  if (t_begin < t_end) load_k(t_begin);
+  cp_async_commit();                    // Q and the first K
+
+  // S roles: rows srg + 16 i, keys skg + 16 j. O roles: rows 8 srg + i,
+  // dims 4 skg + {0..3} and 64 + 4 skg + {0..3}.
+  const int srg = warp * 2 + (lane >> 4), skg = lane & 15;
+  float m[8], l[8], o[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int j0 = t * BK;
+    const float *sk = sk0 + (t & 1) * BK * QLD;
+    const float *s_lb = s_lb0 + (t & 1) * BK;
+    cp_async_wait<0>();  // K(t) (and Q)
+    // every warp is done with S(t - 1) (K's other buffer) and with
+    // P.V(t - 1) (V and P^T): V(t) streams in during S(t), K(t + 1)
+    // during the whole tile
+    __syncthreads();
+    load_v(t);
+    cp_async_commit();
+    if (t + 1 < t_end) load_k(t + 1);
+    cp_async_commit();
+
+    float s[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < DP; d += 4) {
+      float4 qv[8], kv[4];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        qv[i] = *reinterpret_cast<const float4 *>(sq + (srg + 16 * i) * QLD + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kv[j] = *reinterpret_cast<const float4 *>(sk + (skg + 16 * j) * QLD + d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x = s[i][j];
+          x = fmaf(qv[i].x, kv[j].x, x);
+          x = fmaf(qv[i].y, kv[j].y, x);
+          x = fmaf(qv[i].z, kv[j].z, x);
+          x = fmaf(qv[i].w, kv[j].w, x);
+          s[i][j] = x;
+        }
+    }
+
+    // online softmax in registers; a tile the mask, window and Tk leave
+    // whole for every row skips the per-element mask
+    const bool edge = use_beta || j0 + BK > Tk ||
+                      (causal && j0 + BK - 1 > q_lo) ||
+                      (window > 0 && q_hi - j0 >= window);
+    float alpha[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float x[4];
+      unsigned ok = 0xfu;
+      if (!edge) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x[j] = s[i][j] * scale2;
+      } else {
+        const int r = srg + 16 * i;
+        const int qp = q_lo + r / G;
+        ok = 0u;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int key = j0 + skg + 16 * j;
+          const int dist = qp - key;
+          const bool vis = r < n_rows && key < Tk && (!causal || dist >= 0) &&
+                           (window <= 0 || dist < window);
+          const float bias = use_beta ? (float)dist * s_lb[skg + 16 * j] : 0.f;
+          x[j] = vis ? fmaf(s[i][j], scale2, bias * 1.4426950408889634f) : NEG_INF;
+          ok |= (unsigned)vis << j;
+        }
+      }
+      const float mx = row_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
+      const float m_new = fmaxf(m[i], mx);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = (ok >> j & 1u) ? exp2f(x[j] - m_new) : 0.f;
+        s[i][j] = p;
+        psum += p;
+      }
+      psum = row_sum(psum);
+      alpha[i] = exp2f(m[i] - m_new);
+      l[i] = l[i] * alpha[i] + psum;
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sp[(skg + 16 * j) * PLD + srg + 16 * i] = s[i][j];
+    if (skg == 0) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s_alpha[srg + 16 * i] = alpha[i];
+    }
+    cp_async_wait<1>();  // V(t); K(t + 1) may be in flight
+    __syncthreads();
+
+    // O = O * alpha + P V
+    {
+      const float4 a0 = *reinterpret_cast<const float4 *>(s_alpha + 8 * srg);
+      const float4 a1 = *reinterpret_cast<const float4 *>(s_alpha + 8 * srg + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[i][c] *= a[i];
+    }
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 p0 = *reinterpret_cast<const float4 *>(sp + kk * PLD + 8 * srg);
+      const float4 p1 = *reinterpret_cast<const float4 *>(sp + kk * PLD + 8 * srg + 4);
+      const float4 v0 = *reinterpret_cast<const float4 *>(sv + kk * DP + 4 * skg);
+      const float4 v1 = *reinterpret_cast<const float4 *>(sv + kk * DP + 64 + 4 * skg);
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o[i][c] = fmaf(p[i], vv[c], o[i][c]);
+    }
+  }
+  cp_async_wait<0>();
+
+  if (skg == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s_l[srg + 16 * i] = l[i];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = 8 * srg + i;
+    if (r < n_rows) {
+      const float lr = fmaxf(s_l[r], 1e-30f);
+      float *dst = out + ((long)(b * Tq + r0 + r / G) * Hq + kvh * G + r % G) * D;
+      if (4 * skg < D)
+        *reinterpret_cast<float4 *>(dst + 4 * skg) = make_float4(
+            o[i][0] / lr, o[i][1] / lr, o[i][2] / lr, o[i][3] / lr);
+      if (64 + 4 * skg < D)
+        *reinterpret_cast<float4 *>(dst + 64 + 4 * skg) = make_float4(
+            o[i][4] / lr, o[i][5] / lr, o[i][6] / lr, o[i][7] / lr);
+    }
+  }
+}
+
+}  // namespace
 
 extern "C" int retention_attention_launch(
     const void *q, const void *k, const void *v, const void *log_beta,
     void *out, int B, int Tq, int Tk, int Hq, int Hkv, int D, int causal,
     int window, int q_offset, void *stream) {
-  if (D > MAX_D || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  const int n_qt = (Tq + TQ - 1) / TQ;
-  const size_t smem = Smem::bytes(D, 0);
-  const float scale = 1.0f / sqrtf((float)D);
-  cudaError_t err = allow_smem((const void *)retention_kernel, smem);
+  if (D > DP || D % 4 != 0 || Hq % Hkv != 0 || Hq / Hkv > BR)
+    return (int)cudaErrorInvalidValue;
+  const int BQ = BR / (Hq / Hkv);
+  const int grid = B * Hkv * ((Tq + BQ - 1) / BQ);
+  if (grid == 0) return (int)cudaSuccess;
+  const size_t smem = SMEM_FLOATS * sizeof(float);
+  cudaError_t err = flash::allow_smem((const void *)retention_f32_kernel, smem);
   if (err != cudaSuccess) return (int)err;
-  retention_kernel<<<B * Hq * n_qt, NT, smem, (cudaStream_t)stream>>>(
+  retention_f32_kernel<<<grid, NTH, smem, (cudaStream_t)stream>>>(
       (const float *)q, (const float *)k, (const float *)v,
       (const float *)log_beta, (float *)out, Tq, Tk, Hq, Hkv, D, causal,
-      window, q_offset, scale);
+      window, q_offset, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,12 @@ in-flight token at distance 0. ``return_probs`` also returns the
 normalized probabilities over the M slots [B, Hq, M] and, with
 ``new_kv``, the in-flight token's mass [B, Hq] (both float32).
 
+The kernel splits the slots of each (lane, kv head) over a
+thread-block cluster of up to 8 CTAs, one launch per call; each CTA
+leaves a partial softmax in its shared memory and the cluster combines
+the partials through distributed shared memory. ``split_plan`` picks
+the number of splits.
+
 ``kernels.ops.decode_attention`` picks the version by the tensors'
 device; call that, not these.
 """
@@ -21,6 +27,25 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+# slots per tile of csrc/decode_attention.cu (TS), its largest cluster
+# (MAX_SPLIT, the portable cluster size) and the CTAs it aims for: two
+# per SM of the H100's 132
+TILE = 64
+MAX_SPLIT = 8
+TARGET_CTAS = 2 * 132
+
+
+def split_plan(M: int, n_rows: int) -> tuple[int, int]:
+    """(n_split, split_len) of the decode kernel for an M-slot cache
+    and n_rows = B * Hkv (lane, kv head) pairs: split s owns slots
+    [s * split_len, min(M, (s + 1) * split_len)). split_len is a whole
+    number of tiles; no split is empty; at most MAX_SPLIT splits, and no
+    more than it takes to reach TARGET_CTAS CTAs in all."""
+    n_tiles = max(1, -(-M // TILE))
+    want = max(1, -(-TARGET_CTAS // max(1, n_rows)))
+    n_split = min(MAX_SPLIT, n_tiles, want)
+    per = -(-n_tiles // n_split)          # tiles per split
+    return -(-n_tiles // per), per * TILE
 
 
 def _lane_clock(t, device):
@@ -66,9 +91,12 @@ def decode_attention_torch(q_t, k_cache, v_cache, pos, t, *, window=0,
 
 def decode_attention_cuda(q_t, k_cache, v_cache, pos, t, *, window=0,
                           new_kv=None, return_probs=False):
-    """Launch ``csrc/decode_attention.cu``. Same contract as the plain
+    """Launch ``csrc/decode_attention.cu``: B * Hkv clusters of
+    ``split_plan(M, B * Hkv)[0]`` CTAs. Same contract as the plain
     version; every tensor must be a contiguous CUDA tensor, q/k/v in one
-    dtype (bfloat16 or float32), pos int32."""
+    dtype (bfloat16 or float32), pos int32; head dim at most 256 and a
+    whole number of 16-byte chunks, tensors 16-byte aligned (the kernel
+    copies 16 bytes at a time)."""
     build.check_device(q_t)
     dev, dt = q_t.device, q_t.dtype
     B, Hq, D = q_t.shape
@@ -86,7 +114,14 @@ def decode_attention_cuda(q_t, k_cache, v_cache, pos, t, *, window=0,
         k_new, v_new = new_kv
         build.check_tensor("k_new", k_new, (B, Hkv, D), dt, dev)
         build.check_tensor("v_new", v_new, (B, Hkv, D), dt, dev)
+    if D > 256 or (D * q_t.element_size()) % 16:
+        raise ValueError(f"the decode kernel takes head dim <= 256 in "
+                         f"16-byte chunks, got {D} in {dt}")
     out = torch.empty_like(q_t)
+    build.check_aligned(q_t=q_t, k_cache=k_cache, v_cache=v_cache, out=out,
+                        **({} if new_kv is None else
+                           {"k_new": k_new, "v_new": v_new}))
+    n_split, split_len = split_plan(M, B * Hkv)
     probs = (torch.empty((B, Hq, M), dtype=torch.float32, device=dev)
              if return_probs else None)
     p_new = (torch.empty((B, Hq), dtype=torch.float32, device=dev)
@@ -95,7 +130,7 @@ def decode_attention_cuda(q_t, k_cache, v_cache, pos, t, *, window=0,
     err = build.library().decode_attention_launch(
         int(dt == torch.bfloat16), ptr(q_t), ptr(k_cache), ptr(v_cache),
         ptr(pos), ptr(t_arr), ptr(k_new), ptr(v_new), ptr(out), ptr(probs),
-        ptr(p_new), B, Hq, Hkv, M, D, int(window),
+        ptr(p_new), B, Hq, Hkv, M, D, int(window), n_split, split_len,
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "decode_attention")
     if not return_probs:

@@ -5,7 +5,10 @@ Replaces the Pallas kernel ``retention_attention_pallas``
 (``repro/kernels/retention_attention.py``) with two CUDA kernels, one
 per dtype: bfloat16 runs ``csrc/retention_attention_tc.cu`` (wgmma and
 TMA on the tensor cores, head dim 128), float32 runs
-``csrc/retention_attention.cu`` (CUDA-core FMAs). Attention of q
+``csrc/retention_attention.cu`` (full float32 FMAs on the CUDA cores,
+register-blocked like an SGEMM; one CTA serves the q heads of a kv
+head together, so each K/V tile is staged once per group; head dim
+at most 128). Attention of q
 [B, Tq, Hq, D] over k, v [B, Tk, Hkv, D] with GQA, an optional causal
 mask and window from the absolute query position q_offset + row, and
 an optional retention bias (q_pos - i) * log_beta_i on visible logits
@@ -59,9 +62,11 @@ def retention_attention_cuda(q, k, v, log_beta=None, *, causal=True,
                              window=0, q_offset=0):
     """Launch the kernel of q's dtype: bfloat16
     ``csrc/retention_attention_tc.cu`` (head dim 128, 16-byte-aligned
-    tensors, as TMA reads them), float32 ``csrc/retention_attention.cu``.
-    Same contract as the plain version; contiguous CUDA tensors, q/k/v
-    in one dtype, log_beta float32, q_offset a Python int."""
+    tensors, as TMA reads them), float32 ``csrc/retention_attention.cu``
+    (head dim at most 128 and a multiple of 4, 16-byte-aligned tensors,
+    as cp.async copies them). Same contract as the plain version;
+    contiguous CUDA tensors, q/k/v in one dtype, log_beta float32,
+    q_offset a Python int."""
     build.check_device(q)
     dev, dt = q.device, q.dtype
     B, Tq, Hq, D = q.shape
@@ -84,6 +89,10 @@ def retention_attention_cuda(q, k, v, log_beta=None, *, causal=True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lb, out.data_ptr(), B,
             Tq, Tk, Hq, Hkv, *opts)
     else:
+        if D > 128 or D % 4:
+            raise ValueError(f"the float32 retention kernel takes head dim "
+                             f"<= 128 in multiples of 4, got {D}")
+        build.check_aligned(q=q, k=k, v=v, out=out)
         err = build.library().retention_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lb, out.data_ptr(),
             B, Tq, Tk, Hq, Hkv, D, *opts)

@@ -1,4 +1,4 @@
-"""Planted faults against chip_smoke.py's limits for the bf16 attention
+"""Planted faults against chip_smoke.py's limits for the attention
 kernels: a sound build must stay within every limit, and each planted
 fault must exceed one.
 
@@ -6,12 +6,14 @@ fault must exceed one.
 
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
-tensor-core kernel source) it copies src/repro_torch and chip_smoke.py
-into a temporary directory, applies the change, and runs, in a fresh
-process that builds that copy's kernels, chip_smoke's kernel phases
-that the fault touches and, where listed, its bf16 serving parity,
-with every limit lifted. Each bf16 case gives its row-relative error
-(chip_smoke.row_errors) and the parity its logit gap; the script
+kernel source) it copies src/repro_torch and chip_smoke.py into a
+temporary directory, applies the change, and runs, in a fresh process
+that builds that copy's kernels, chip_smoke's kernel phases that the
+fault touches and, where listed, its bf16 serving parity, with every
+limit lifted. Each bf16 case gives its row-relative error
+(chip_smoke.row_errors), each float32 case its largest
+|error| / (1 + |value|) against chip_smoke.TOL (the test chip_smoke's
+check applies), and the parity its logit gap; the script
 prints every reading beside its limit, the largest reading of the
 sound build per kind, and exits non-zero unless the sound build stays
 within every limit and each fault exceeds at least one.
@@ -52,6 +54,15 @@ FAULTS = [
     ("both: O not rescaled across key tiles", "hopper_flash.cuh",
      "for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];",
      "for (int i = 0; i < 64; ++i) o[i] *= 1.f;", ("chunk", "retention")),
+    ("decode: split 1's partial left out of the combine",
+     "decode_attention.cu",
+     "      if (s < n_split) x = fmaf(sm.wgt[s * G + g], part[s], x);",
+     "      if (s < n_split && s != 1) x = fmaf(sm.wgt[s * G + g], part[s], "
+     "x);", ("decode",)),
+    ("decode: split 0 not rescaled by exp(m_s - m)", "decode_attention.cu",
+     "      const float w = ls[s] > 0.f ? expf(ms[s] - m) : 0.f;",
+     "      const float w = ls[s] > 0.f ? (s == 0 ? 1.f : expf(ms[s] - m)) "
+     ": 0.f;", ("decode",)),
 ]
 SOUND = ("decode", "chunk", "retention", "parity")
 
@@ -76,7 +87,18 @@ def child(phases):
             errs.append(a)
         return max(errs)
 
+    def record_f32(name, got, want, dtype):
+        worst = 0.0
+        for g_, w in zip(got, want):
+            g_, w = g_.float(), w.float()
+            worst = max(worst, ((g_ - w).abs() / (1 + w.abs())).max().item()
+                        if torch.isfinite(g_).all() else math.inf)
+        readings.append({"case": name, "kind": "float32", "reading": worst,
+                         "limit": cs.TOL[dtype]})
+        return worst
+
     cs.check_rows = record
+    cs.check = record_f32
     g = torch.Generator(device="cuda")
     with torch.no_grad():
         for name in ("decode", "chunk", "retention"):

@@ -23,6 +23,7 @@ from repro_torch.core.losses import capacity_loss_ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.capacity_loss import (capacity_loss_bwd_torch,
                                                occupancy_torch)
+from repro_torch.kernels.decode_attention import MAX_SPLIT, TILE, split_plan
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -109,6 +110,33 @@ def test_decode_attention_all_slots_empty():
     for g, w in zip(got, want):
         _close(g, w)
         assert not _np(g).any()
+
+
+@pytest.mark.parametrize("M,n_rows", [
+    (512, 32), (500, 32), (64, 32), (100, 32), (4096, 32), (1, 2), (40, 2),
+    (512, 512),
+])
+def test_decode_split_plan_covers_every_slot_once(M, n_rows):
+    """The CUDA decode kernel's split plan (pure Python, in the
+    wrapper): at most MAX_SPLIT (8, the portable cluster size) splits of
+    whole tiles, none empty, and every slot in exactly one."""
+    n_split, split_len = split_plan(M, n_rows)
+    assert 1 <= n_split <= MAX_SPLIT == 8
+    assert split_len > 0 and split_len % TILE == 0
+    hits = np.zeros(M, int)
+    for s in range(n_split):
+        lo, hi = s * split_len, min(M, (s + 1) * split_len)
+        assert lo < hi, f"split {s} is empty"
+        hits[lo:hi] += 1
+    assert (hits == 1).all()
+
+
+def test_decode_split_plan_main_path_and_small_cache():
+    """The main path (M 512, B * Hkv = 32) runs at least one CTA per SM
+    of the H100's 132; M 64 (the float32 parity run) is one split."""
+    n_split, _ = split_plan(512, 32)
+    assert 32 * n_split >= 132
+    assert split_plan(64, 32)[0] == 1
 
 
 # -------------------------------------------------------------- chunk
