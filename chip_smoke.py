@@ -11,10 +11,11 @@ the two capacity-loss kernels — then:
 1. kernels — each CUDA kernel against its plain PyTorch version on the
    card at the main-path shapes (Hq 32, Hkv 8, D 128, B 4, M 512,
    C 512, T 2000) over its options: bfloat16 cases through the decode
-   and tensor-core kernels, with extra cases at the tensor-core tiles'
-   edges (M 500, n_valid 1 / 64 / 65, one live cache slot), held row
-   by row (ROW_TOL), float32 cases through the decode and CUDA-core
-   kernels, element by element (TOL); both dtypes take the decode
+   and tensor-core kernels, held row by row (ROW_TOL), float32 cases
+   through the decode and CUDA-core kernels, element by element (TOL);
+   both chunk kernels take their tiles' edges (M 500, n_valid 1 / 64 /
+   65, one live cache slot), the float32 one also G 1 (Hkv 32) and
+   G 8 (Hkv 4); both dtypes take the decode
    kernel's split edges (whole 64-slot splits empty, a lane with every
    slot empty with and without new_kv, a window that leaves whole
    splits invisible, M 500 / 64 / 100, each printed with its split
@@ -42,12 +43,14 @@ the two capacity-loss kernels — then:
 4. capacity — the capacity-loss forward and backward kernels against
    their plain versions (core.losses.capacity_loss_chunked,
    capacity_loss_bwd_torch) at B 1, H 8, T 4096, M 256, at T 1000, at
-   the beta = 1.0 tie (S_t = t + 1 meets M) and at B 2: value within
-   rel 1e-5, S within rel 1e-5, gradient within rel 1e-4 of its
-   largest entry; times the forward, the backward and the plain
-   forward + backward, and prints the bound: the least float32 work
-   (one multiply-add per (t, i) pair forward, two per pair over budget
-   backward) at 67 TFLOP/s;
+   the beta = 1.0 tie (S_t = t + 1 meets M), at B 2, at T 129 and at
+   H 1: value within rel 1e-5, S within rel 1e-5, gradient within rel
+   1e-4 of its largest entry (CAP_TOL), and the gradient bit-identical
+   on a second launch; times the forward and backward kernels in a
+   CUDA graph (and, on an earlier line, an event loop over the
+   wrappers), the plain forward + backward, and prints the bound: the
+   least float32 work (one multiply-add per (t, i) pair forward, two
+   per pair over budget backward) at 67 TFLOP/s;
 5. train — gate distillation of trimkv-paper-4b at full width (36
    layers, bf16, random weights from a seed, fresh gates at bias 18)
    for 3 train_step calls on batch 1 x 4096 tokens, M 256: asserts
@@ -389,7 +392,8 @@ def chunk_phase(g):
     G = Hq // Hkv
     idx = torch.arange(C, device="cuda", dtype=torch.int32)
 
-    def inputs(dtype, t0, n_valid, empty, first, M=M, keep_one=False):
+    def inputs(dtype, t0, n_valid, empty, first, M=M, keep_one=False,
+               Hkv=Hkv):
         q = rnd(g, (B, C, Hq, D), dtype)
         kc, vc = rnd(g, (B, C, Hkv, D), dtype), rnd(g, (B, C, Hkv, D), dtype)
         ck, cv = rnd(g, (B, Hkv, M, D), dtype), rnd(g, (B, Hkv, M, D), dtype)
@@ -415,7 +419,7 @@ def chunk_phase(g):
         ("first chunk (empty cache)", 0, [512, 464, 512, 100], 0, True, 0.0,
          True, {}),
     ]
-    edges = [  # the tensor-core kernel's tile edges, bf16 only
+    edges = [  # both kernels' tile edges
         ("M 500 (ragged tile) + probs", 1024, full, 0, True, 0.2, False,
          {"M": 500}),
         ("n_valid [1, 64, 65, 512] + probs", 1024, [1, 64, 65, 512], 0,
@@ -423,11 +427,18 @@ def chunk_phase(g):
         ("one live cache slot + probs", 1024, [512, 300, 512, 65], 0, True,
          0.0, False, {"keep_one": True}),
     ]
+    groups = [  # the float32 kernel's GQA packing: G 1 and G 8
+        ("G 1 (Hkv 32) + probs", 1024, [512, 464, 300, 17], 0, True, 0.2,
+         False, {"Hkv": 32}),
+        ("G 8 (Hkv 4), window 256 + probs", 1024, [512, 464, 300, 17], 256,
+         True, 0.2, False, {"Hkv": 4}),
+    ]
     errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for name, t0, nv, window, probs, empty, first, extra in (
-                cases + edges if dtype == torch.bfloat16 else cases):
+                cases + edges if dtype == torch.bfloat16
+                else cases + edges + groups):
             args = inputs(dtype, t0, nv, empty, first, **extra)
             kw = dict(window=window, need_probs=probs)
             got = chunk_attention_cuda(*args, **kw)
@@ -436,6 +447,7 @@ def chunk_phase(g):
             err = check_case(f"chunk {dn} {name}", got[:n], want[:n], dn)
             if name.startswith("main"):
                 errs[dtype] = err
+            del args, got, want
 
     out = []
     for dtype, name, src, fps in (
@@ -547,11 +559,29 @@ def retention_phase(g):
 # ------------------------------------------------------ capacity loss
 
 
+# capacity-loss limits, relative to the largest entry of the plain
+# version: the value and S sum ~T float32 terms in another order; the
+# gradient's sums are blocked (csrc/capacity_loss.cu). "repeat" is the
+# largest |difference| of two backward launches on the same inputs: the
+# gradient must be bit-identical
+CAP_TOL = {"value": 1e-5, "S": 1e-5, "grad": 1e-4, "grad vs autograd": 1e-4,
+           "repeat": 0.0}
+
+
+def check_capacity(name, errs):
+    """Raise unless every capacity reading is within CAP_TOL."""
+    for k, tol in CAP_TOL.items():
+        if not errs[k] <= tol:
+            raise AssertionError(f"capacity {name}: {k} err {errs[k]:.3e} "
+                                 f"beyond {tol}")
+
+
 def capacity_phase(g):
     import torch
     from repro_torch.kernels.capacity_loss import (
-        capacity_loss_bwd_cuda, capacity_loss_bwd_torch,
-        capacity_loss_fwd_cuda, capacity_loss_torch, occupancy_torch)
+        bwd_plan, capacity_fwd_launch, capacity_loss_bwd_cuda,
+        capacity_loss_bwd_torch, capacity_loss_fwd_cuda, capacity_loss_torch,
+        occupancy_torch)
 
     def log_beta(B, T, H, mode):
         if mode == "tie":                       # beta = 1.0 exactly
@@ -573,13 +603,17 @@ def capacity_phase(g):
         ("spread beta, T 1000 (ragged tile)", 1, 8, 1000, 256, "spread"),
         ("beta = 1.0 tie at M 256", 1, 8, 4096, 256, "tie"),
         ("spread beta, B 2, H 8", 2, 8, 4096, 256, "spread"),
+        ("spread beta, T 129 (one row past a tile), M 16", 1, 8, 129, 16,
+         "spread"),
+        ("spread beta, H 1, T 4096 (few columns)", 1, 1, 4096, 256, "spread"),
     ]
     gout = torch.tensor(0.7, device="cuda")
     main_err = None
     for name, B, H, T, M, mode in cases:
         lb = log_beta(B, T, H, mode).contiguous()
-        loss, S = capacity_loss_fwd_cuda(lb, M)
-        dlb = capacity_loss_bwd_cuda(lb, S, M, gout)
+        loss, S, rows = capacity_loss_fwd_cuda(lb, M)
+        dlb = capacity_loss_bwd_cuda(rows, S, M, gout, H)
+        again = capacity_loss_bwd_cuda(rows, S, M, gout, H)
         want_S = occupancy_torch(lb)
         x = lb.clone().requires_grad_(True)
         want = capacity_loss_torch(x, M)
@@ -589,32 +623,43 @@ def capacity_phase(g):
         errs = {"value": rel(loss, want.detach(), want.detach().abs()),
                 "S": rel(S, want_S),
                 "grad": rel(dlb, want_dlb),
-                "grad vs autograd": rel(dlb, auto)}
-        for k, tol in (("value", 1e-5), ("S", 1e-5), ("grad", 1e-4),
-                       ("grad vs autograd", 1e-4)):
-            if not errs[k] <= tol:
-                raise AssertionError(f"capacity {name}: {k} rel err "
-                                     f"{errs[k]:.3e} beyond {tol}")
+                "grad vs autograd": rel(dlb, auto),
+                "repeat": 0.0 if torch.equal(dlb, again) else
+                (dlb - again).abs().max().item() or math.inf}
+        check_capacity(name, errs)
         if not (torch.isfinite(dlb).all() and float(loss) > 0):
             raise AssertionError(f"capacity {name}: loss {float(loss)}")
         if mode == "tie" and not torch.equal(S[:, M - 1], torch.full_like(
                 S[:, M - 1], float(M))):
             raise AssertionError("capacity tie: S_{M-1} != M")
-        log(f"  capacity {name:<40} loss {float(loss):.6e}  rel err value "
+        n_items, n_groups = bwd_plan(T, B * H)
+        log(f"  capacity {name:<46} loss {float(loss):.6e}  rel err value "
             f"{errs['value']:.2e} S {errs['S']:.2e} (tol 1e-5) grad "
             f"{errs['grad']:.2e} / autograd {errs['grad vs autograd']:.2e} "
-            f"(tol 1e-4)")
+            f"(tol 1e-4); backward bit-identical on a second launch; "
+            f"backward grid {n_items} x {B * H} CTAs of {n_groups} x 4 warps")
         if name.startswith("main"):
             main_err = (dlb - want_dlb).abs().max().item(), \
                 (loss - want).abs().item()
-            main = (lb, S)
+            main = (lb, S, rows)
 
     # timing at the main-path shape: each train step calls these on one
-    # layer's log_beta [1, 4096, 8]
-    lb, S = main
+    # layer's log_beta [1, 4096, 8]. The kernels take tens of us, near
+    # the host's cost of a wrapper call, so they are timed in a CUDA
+    # graph: the forward kernel on the wrapper's buffers (without the
+    # wrapper's transpose and partial sum), the backward through its
+    # wrapper (one launch, no other kernel)
+    lb, S, rows = main
     B, T, H, M = 1, 4096, 8, 256
-    fwd_ms = time_ms(lambda i=0: capacity_loss_fwd_cuda(lb, M), 100)
-    bwd_ms = time_ms(lambda i=0: capacity_loss_bwd_cuda(lb, S, M, gout), 100)
+    S_buf = torch.empty_like(S)
+    partial = torch.empty((B * H, -(-T // 128)), device="cuda")
+    fwd_ms = time_graph_ms(lambda i=0: capacity_fwd_launch(rows, S_buf,
+                                                           partial, M), 100)
+    bwd_ms = time_graph_ms(lambda i=0: capacity_loss_bwd_cuda(rows, S, M,
+                                                              gout, H), 100)
+    fwd_loop = time_ms(lambda i=0: capacity_loss_fwd_cuda(lb, M), 100)
+    bwd_loop = time_ms(lambda i=0: capacity_loss_bwd_cuda(rows, S, M, gout,
+                                                          H), 100)
     plain_fwd = time_ms(lambda i=0: capacity_loss_torch(lb, M), 10)
     plain_bwd = time_ms(lambda i=0: capacity_loss_bwd_torch(lb, S, M, gout),
                         10)
@@ -629,9 +674,9 @@ def capacity_phase(g):
     # beta_i^(t0-i) makes a row block's sums a product of the power
     # table beta_i^j (j < k) with one carry per (block, column); that is
     # one multiply-add per pair (2 FLOPs) in the forward, and two in the
-    # backward (sum_t w_t (t-i) beta_i^(t-i) splits into the weights w_t
-    # and j * w_t against the same powers), with exps and the table
-    # 1/k of that. The backward needs only the pairs of rows over budget
+    # backward (sum_t w_t (t-i) beta_i^(t-i) splits into the weights
+    # against beta_i^j and j beta_i^j), with exps and the table 1/k of
+    # that. The backward needs only the pairs of rows over budget
     # (weight != 0) in this run's S.
     fwd_pairs = B * H * T * (T + 1) // 2
     over = (S - M >= 0).float()
@@ -642,12 +687,15 @@ def capacity_phase(g):
                                  FP32_FLOPS)
     bwd_bound, bwd_by = bound_ms(3 * B * H * T * 4, 4 * bwd_pairs,
                                  FP32_FLOPS)
-    log(f"  capacity timing (B 1, H 8, T 4096, M 256): forward {fwd_ms:.4f}"
-        f" ms (bound {fwd_bound:.4f}, {fwd_pairs / 1e6:.1f} M pairs x 2 "
-        f"FLOPs), backward {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, "
-        f"{bwd_pairs / 1e6:.1f} M pairs x 4 FLOPs) at {FP32_FLOPS:.3g} "
-        f"float32 FLOP/s; plain forward {plain_fwd:.3f} ms, backward "
-        f"{plain_bwd:.3f} ms, forward + autograd backward "
+    log(f"  capacity event loop over the wrappers (the host's cost per "
+        f"call included): forward {fwd_loop:.4f} ms (with its transpose and "
+        f"partial sum), backward {bwd_loop:.4f} ms")
+    log(f"  capacity timing (CUDA graph; B 1, H 8, T 4096, M 256): forward "
+        f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f}, {fwd_pairs / 1e6:.1f} M "
+        f"pairs x 2 FLOPs), backward {bwd_ms:.4f} ms (bound "
+        f"{bwd_bound:.4f}, {bwd_pairs / 1e6:.1f} M pairs x 4 FLOPs) at "
+        f"{FP32_FLOPS:.3g} float32 FLOP/s; plain forward {plain_fwd:.3f} ms,"
+        f" backward {plain_bwd:.3f} ms, forward + autograd backward "
         f"{plain_both:.3f} ms")
     src = "src/repro_torch/kernels/csrc/capacity_loss.cu"
     return [
@@ -1077,7 +1125,8 @@ def main() -> int:
     build.library()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "entry function" in line
+                or line.startswith("==")):
             log("  " + line.strip())
 
     g = torch.Generator(device="cuda")

@@ -35,12 +35,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; each returns cudaError_t
 SIGNATURES = {
     "decode_attention_launch": [_I] + [_P] * 10 + [_I] * 8 + [_P],
-    "chunk_attention_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "chunk_attention_launch": [_P] * 10 + [_I] * 8 + [_P],
     "retention_attention_launch": [_P] * 5 + [_I] * 9 + [_P],
     "chunk_attention_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
     "retention_attention_tc_launch": [_P] * 5 + [_I] * 8 + [_P],
     "capacity_loss_fwd_launch": [_P] * 3 + [_I] * 2 + [_F, _P],
-    "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 3 + [_F, _P],
+    "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
 }
 
 _lib = None

@@ -6,7 +6,8 @@ Replaces the Pallas kernel ``capacity_loss_pallas``
 kernels are ``csrc/capacity_loss.cu``, a forward and a backward. With
 lb = log beta [B, T, H] float32 and S_t = sum_{i<=t} exp((t-i) lb_i)
 per (b, h), L_cap = mean over (b, h) of (1/T) sum_t max(0, S_t - M)/(t+1).
-The forward keeps S [B*H, T] as the residual its backward reads.
+The forward keeps S [B*H, T] and log beta's [B*H, T] rows as the
+residuals its backward reads; ``bwd_plan`` sizes the backward's grid.
 
 ``kernels.ops.capacity_loss`` / ``capacity_loss_log`` pick the version
 by the tensor's device; call those, not these.
@@ -24,6 +25,28 @@ def _rows(log_beta):
     """[B, T, H] -> contiguous float32 [B*H, T], as the kernels read it."""
     B, T, H = log_beta.shape
     return log_beta.float().transpose(1, 2).reshape(B * H, T).contiguous()
+
+
+# the backward kernel (csrc/capacity_loss.cu): columns per column tile
+# (a group of 4 warps, one column per thread), rows per row block (one
+# warp's 32 columns span one block), the most groups a CTA holds, and
+# the warps it aims for: 16 on each of the H100's 132 SMs
+BWD_COLS = 128
+BWD_ROWS = 32
+BWD_MAX_GROUPS = 4
+BWD_TARGET_WARPS = 16 * 132
+
+
+def bwd_plan(T: int, BH: int) -> tuple[int, int]:
+    """(n_items, n_groups) of the backward kernel for B*H = BH rows of
+    T: item p is the CTA that takes column tiles p and n - 1 - p (n =
+    ceil(T / BWD_COLS)), whose pairs sum to about the same for every p;
+    its n_groups groups of 4 warps split each column's row blocks. The
+    grid is n_items x BH CTAs of 128 * n_groups threads."""
+    n_items = (-(-T // BWD_COLS) + 1) // 2
+    per_cta = BWD_COLS // 32
+    want = -(-BWD_TARGET_WARPS // (per_cta * max(1, BH * n_items)))
+    return n_items, max(1, min(BWD_MAX_GROUPS, want))
 
 
 # ------------------------------------------------------- plain versions
@@ -76,40 +99,52 @@ def capacity_loss_bwd_torch(log_beta, S, M: float, g):
 # ------------------------------------------------------- CUDA kernels
 
 
+def capacity_fwd_launch(rows, S, partial, M: float):
+    """The forward kernel alone, on the wrapper's checked buffers: rows
+    [B*H, T] (log beta), S [B*H, T] and partial [B*H, ceil(T / 128)]."""
+    err = build.library().capacity_loss_fwd_launch(
+        rows.data_ptr(), S.data_ptr(), partial.data_ptr(), rows.shape[0],
+        rows.shape[1], float(M),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    build.check(err, "capacity_loss_fwd")
+
+
 def capacity_loss_fwd_cuda(log_beta, M: float):
     """Launch the forward kernel. log_beta: contiguous float32 CUDA
-    [B, T, H]. Returns (loss scalar, S [B*H, T] float32)."""
+    [B, T, H]. Returns (loss scalar, S [B*H, T] float32, log_beta's
+    rows [B*H, T] float32): S and the rows are what the backward reads."""
     build.check_device(log_beta)
     B, T, H = log_beta.shape
     build.check_tensor("log_beta", log_beta, (B, T, H), torch.float32,
                        log_beta.device)
-    lb = _rows(log_beta)
+    rows = _rows(log_beta)
     n_tiles = -(-T // 128)
-    S = torch.empty((B * H, T), dtype=torch.float32, device=lb.device)
+    S = torch.empty((B * H, T), dtype=torch.float32, device=rows.device)
     partial = torch.empty((B * H, n_tiles), dtype=torch.float32,
-                          device=lb.device)
-    err = build.library().capacity_loss_fwd_launch(
-        lb.data_ptr(), S.data_ptr(), partial.data_ptr(), B * H, T, float(M),
-        torch.cuda.current_stream(lb.device).cuda_stream)
-    build.check(err, "capacity_loss_fwd")
-    return partial.sum() / (B * H) / T, S
+                          device=rows.device)
+    capacity_fwd_launch(rows, S, partial, M)
+    return partial.sum() / (B * H) / T, S, rows
 
 
-def capacity_loss_bwd_cuda(log_beta, S, M: float, g):
-    """Launch the backward kernel. log_beta [B, T, H] and S [B*H, T]
-    float32 on the card, g a float32 CUDA scalar (the loss's incoming
-    gradient, read by the kernel). Returns dL/dlb [B, T, H]."""
-    build.check_device(log_beta)
-    B, T, H = log_beta.shape
-    dev = log_beta.device
-    build.check_tensor("log_beta", log_beta, (B, T, H), torch.float32, dev)
-    build.check_tensor("S", S, (B * H, T), torch.float32, dev)
+def capacity_loss_bwd_cuda(rows, S, M: float, g, H: int):
+    """Launch the backward kernel. rows (log beta) and S [B*H, T]
+    float32 on the card, as the forward returned them, g a float32 CUDA
+    scalar (the loss's incoming gradient, read by the kernel), H the
+    gates' heads. Returns dL/dlb [B, T, H]."""
+    build.check_device(rows)
+    BH, T = rows.shape
+    if BH % H:
+        raise ValueError(f"{BH} rows are not a multiple of H={H}")
+    dev = rows.device
+    build.check_tensor("rows", rows, (BH, T), torch.float32, dev)
+    build.check_tensor("S", S, (BH, T), torch.float32, dev)
     build.check_tensor("g", g, (), torch.float32, dev)
-    lb = _rows(log_beta)
-    dlb = torch.empty((B, T, H), dtype=torch.float32, device=dev)
+    dlb = torch.empty((BH // H, T, H), dtype=torch.float32, device=dev)
+    n_items, n_groups = bwd_plan(T, BH)
     err = build.library().capacity_loss_bwd_launch(
-        lb.data_ptr(), S.data_ptr(), g.data_ptr(), dlb.data_ptr(), B, H, T,
-        float(M), torch.cuda.current_stream(dev).cuda_stream)
+        rows.data_ptr(), S.data_ptr(), g.data_ptr(), dlb.data_ptr(),
+        BH // H, H, T, n_items, n_groups, float(M),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "capacity_loss_bwd")
     return dlb
 
@@ -123,14 +158,15 @@ class CapacityLoss(torch.autograd.Function):
     def forward(ctx, log_beta, M, on_launch):
         lb = log_beta.float().contiguous()
         on_launch("capacity_loss")
-        loss, S = capacity_loss_fwd_cuda(lb, M)
-        ctx.save_for_backward(lb, S)
-        ctx.M, ctx.on_launch = M, on_launch
+        loss, S, rows = capacity_loss_fwd_cuda(lb, M)
+        ctx.save_for_backward(rows, S)
+        ctx.M, ctx.H, ctx.on_launch = M, lb.shape[2], on_launch
         return loss
 
     @staticmethod
     def backward(ctx, g):
-        lb, S = ctx.saved_tensors
+        rows, S = ctx.saved_tensors
         ctx.on_launch("capacity_loss_bwd")
-        dlb = capacity_loss_bwd_cuda(lb, S, ctx.M, g.float().contiguous())
+        dlb = capacity_loss_bwd_cuda(rows, S, ctx.M, g.float().contiguous(),
+                                     ctx.H)
         return dlb, None, None

@@ -5,7 +5,10 @@ Replaces the Pallas kernel ``chunk_attention_pallas``
 (``repro/kernels/chunk_attention.py``) with two CUDA kernels, one per
 dtype: bfloat16 runs ``csrc/chunk_attention_tc.cu`` (wgmma and TMA on
 the tensor cores, head dim 128), float32 runs
-``csrc/chunk_attention.cu`` (CUDA-core FMAs). The C queries of a
+``csrc/chunk_attention.cu`` (full float32 FMAs on the CUDA cores,
+register-blocked like an SGEMM on the tile step of the float32
+retention kernel; one CTA serves the q heads of a kv head together;
+head dim at most 128). The C queries of a
 prefill chunk attend over the M cache slots (per-head positions, -1
 empty) and causally over the chunk's own keys. A key is visible iff
 its position is >= 0 and 0 <= q_pos - k_pos (< window when windowed);
@@ -25,6 +28,16 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+# query rows a CTA of the float32 kernel holds (csrc/chunk_attention.cu)
+F32_ROWS = 128
+
+
+def row_plan(C: int, G: int) -> tuple[int, int]:
+    """(positions per CTA, row tiles) of the float32 kernel for a chunk
+    of C positions and G q heads per kv head: a CTA holds the G heads of
+    BQ = F32_ROWS // G positions, as F32_ROWS rows."""
+    bq = F32_ROWS // G
+    return bq, -(-C // bq)
 
 
 def _chunk_pos_2d(chunk_pos, B, C, device):
@@ -70,10 +83,12 @@ def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
     """Launch the kernel of q's dtype: bfloat16
     ``csrc/chunk_attention_tc.cu`` (head dim 128, 16-byte-aligned
     tensors, as TMA reads them; M + C up to ~8,000 keys, the positions
-    it keeps in shared memory), float32 ``csrc/chunk_attention.cu``.
-    Same contract as the plain version; every tensor must be a
-    contiguous CUDA tensor, q/k/v and the cache in one dtype, positions
-    int32."""
+    it keeps in shared memory), float32 ``csrc/chunk_attention.cu``
+    (head dim at most 128 and a multiple of 4, 16-byte-aligned tensors,
+    as cp.async copies them; M + C up to ~225,000 keys, a flag and a
+    list entry per 64-key tile in shared memory). Same contract as the
+    plain version; every tensor must be a contiguous CUDA tensor, q/k/v
+    and the cache in one dtype, positions int32."""
     build.check_device(q)
     dev, dt = q.device, q.dtype
     B, C, Hq, D = q.shape
@@ -96,14 +111,26 @@ def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
             cp2.data_ptr(), out.data_ptr(),
             None if probs is None else probs.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
+    tensors = dict(q=q, k_c=k_c, v_c=v_c, cache_k=cache_k, cache_v=cache_v,
+                   out=out)
     if dt == torch.bfloat16:
-        build.check_tc(D, q=q, k_c=k_c, v_c=v_c, cache_k=cache_k,
-                       cache_v=cache_v, out=out)
+        build.check_tc(D, **tensors)
         err = build.library().chunk_attention_tc_launch(
             *ptrs, B, C, Hq, Hkv, M, int(window), stream)
     else:
+        if D > 128 or D % 4 or Hq // Hkv > F32_ROWS:
+            raise ValueError(f"the float32 chunk kernel takes head dim "
+                             f"<= 128 in multiples of 4 and at most "
+                             f"{F32_ROWS} q heads per kv head, got D={D}, "
+                             f"Hq={Hq}, Hkv={Hkv}")
+        build.check_aligned(**tensors)
+        # the running max of each row after each cache tile, for the
+        # probabilities' final rescale
+        pmax = (torch.empty((B, Hq, C, -(-M // 64)), dtype=torch.float32,
+                            device=dev) if need_probs else None)
         err = build.library().chunk_attention_launch(
-            *ptrs, B, C, Hq, Hkv, M, D, int(window), stream)
+            *ptrs, None if pmax is None else pmax.data_ptr(), B, C, Hq, Hkv,
+            M, D, row_plan(C, Hq // Hkv)[0], int(window), stream)
     build.check(err, "chunk_attention")
     if not need_probs:
         return out, None

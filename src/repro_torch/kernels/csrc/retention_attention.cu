@@ -21,7 +21,8 @@
 // Full float32 FMAs throughout, no TF32: this route holds the card to
 // the CPU within 1e-4.
 //
-// Design: an SGEMM-style flash kernel on the CUDA cores. One CTA of
+// Design: an SGEMM-style flash kernel on the CUDA cores, its tile step
+// in f32_flash.cuh (shared with the float32 chunk kernel). One CTA of
 // 256 threads per (lane, kv head, tile of 128 / G query positions)
 // serves the G q heads of the kv head together: 128 query rows, row
 // r = (position r / G, head r % G), held in shared memory, so each K/V
@@ -46,46 +47,15 @@
 // shared-memory latency idles the FFMA pipes: the kernel runs at about
 // half the float32 peak; the K reads take two wavefronts a warp; the
 // diagonal tiles compute their masked half.
-#include "flash_tile.cuh"
-
-using flash::cp_async16;
-using flash::cp_async_commit;
-using flash::cp_async_wait;
+#include "f32_flash.cuh"
 
 namespace {
 
-constexpr int BR = 128;      // query rows per CTA
-constexpr int BK = 64;       // keys per tile
-constexpr int DP = 128;      // head dim held (D <= DP, zero-padded)
-constexpr int NTH = 256;     // threads per CTA
-constexpr int QLD = DP + 4;  // Q and K row stride in floats
-constexpr int PLD = BR + 4;  // P^T row stride in floats
-constexpr int CH = DP / 4;   // 16-byte chunks of a held row
+using namespace f32flash;
 
-constexpr size_t SMEM_FLOATS = (size_t)BR * QLD + 2 * (size_t)BK * QLD +
-                               (size_t)BK * DP + (size_t)BK * PLD + 2 * BR +
-                               2 * BK;
-
-__device__ __forceinline__ void cp_async4(float *dst, const float *src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0)
-               : "memory");
-}
-
-// max and sum over the 16 lanes that share a row of S
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
+// Q, K, V, P^T (f32_flash.cuh), then the rescale factors and
+// denominators of the rows and the tile's log beta, double-buffered
+constexpr size_t SMEM_FLOATS = TILE_FLOATS + 2 * BR + 2 * BK;
 
 __global__ void __launch_bounds__(NTH, 1)
 retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
@@ -110,19 +80,12 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
   const int bh = blockIdx.x % n_bh, b = bh / Hkv, kvh = bh % Hkv;
   const int r0 = qt * BQ;
   const int n_rows = min(BQ, Tq - r0) * G;  // rows holding a query
-  const int nc = D / 4;
   const bool use_beta = log_beta != nullptr;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // the softmax runs in base 2: logits times log2(e), exp2f
-  const float scale2 = scale * 1.4426950408889634f;
+  const float scale2 = scale * LOG2E;
 
-  // Q rows; padded rows and dims zero-filled
-  for (int e = tid; e < BR * CH; e += NTH) {
-    const int r = e / CH, c = e - r * CH;
-    const bool ok = r < n_rows && c < nc;
-    const long src = ok ? ((long)(b * Tq + r0 + r / G) * Hq + kvh * G + r % G) * D + 4 * c : 0;
-    cp_async16(sq + r * QLD + 4 * c, q + src, ok);
-  }
+  load_q(sq, q, b, Tq, r0, Hq, kvh, G, n_rows, D);
 
   // the keys the tile's rows can see
   const int q_lo = q_offset + r0, q_hi = q_lo + n_rows / G - 1;
@@ -130,33 +93,21 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
   const int j_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
   const int t_begin = j_begin / BK;
   const int t_end = j_end > j_begin ? (j_end + BK - 1) / BK : t_begin;
+  const long kv_ld = (long)Hkv * D;
+  auto kv_row = [&](int j0) { return ((long)(b * Tk + j0) * Hkv + kvh) * D; };
 
   auto load_k = [&](int t) {
     const int j0 = t * BK;
-    float *sk = sk0 + (t & 1) * BK * QLD;
-    for (int e = tid; e < BK * CH; e += NTH) {
-      const int j = e / CH, c = e - j * CH;
-      const bool ok = j0 + j < Tk && c < nc;
-      const long src = ok ? ((long)(b * Tk + j0 + j) * Hkv + kvh) * D + 4 * c : 0;
-      cp_async16(sk + j * QLD + 4 * c, k + src, ok);
-    }
+    load_keys(sk0 + (t & 1) * BK * QLD, QLD, k + kv_row(j0), kv_ld,
+              min(BK, Tk - j0), D);
     if (use_beta && tid < BK) {
       const bool ok = j0 + tid < Tk;
       cp_async4(s_lb0 + (t & 1) * BK + tid,
                 log_beta + (ok ? (long)(b * Tk + j0 + tid) * Hkv + kvh : 0), ok);
     }
   };
-  auto load_v = [&](int t) {
-    const int j0 = t * BK;
-    for (int e = tid; e < BK * CH; e += NTH) {
-      const int j = e / CH, c = e - j * CH;
-      const bool ok = j0 + j < Tk && c < nc;
-      const long src = ok ? ((long)(b * Tk + j0 + j) * Hkv + kvh) * D + 4 * c : 0;
-      cp_async16(sv + j * DP + 4 * c, v + src, ok);
-    }
-  };
   if (t_begin < t_end) load_k(t_begin);
-  cp_async_commit();                    // Q and the first K
+  flash::cp_async_commit();             // Q and the first K
 
   // S roles: rows srg + 16 i, keys skg + 16 j. O roles: rows 8 srg + i,
   // dims 4 skg + {0..3} and 64 + 4 skg + {0..3}.
@@ -174,42 +125,18 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
     const int j0 = t * BK;
     const float *sk = sk0 + (t & 1) * BK * QLD;
     const float *s_lb = s_lb0 + (t & 1) * BK;
-    cp_async_wait<0>();  // K(t) (and Q)
+    flash::cp_async_wait<0>();  // K(t) (and Q)
     // every warp is done with S(t - 1) (K's other buffer) and with
     // P.V(t - 1) (V and P^T): V(t) streams in during S(t), K(t + 1)
     // during the whole tile
     __syncthreads();
-    load_v(t);
-    cp_async_commit();
+    load_keys(sv, DP, v + kv_row(j0), kv_ld, min(BK, Tk - j0), D);
+    flash::cp_async_commit();
     if (t + 1 < t_end) load_k(t + 1);
-    cp_async_commit();
+    flash::cp_async_commit();
 
     float s[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DP; d += 4) {
-      float4 qv[8], kv[4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-        qv[i] = *reinterpret_cast<const float4 *>(sq + (srg + 16 * i) * QLD + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4 *>(sk + (skg + 16 * j) * QLD + d);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float x = s[i][j];
-          x = fmaf(qv[i].x, kv[j].x, x);
-          x = fmaf(qv[i].y, kv[j].y, x);
-          x = fmaf(qv[i].z, kv[j].z, x);
-          x = fmaf(qv[i].w, kv[j].w, x);
-          s[i][j] = x;
-        }
-    }
+    qk(sq, sk, srg, skg, s);
 
     // online softmax in registers; a tile the mask, window and Tk leave
     // whole for every row skips the per-element mask
@@ -235,80 +162,25 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
           const bool vis = r < n_rows && key < Tk && (!causal || dist >= 0) &&
                            (window <= 0 || dist < window);
           const float bias = use_beta ? (float)dist * s_lb[skg + 16 * j] : 0.f;
-          x[j] = vis ? fmaf(s[i][j], scale2, bias * 1.4426950408889634f) : NEG_INF;
+          x[j] = vis ? fmaf(s[i][j], scale2, bias * LOG2E) : NEG_INF;
           ok |= (unsigned)vis << j;
         }
       }
-      const float mx = row_max(fmaxf(fmaxf(x[0], x[1]), fmaxf(x[2], x[3])));
-      const float m_new = fmaxf(m[i], mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = (ok >> j & 1u) ? exp2f(x[j] - m_new) : 0.f;
-        s[i][j] = p;
-        psum += p;
-      }
-      psum = row_sum(psum);
-      alpha[i] = exp2f(m[i] - m_new);
-      l[i] = l[i] * alpha[i] + psum;
-      m[i] = m_new;
+      alpha[i] = softmax_row(x, ok, s[i], m[i], l[i]);
     }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sp[(skg + 16 * j) * PLD + srg + 16 * i] = s[i][j];
-    if (skg == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s_alpha[srg + 16 * i] = alpha[i];
-    }
-    cp_async_wait<1>();  // V(t); K(t + 1) may be in flight
+    store_p(sp, s_alpha, s, alpha, srg, skg);
+    flash::cp_async_wait<1>();  // V(t); K(t + 1) may be in flight
     __syncthreads();
-
-    // O = O * alpha + P V
-    {
-      const float4 a0 = *reinterpret_cast<const float4 *>(s_alpha + 8 * srg);
-      const float4 a1 = *reinterpret_cast<const float4 *>(s_alpha + 8 * srg + 4);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) o[i][c] *= a[i];
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 p0 = *reinterpret_cast<const float4 *>(sp + kk * PLD + 8 * srg);
-      const float4 p1 = *reinterpret_cast<const float4 *>(sp + kk * PLD + 8 * srg + 4);
-      const float4 v0 = *reinterpret_cast<const float4 *>(sv + kk * DP + 4 * skg);
-      const float4 v1 = *reinterpret_cast<const float4 *>(sv + kk * DP + 64 + 4 * skg);
-      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-      const float vv[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) o[i][c] = fmaf(p[i], vv[c], o[i][c]);
-    }
+    pv(o, sp, sv, s_alpha, srg, skg);
   }
-  cp_async_wait<0>();
+  flash::cp_async_wait<0>();
 
   if (skg == 0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) s_l[srg + 16 * i] = l[i];
   }
   __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = 8 * srg + i;
-    if (r < n_rows) {
-      const float lr = fmaxf(s_l[r], 1e-30f);
-      float *dst = out + ((long)(b * Tq + r0 + r / G) * Hq + kvh * G + r % G) * D;
-      if (4 * skg < D)
-        *reinterpret_cast<float4 *>(dst + 4 * skg) = make_float4(
-            o[i][0] / lr, o[i][1] / lr, o[i][2] / lr, o[i][3] / lr);
-      if (64 + 4 * skg < D)
-        *reinterpret_cast<float4 *>(dst + 64 + 4 * skg) = make_float4(
-            o[i][4] / lr, o[i][5] / lr, o[i][6] / lr, o[i][7] / lr);
-    }
-  }
+  store_out(out, o, s_l, b, Tq, r0, Hq, kvh, G, n_rows, D, srg, skg);
 }
 
 }  // namespace

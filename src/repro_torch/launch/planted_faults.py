@@ -1,6 +1,6 @@
-"""Planted faults against chip_smoke.py's limits for the attention
-kernels: a sound build must stay within every limit, and each planted
-fault must exceed one.
+"""Planted faults against chip_smoke.py's limits for the attention and
+capacity-loss kernels: a sound build must stay within every limit, and
+each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults
 
@@ -13,7 +13,10 @@ fault touches and, where listed, its bf16 serving parity, with every
 limit lifted. Each bf16 case gives its row-relative error
 (chip_smoke.row_errors), each float32 case its largest
 |error| / (1 + |value|) against chip_smoke.TOL (the test chip_smoke's
-check applies), and the parity its logit gap; the script
+check applies), each capacity case its readings against
+chip_smoke.CAP_TOL (the gradient's error relative to its largest entry,
+and a second launch's difference, which must be 0), and the parity its
+logit gap; the script
 prints every reading beside its limit, the largest reading of the
 sound build per kind, and exits non-zero unless the sound build stays
 within every limit and each fault exceeds at least one.
@@ -63,8 +66,25 @@ FAULTS = [
      "      const float w = ls[s] > 0.f ? expf(ms[s] - m) : 0.f;",
      "      const float w = ls[s] > 0.f ? (s == 0 ? 1.f : expf(ms[s] - m)) "
      ": 0.f;", ("decode",)),
+    ("chunk f32: the last chunk-key tile skipped", "chunk_attention.cu",
+     "if (s_flag[t] & VISIBLE) s_list[n++] = t;",
+     "if ((s_flag[t] & VISIBLE) && t != n_tiles - 1) s_list[n++] = t;",
+     ("chunk",)),
+    ("chunk f32: no per-element mask on a partly visible cache tile",
+     "chunk_attention.cu", "const bool edge = !(s_flag[t] & WHOLE);",
+     "const bool edge = !(s_flag[t] & WHOLE) && t >= n_mt;", ("chunk",)),
+    ("capacity bwd: the carry of the block after the diagonal left out",
+     "capacity_loss.cu",
+     "acc = fmaf(exp2f(d0 * lb2), fmaf(d0, a, bq), acc);",
+     "acc = fmaf(rb == wt + 1 ? 1.f : exp2f(d0 * lb2), fmaf(d0, a, bq), "
+     "acc);", ("capacity",)),
+    ("capacity bwd: group 1's partial dropped from the reduction",
+     "capacity_loss.cu",
+     "for (int q = 0; q < n_groups; ++q) x += part_s[q][half][c];",
+     "for (int q = 0; q < n_groups; ++q) x += q == 1 ? 0.f : "
+     "part_s[q][half][c];", ("capacity",)),
 ]
-SOUND = ("decode", "chunk", "retention", "parity")
+SOUND = ("decode", "chunk", "retention", "capacity", "parity")
 
 
 def child(phases):
@@ -97,8 +117,14 @@ def child(phases):
                          "limit": cs.TOL[dtype]})
         return worst
 
+    def record_capacity(name, errs):
+        for kind, limit in cs.CAP_TOL.items():
+            readings.append({"case": f"capacity {name}", "kind": kind,
+                             "reading": errs[kind], "limit": limit})
+
     cs.check_rows = record
     cs.check = record_f32
+    cs.check_capacity = record_capacity
     g = torch.Generator(device="cuda")
     with torch.no_grad():
         for name in ("decode", "chunk", "retention"):
@@ -106,6 +132,9 @@ def child(phases):
                 g.manual_seed(0)      # the same inputs in every run
                 getattr(cs, f"{name}_phase")(g)
                 torch.cuda.empty_cache()
+    if "capacity" in phases:          # autograd runs in it
+        g.manual_seed(0)
+        cs.capacity_phase(g)
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -162,7 +191,7 @@ def main() -> int:
             print("  " + line)
         for r in readings:
             flag = "  BEYOND" if r in over else ""
-            print(f"  {r['case']:<56} {r['kind']:<6} {r['reading']:.3e} "
+            print(f"  {r['case']:<60} {r['kind']:<6} {r['reading']:.3e} "
                   f"(limit {r['limit']:g}){flag}", flush=True)
         if fault is None:
             for kind in sorted({r["kind"] for r in readings}):

@@ -100,7 +100,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         capacity_loss_fwd_cuda(lb, 4)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        capacity_loss_bwd_cuda(lb, torch.zeros((2, 40)), 4, torch.ones(()))
+        capacity_loss_bwd_cuda(torch.zeros((2, 40)), torch.zeros((2, 40)), 4,
+                               torch.ones(()), 2)
 
 
 def test_entry_points_refuse_without_a_card():

@@ -21,8 +21,11 @@ from repro.core.losses import capacity_loss_chunked as jax_capacity_chunked
 from repro.kernels import ops as jops
 from repro_torch.core.losses import capacity_loss_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.capacity_loss import (capacity_loss_bwd_torch,
+from repro_torch.kernels.capacity_loss import (BWD_COLS, BWD_ROWS,
+                                               bwd_plan,
+                                               capacity_loss_bwd_torch,
                                                occupancy_torch)
+from repro_torch.kernels.chunk_attention import F32_ROWS, row_plan
 from repro_torch.kernels.decode_attention import MAX_SPLIT, TILE, split_plan
 
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -140,6 +143,42 @@ def test_decode_split_plan_main_path_and_small_cache():
 
 
 # -------------------------------------------------------------- chunk
+
+
+def _cta_rows(cta, B, C, Hq, Hkv):
+    """The (lane, position, q head) of each row CTA `cta` of the float32
+    chunk kernel's grid of B * Hkv * n_qt holds, as csrc/chunk_attention.cu
+    reads its blockIdx: the last row tiles first, then (lane, kv head);
+    row r is (position c0 + r // G, head kvh * G + r % G) for
+    r < n_pos * G."""
+    G = Hq // Hkv
+    bq, n_qt = row_plan(C, G)
+    n_bh = B * Hkv
+    qt, bh = n_qt - 1 - cta // n_bh, cta % n_bh
+    b, kvh, c0 = bh // Hkv, bh % Hkv, qt * bq
+    return [(b, c0 + r // G, kvh * G + r % G)
+            for r in range(min(bq, C - c0) * G)]
+
+
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("C", [512, 500, 17])
+def test_chunk_f32_row_plan_covers_every_row_once(G, C):
+    """The float32 chunk kernel's row plan (pure Python, in the
+    wrapper): its grid of B * Hkv * n_qt CTAs of F32_ROWS rows holds
+    every (lane, position, q head) exactly once, G heads of a kv head
+    together."""
+    B, Hkv = 2, 8 // min(G, 8)
+    Hq = G * Hkv
+    bq, n_qt = row_plan(C, G)
+    assert bq * G <= F32_ROWS and (n_qt - 1) * bq < C <= n_qt * bq
+    hits = np.zeros((B, C, Hq), int)
+    for cta in range(B * Hkv * n_qt):
+        rows = _cta_rows(cta, B, C, Hq, Hkv)
+        assert len(rows) <= F32_ROWS
+        assert len({h // G for _, _, h in rows}) <= 1   # one kv head
+        for b, c, h in rows:
+            hits[b, c, h] += 1
+    assert (hits == 1).all()
 
 
 def _case(*args, shape=None, id=None):
@@ -345,3 +384,119 @@ def test_capacity_loss_bwd_closed_form(case):
                                    rtol=1e-6, atol=1e-9)
     if case == "under_budget":
         assert not got.numpy().any()
+
+
+def _bwd_units(T, item, n_groups, group, warp):
+    """The (column block, row block) pairs, in blocks of 32, that warp
+    `warp` (0..3) of group `group` of CTA `item` walks, as the backward
+    kernel (csrc/capacity_loss.cu) does: column tile ii (p, then
+    n - 1 - p) gives column block cb = 4 ii + warp; its row blocks run
+    from the diagonal cb to the last, block rb to group rb % n_groups.
+    Column i = 32 cb + lane and row t = 32 rb + j count where
+    i <= t < T (on the diagonal, j >= lane)."""
+    n_tiles = -(-T // BWD_COLS)
+    nrb = -(-T // BWD_ROWS)
+    out = []
+    for ii in dict.fromkeys((item, n_tiles - 1 - item)):
+        cb = ii * (BWD_COLS // BWD_ROWS) + warp
+        out += [(cb, rb) for rb in range(cb, nrb) if rb % n_groups == group]
+    return out
+
+
+@pytest.mark.parametrize("T", [1, 129, 1000, 4096])
+def test_capacity_bwd_plan_covers_lower_triangle_once(T):
+    """The capacity backward's work plan (bwd_plan, and _bwd_units as
+    the kernel walks it): every pair t >= i of each (b, h) row exactly
+    once, nothing above the diagonal; at T 4096 no CTA and no group
+    holds more than 1.25x the mean pairs."""
+    BH = 8
+    n_items, n_groups = bwd_plan(T, BH)
+    assert n_items == (-(-T // BWD_COLS) + 1) // 2
+    assert 1 <= n_groups <= 4
+    lane = np.arange(BWD_ROWS)
+    hits = np.zeros((T + BWD_ROWS, T + BWD_COLS), np.int8)   # [t, i]
+    cta_pairs, group_pairs = [], []
+    for item in range(n_items):
+        per_cta = 0
+        for group in range(n_groups):
+            pairs = 0
+            for warp in range(BWD_COLS // BWD_ROWS):
+                for cb, rb in _bwd_units(T, item, n_groups, group,
+                                         warp):
+                    t0, i0 = rb * BWD_ROWS, cb * BWD_ROWS
+                    blk = np.ones((BWD_ROWS, BWD_ROWS), np.int8)
+                    if rb == cb:                  # the diagonal: j >= lane
+                        blk = (lane[:, None] >= lane[None, :]).astype(np.int8)
+                    assert rb >= cb
+                    hits[t0:t0 + BWD_ROWS, i0:i0 + BWD_ROWS] += blk
+                    pairs += int(blk[:max(0, T - t0), :max(0, T - i0)].sum())
+            group_pairs.append(pairs)
+            per_cta += pairs
+        cta_pairs.append(per_cta)
+    hits = hits[:T, :T]
+    assert (hits == np.tri(T, dtype=np.int8)).all()
+    assert sum(cta_pairs) == T * (T + 1) // 2
+    if T == 4096:
+        assert max(cta_pairs) <= 1.25 * np.mean(cta_pairs)
+        assert max(group_pairs) <= 1.25 * np.mean(group_pairs)
+        assert BH * n_items * n_groups * 4 >= 8 * 132   # 8 warps per SM
+
+
+def _blocked_bwd(lb, S, M, g, K=32):
+    """The backward kernel's sum in numpy float32: rows in blocks of K;
+    a block after column i is beta_i^(t0-i) ((t0-i) A + Bq), A and Bq
+    sums of its weights against the table beta_i^j and j beta_i^j
+    (j < K, one exp2 each), the block on the diagonal one exp2 per
+    pair; blocks accumulate in order."""
+    f = np.float32
+    B, T, H = lb.shape
+    rows = lb.transpose(0, 2, 1).reshape(B * H, T)
+    x = S - f(M)
+    w = (np.where(x > 0, f(1), np.where(x == 0, f(0.5), f(0)))
+         * (f(1) / np.arange(1, T + 1, dtype=f))).astype(f)
+    nrb = -(-T // K)
+    w = np.concatenate([w, np.zeros((B * H, nrb * K - T), f)], 1)
+    i = np.arange(T)
+    j = np.arange(K, dtype=f)
+    out = np.zeros((B * H, T), f)
+    for r in range(B * H):
+        lb2 = (rows[r] * f(1.4426950408889634)).astype(f)          # [T]
+        pw = np.exp2(j[None, :] * lb2[:, None]).astype(f)          # [T, K]
+        qw = (j[None, :] * pw).astype(f)
+        acc = np.zeros(T, f)
+        for rb in range(nrb):
+            wb = w[r, rb * K:(rb + 1) * K]
+            full = i // K < rb
+            d0 = (rb * K - i[full]).astype(f)
+            a = (pw[full] @ wb).astype(f)
+            bq = (qw[full] @ wb).astype(f)
+            acc[full] += (np.exp2(d0 * lb2[full]) * (d0 * a + bq)).astype(f)
+            diag = np.nonzero(i // K == rb)[0]
+            if diag.size:
+                d = j[None, :] - (diag % K)[:, None].astype(f)        # j - lane
+                term = np.where(d >= 0, (wb[None, :] * d) * np.exp2(
+                    np.maximum(d, 0) * lb2[diag, None]), f(0)).astype(f)
+                acc[diag] += term.sum(1, dtype=f)
+        out[r] = acc
+    out *= f(g) / f(B * H * T)
+    return out.reshape(B, H, T).transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("mode", ["spread", "tie"])
+def test_capacity_bwd_blocked_sum_matches_plain(mode):
+    """The backward kernel's blocked power-table sum (K 32), emulated in
+    numpy float32, against capacity_loss_bwd_torch within 1e-5 of the
+    gradient's largest entry, for beta spread below 1 and for beta =
+    1.0 exactly."""
+    B, H, T, M = 1, 2, 1000, 64
+    if mode == "tie":
+        lb = np.zeros((B, T, H), np.float32)
+    else:
+        lb = _log_beta(np.random.RandomState(13), B, T, H)
+    lbt = torch.as_tensor(lb)
+    S = occupancy_torch(lbt)
+    want = capacity_loss_bwd_torch(lbt, S, M, torch.tensor(0.7)).numpy()
+    got = _blocked_bwd(lb, S.numpy(), M, 0.7)
+    assert np.abs(want).max() > 0
+    np.testing.assert_array_less(np.abs(got - want).max(),
+                                 1e-5 * np.abs(want).max())
