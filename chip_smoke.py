@@ -6,7 +6,8 @@
 Builds every kernel from src/repro_torch/kernels/csrc with nvcc — the
 decode kernel, the bf16 tensor-core retention and chunk kernels
 (wgmma + TMA), the float32 CUDA-core retention and chunk kernels and
-the two capacity-loss kernels — then:
+the capacity-loss kernels (a forward with its sum pass, a backward) —
+then:
 
 1. kernels — each CUDA kernel against its plain PyTorch version on the
    card at the main-path shapes (Hq 32, Hkv 8, D 128, B 4, M 512,
@@ -45,12 +46,13 @@ the two capacity-loss kernels — then:
    capacity_loss_bwd_torch) at B 1, H 8, T 4096, M 256, at T 1000, at
    the beta = 1.0 tie (S_t = t + 1 meets M), at B 2, at T 129 and at
    H 1: value within rel 1e-5, S within rel 1e-5, gradient within rel
-   1e-4 of its largest entry (CAP_TOL), and the gradient bit-identical
-   on a second launch; times the forward and backward kernels in a
-   CUDA graph (and, on an earlier line, an event loop over the
-   wrappers), the plain forward + backward, and prints the bound: the
-   least float32 work (one multiply-add per (t, i) pair forward, two
-   per pair over budget backward) at 67 TFLOP/s;
+   1e-4 of its largest entry (CAP_TOL), and S, the loss and the
+   gradient bit-identical on a second launch; times the forward (its
+   kernel and sum pass) and backward kernels in a CUDA graph (and, on
+   an earlier line, an event loop over the wrappers), the plain
+   forward + backward, and prints the bound: the least float32 work
+   (one multiply-add per (t, i) pair forward, two per pair over budget
+   backward) at 67 TFLOP/s, beside each kernel's achieved GFLOP/s;
 5. train — gate distillation of trimkv-paper-4b at full width (36
    layers, bf16, random weights from a seed, fresh gates at bias 18)
    for 3 train_step calls on batch 1 x 4096 tokens, M 256: asserts
@@ -562,10 +564,11 @@ def retention_phase(g):
 # capacity-loss limits, relative to the largest entry of the plain
 # version: the value and S sum ~T float32 terms in another order; the
 # gradient's sums are blocked (csrc/capacity_loss.cu). "repeat" is the
-# largest |difference| of two backward launches on the same inputs: the
-# gradient must be bit-identical
+# largest |difference| of two backward launches on the same inputs, and
+# "forward repeat" that of two forward launches' S and loss: both must
+# be bit-identical
 CAP_TOL = {"value": 1e-5, "S": 1e-5, "grad": 1e-4, "grad vs autograd": 1e-4,
-           "repeat": 0.0}
+           "repeat": 0.0, "forward repeat": 0.0}
 
 
 def check_capacity(name, errs):
@@ -581,7 +584,7 @@ def capacity_phase(g):
     from repro_torch.kernels.capacity_loss import (
         bwd_plan, capacity_fwd_launch, capacity_loss_bwd_cuda,
         capacity_loss_bwd_torch, capacity_loss_fwd_cuda, capacity_loss_torch,
-        occupancy_torch)
+        fwd_buffers, fwd_plan, occupancy_torch)
 
     def log_beta(B, T, H, mode):
         if mode == "tie":                       # beta = 1.0 exactly
@@ -596,6 +599,13 @@ def capacity_phase(g):
     def rel(got, want, scale=None):
         scale = want.abs().max() if scale is None else scale
         return ((got - want).abs().max() / scale.clamp(min=1e-30)).item()
+
+    def repeat(*pairs):
+        """0 when every pair is bit-identical, else the largest
+        |difference| (inf where that is 0, e.g. a NaN)"""
+        if all(torch.equal(a, b) for a, b in pairs):
+            return 0.0
+        return max((a - b).abs().max().item() for a, b in pairs) or math.inf
 
     cases = [  # name, B, H, T, M, mode
         ("main path (B 1, H 8, T 4096, M 256)", 1, 8, 4096, 256,
@@ -612,6 +622,7 @@ def capacity_phase(g):
     for name, B, H, T, M, mode in cases:
         lb = log_beta(B, T, H, mode).contiguous()
         loss, S, rows = capacity_loss_fwd_cuda(lb, M)
+        loss2, S2, _ = capacity_loss_fwd_cuda(lb, M)
         dlb = capacity_loss_bwd_cuda(rows, S, M, gout, H)
         again = capacity_loss_bwd_cuda(rows, S, M, gout, H)
         want_S = occupancy_torch(lb)
@@ -624,8 +635,8 @@ def capacity_phase(g):
                 "S": rel(S, want_S),
                 "grad": rel(dlb, want_dlb),
                 "grad vs autograd": rel(dlb, auto),
-                "repeat": 0.0 if torch.equal(dlb, again) else
-                (dlb - again).abs().max().item() or math.inf}
+                "repeat": repeat((dlb, again)),
+                "forward repeat": repeat((S, S2), (loss, loss2))}
         check_capacity(name, errs)
         if not (torch.isfinite(dlb).all() and float(loss) > 0):
             raise AssertionError(f"capacity {name}: loss {float(loss)}")
@@ -633,11 +644,14 @@ def capacity_phase(g):
                 S[:, M - 1], float(M))):
             raise AssertionError("capacity tie: S_{M-1} != M")
         n_items, n_groups = bwd_plan(T, B * H)
+        f_items, f_split, f_rows = fwd_plan(T, B * H)
         log(f"  capacity {name:<46} loss {float(loss):.6e}  rel err value "
             f"{errs['value']:.2e} S {errs['S']:.2e} (tol 1e-5) grad "
             f"{errs['grad']:.2e} / autograd {errs['grad vs autograd']:.2e} "
-            f"(tol 1e-4); backward bit-identical on a second launch; "
-            f"backward grid {n_items} x {B * H} CTAs of {n_groups} x 4 warps")
+            f"(tol 1e-4); forward and backward bit-identical on a second "
+            f"launch; forward grid {f_items * f_split} x {B * H} CTAs of "
+            f"{16 * f_rows} threads; backward grid {n_items} x {B * H} CTAs "
+            f"of {n_groups} x 4 warps")
         if name.startswith("main"):
             main_err = (dlb - want_dlb).abs().max().item(), \
                 (loss - want).abs().item()
@@ -646,15 +660,15 @@ def capacity_phase(g):
     # timing at the main-path shape: each train step calls these on one
     # layer's log_beta [1, 4096, 8]. The kernels take tens of us, near
     # the host's cost of a wrapper call, so they are timed in a CUDA
-    # graph: the forward kernel on the wrapper's buffers (without the
-    # wrapper's transpose and partial sum), the backward through its
-    # wrapper (one launch, no other kernel)
+    # graph: the forward kernel and its sum pass (two launches) on the
+    # wrapper's buffers (without the wrapper's transpose and partial
+    # sum), the backward through its wrapper (one launch, no other
+    # kernel)
     lb, S, rows = main
     B, T, H, M = 1, 4096, 8, 256
-    S_buf = torch.empty_like(S)
-    partial = torch.empty((B * H, -(-T // 128)), device="cuda")
-    fwd_ms = time_graph_ms(lambda i=0: capacity_fwd_launch(rows, S_buf,
-                                                           partial, M), 100)
+    bufs = fwd_buffers(B * H, T, "cuda")
+    fwd_ms = time_graph_ms(lambda i=0: capacity_fwd_launch(rows, *bufs, M),
+                           100)
     bwd_ms = time_graph_ms(lambda i=0: capacity_loss_bwd_cuda(rows, S, M,
                                                               gout, H), 100)
     fwd_loop = time_ms(lambda i=0: capacity_loss_fwd_cuda(lb, M), 100)
@@ -691,12 +705,13 @@ def capacity_phase(g):
         f"call included): forward {fwd_loop:.4f} ms (with its transpose and "
         f"partial sum), backward {bwd_loop:.4f} ms")
     log(f"  capacity timing (CUDA graph; B 1, H 8, T 4096, M 256): forward "
-        f"{fwd_ms:.4f} ms (bound {fwd_bound:.4f}, {fwd_pairs / 1e6:.1f} M "
-        f"pairs x 2 FLOPs), backward {bwd_ms:.4f} ms (bound "
-        f"{bwd_bound:.4f}, {bwd_pairs / 1e6:.1f} M pairs x 4 FLOPs) at "
-        f"{FP32_FLOPS:.3g} float32 FLOP/s; plain forward {plain_fwd:.3f} ms,"
-        f" backward {plain_bwd:.3f} ms, forward + autograd backward "
-        f"{plain_both:.3f} ms")
+        f"{fwd_ms:.4f} ms = {2 * fwd_pairs / fwd_ms / 1e6:.1f} GFLOP/s "
+        f"(bound {fwd_bound:.4f}, {fwd_pairs / 1e6:.1f} M pairs x 2 FLOPs), "
+        f"backward {bwd_ms:.4f} ms = {4 * bwd_pairs / bwd_ms / 1e6:.1f} "
+        f"GFLOP/s (bound {bwd_bound:.4f}, {bwd_pairs / 1e6:.1f} M pairs x 4 "
+        f"FLOPs) at {FP32_FLOPS:.3g} float32 FLOP/s; plain forward "
+        f"{plain_fwd:.3f} ms, backward {plain_bwd:.3f} ms, forward + "
+        f"autograd backward {plain_both:.3f} ms")
     src = "src/repro_torch/kernels/csrc/capacity_loss.cu"
     return [
         {"name": "capacity_loss", "route": "cuda", "source": src,

@@ -44,12 +44,14 @@ def cache_len(cache, *, per_lane: bool = False):
 
 def _first_argmin(scores):
     """(index of the FIRST minimum, the minimum) along the last axis —
-    the tie-break of jnp.argmin, spelled out so that it holds on every
-    device."""
+    the rules of jnp.argmin, spelled out so that they hold on every
+    device: ties go to the first index, and a row holding a NaN takes
+    its first NaN, with NaN as the minimum (``min`` propagates it)."""
     low = scores.min(dim=-1).values
     M = scores.shape[-1]
     iota = torch.arange(M, device=scores.device)
-    idx = torch.where(scores == low[..., None], iota, M).min(dim=-1).values
+    hit = (scores == low[..., None]) | torch.isnan(scores)
+    idx = torch.where(hit, iota, M).min(dim=-1).values
     return idx, low
 
 

@@ -39,7 +39,7 @@ SIGNATURES = {
     "retention_attention_launch": [_P] * 5 + [_I] * 9 + [_P],
     "chunk_attention_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
     "retention_attention_tc_launch": [_P] * 5 + [_I] * 8 + [_P],
-    "capacity_loss_fwd_launch": [_P] * 3 + [_I] * 2 + [_F, _P],
+    "capacity_loss_fwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
 }
 

@@ -7,7 +7,8 @@ kernels are ``csrc/capacity_loss.cu``, a forward and a backward. With
 lb = log beta [B, T, H] float32 and S_t = sum_{i<=t} exp((t-i) lb_i)
 per (b, h), L_cap = mean over (b, h) of (1/T) sum_t max(0, S_t - M)/(t+1).
 The forward keeps S [B*H, T] and log beta's [B*H, T] rows as the
-residuals its backward reads; ``bwd_plan`` sizes the backward's grid.
+residuals its backward reads; ``fwd_plan`` and ``bwd_plan`` size the
+two kernels' grids.
 
 ``kernels.ops.capacity_loss`` / ``capacity_loss_log`` pick the version
 by the tensor's device; call those, not these.
@@ -27,24 +28,47 @@ def _rows(log_beta):
     return log_beta.float().transpose(1, 2).reshape(B * H, T).contiguous()
 
 
-# the backward kernel (csrc/capacity_loss.cu): columns per column tile
-# (a group of 4 warps, one column per thread), rows per row block (one
-# warp's 32 columns span one block), the most groups a CTA holds, and
-# the warps it aims for: 16 on each of the H100's 132 SMs
-BWD_COLS = 128
-BWD_ROWS = 32
+# both kernels (csrc/capacity_loss.cu): columns per column tile, rows
+# per row block
+TILE_COLS = 128
+BLOCK_ROWS = 32
+# the forward: the most micro-rows (4 row blocks each, 16 threads) a CTA
+# takes at a time, and the CTAs it aims for: one on each of the H100's
+# 132 SMs
+FWD_MAX_ROWS = 40
+FWD_TARGET_CTAS = 132
+# the backward (a group of 4 warps, one column per thread; one warp's 32
+# columns span one row block): the most groups a CTA holds, and the
+# warps it aims for: 16 on each SM
 BWD_MAX_GROUPS = 4
 BWD_TARGET_WARPS = 16 * 132
+
+
+def fwd_plan(T: int, BH: int) -> tuple[int, int, int]:
+    """(n_items, n_split, n_rows) of the forward kernel for B*H = BH
+    rows of T. Item p takes column tiles p and n - 1 - p (n =
+    ceil(T / TILE_COLS)): its list of micro-rows (4 row blocks of 32 rows
+    each) is tile p's n - p, then tile n - 1 - p's p + 1, so n + 1 for
+    every item but a middle one. Where n_items x BH CTAs would leave SMs
+    idle, n_split CTAs share an item's list, n_rows micro-rows at a time
+    each (16 n_rows threads: two groups of 8 per micro-row, each taking
+    two column blocks of 32). The grid is n_items * n_split x BH."""
+    n = -(-T // TILE_COLS)
+    n_items = (n + 1) // 2
+    length = n + 1 if n > 1 else 1
+    n_split = max(1, min(length, FWD_TARGET_CTAS // (n_items * BH)))
+    n_rows = min(FWD_MAX_ROWS, -(-length // n_split))
+    return n_items, min(n_split, -(-length // n_rows)), n_rows
 
 
 def bwd_plan(T: int, BH: int) -> tuple[int, int]:
     """(n_items, n_groups) of the backward kernel for B*H = BH rows of
     T: item p is the CTA that takes column tiles p and n - 1 - p (n =
-    ceil(T / BWD_COLS)), whose pairs sum to about the same for every p;
+    ceil(T / TILE_COLS)), whose pairs sum to about the same for every p;
     its n_groups groups of 4 warps split each column's row blocks. The
     grid is n_items x BH CTAs of 128 * n_groups threads."""
-    n_items = (-(-T // BWD_COLS) + 1) // 2
-    per_cta = BWD_COLS // 32
+    n_items = (-(-T // TILE_COLS) + 1) // 2
+    per_cta = TILE_COLS // 32
     want = -(-BWD_TARGET_WARPS // (per_cta * max(1, BH * n_items)))
     return n_items, max(1, min(BWD_MAX_GROUPS, want))
 
@@ -99,30 +123,42 @@ def capacity_loss_bwd_torch(log_beta, S, M: float, g):
 # ------------------------------------------------------- CUDA kernels
 
 
-def capacity_fwd_launch(rows, S, partial, M: float):
-    """The forward kernel alone, on the wrapper's checked buffers: rows
-    [B*H, T] (log beta), S [B*H, T] and partial [B*H, ceil(T / 128)]."""
+def capacity_fwd_launch(rows, S, part, partial, M: float):
+    """The forward kernel and its sum pass alone, on the wrapper's
+    checked buffers: rows [B*H, T] (log beta) and fwd_buffers' S, part
+    and partial."""
+    BH, T = rows.shape
+    n_items, n_split, n_rows = fwd_plan(T, BH)
     err = build.library().capacity_loss_fwd_launch(
-        rows.data_ptr(), S.data_ptr(), partial.data_ptr(), rows.shape[0],
-        rows.shape[1], float(M),
+        rows.data_ptr(), S.data_ptr(), part.data_ptr(), partial.data_ptr(),
+        BH, T, n_items, n_split, n_rows, float(M),
         torch.cuda.current_stream(rows.device).cuda_stream)
     build.check(err, "capacity_loss_fwd")
 
 
+def fwd_buffers(BH: int, T: int, device):
+    """The forward's outputs and scratch, float32: S [BH, T]; the column
+    tiles' partial rows part [BH, n, 4 ceil(T / 4)] (n = ceil(T / 128));
+    the hinge terms' sums per 32 rows, partial [BH, ceil(T / 32)]."""
+    n = -(-T // TILE_COLS)
+    f = dict(dtype=torch.float32, device=device)
+    return (torch.empty((BH, T), **f),
+            torch.empty((BH, n, -(-T // 4) * 4), **f),
+            torch.empty((BH, -(-T // BLOCK_ROWS)), **f))
+
+
 def capacity_loss_fwd_cuda(log_beta, M: float):
-    """Launch the forward kernel. log_beta: contiguous float32 CUDA
-    [B, T, H]. Returns (loss scalar, S [B*H, T] float32, log_beta's
-    rows [B*H, T] float32): S and the rows are what the backward reads."""
+    """Launch the forward kernel (and its sum pass). log_beta:
+    contiguous float32 CUDA [B, T, H]. Returns (loss scalar, S [B*H, T]
+    float32, log_beta's rows [B*H, T] float32): S and the rows are what
+    the backward reads."""
     build.check_device(log_beta)
     B, T, H = log_beta.shape
     build.check_tensor("log_beta", log_beta, (B, T, H), torch.float32,
                        log_beta.device)
     rows = _rows(log_beta)
-    n_tiles = -(-T // 128)
-    S = torch.empty((B * H, T), dtype=torch.float32, device=rows.device)
-    partial = torch.empty((B * H, n_tiles), dtype=torch.float32,
-                          device=rows.device)
-    capacity_fwd_launch(rows, S, partial, M)
+    S, part, partial = fwd_buffers(B * H, T, rows.device)
+    capacity_fwd_launch(rows, S, part, partial, M)
     return partial.sum() / (B * H) / T, S, rows
 
 

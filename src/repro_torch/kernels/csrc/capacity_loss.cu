@@ -16,19 +16,47 @@
 // with h(x) = 1 above 0, 0.5 at 0 (the tie rule of jnp.maximum, which
 // the JAX gradient follows) and 0 below.
 //
-// Forward: one CTA per (bh, tile of 128 rows t), one row per thread. The
-// CTA walks the lb tiles from 0 to its diagonal, each staged in shared
-// memory and read as a broadcast; tiles above the diagonal are never
-// visited, and on the diagonal a row stops at i = t, so the upper
-// triangle is masked before any exp is taken. Each tile's 128 terms are
-// summed on their own before they join the row's sum: adding ~4096
-// terms near 1 one by one into one float32 loses each term's distance
-// from 1 once the sum passes 2048 (1.3e-5 relative at the main shape),
-// two levels keep it near 1e-7. It writes S (the saved
-// residual, [B*H, T] float32) and the tile's sum of the hinge terms;
-// the wrapper adds the partial sums and divides by B*H*T, with no
-// atomics, so the loss is deterministic. Heavy tiles (near the end of
-// the sequence) are launched first.
+// Forward: no exp per (t, i) pair off the diagonal. Rows are walked in
+// blocks of K = 32 (t0 = 32 rb); for a block wholly after column i,
+//
+//   S_{t0+j} gets beta_i^(t0+j-i) = C[rb, i] * P[i, j],
+//   C[rb, i] = beta_i^(t0-i) (the carry),  P[i, j] = beta_i^j (j < K),
+//
+// so a column tile's share of S over a block is a small product,
+// out[rb, j] = sum_i C[rb, i] P[i, j], and a pair costs one FMA. A CTA
+// owns column tiles (128 columns) and walks every row block at or below
+// their diagonal: it builds the table P of its columns once (one exp2
+// per entry, in shared memory), and for each column block of 32 columns
+// stages the carries of its row blocks (one exp2 per (block, column),
+// each from its own exponent, not a running product, so the error does
+// not grow with the distance) and multiplies: each thread holds a
+// micro-tile of 4 row blocks x 4 rows j, read as float4 broadcasts, and
+// two groups of threads take two column blocks each, their sums meeting
+// in shared memory in a fixed order (17 warps at the main shape). The
+// first 4 row blocks of a tile hold its diagonal: a block above its
+// column block has carry 0 (masked before the exp: (t0 - i) < 0 there,
+// and exp2 of it could be inf), and the block on the diagonal (rows
+// t0 <= t < t0 + K, t >= i) takes one exp2 per pair, summed once per
+// CTA and added after the product. A column past T has carry 0 and no
+// diagonal term (its lb is not 0, which would be beta = 1).
+//
+// Balance: column tile ii holds T - 128 ii rows, so a CTA takes tiles p
+// and n - 1 - p together (fwd_plan in kernels/capacity_loss.py): n + 1
+// micro-rows of 4 row blocks each, the same for every CTA; where the
+// plan has few CTAs (few rows b*h) it splits a CTA's micro-rows over
+// n_split CTAs. Each CTA writes its tiles' partial rows of S into a
+// [B*H, n, Tp] scratch (tile ii only from row 128 ii; Tp = T rounded up
+// to 4, so a thread writes its 4 rows as one float4). A second launch
+// adds the partials of each row over its tiles in a fixed order (8
+// warps take tiles v, v + 8, ..., then their sums add in warp order)
+// and writes S (the saved residual, [B*H, T] float32) and the hinge
+// terms' sum per 32 rows; the wrapper adds those and divides by B*H*T.
+// No atomics: S and the loss are bit-identical on every launch.
+// Summing within a tile (<= 128 terms), then across tiles (<= T/128
+// partials) keeps the error near 1e-7: one flat float32 sum of ~4096
+// terms near 1 loses each term's distance from 1 once it passes 2048
+// (1.3e-5 relative at the main shape). With beta = 1 exactly, every
+// term is exp2f(0) = 1 and every sum an exact integer: S_t = t + 1.
 //
 // Backward: no exp per (t, i) pair. Rows are walked in blocks of
 // K = 32 (t0 = 32 rb); for a block wholly after column i,
@@ -68,68 +96,187 @@
 // 134 M FLOPs forward and up to 268 M backward: 2.0 and 4.0 us at
 // 67 TFLOP/s. The bytes (lb and S, 131 KB each) are negligible.
 //
-// What it leaves on the table: the forward still takes one expf per
-// pair, one row per thread, and its longest rows set its time (the next
-// redesign); the backward's 4 warps of a group read the same weights
-// from shared memory, and its CTAs' warps start at different diagonals.
+// What it leaves on the table: the forward's product reads two float4
+// from shared memory per 16 FMAs, so shared memory, not the FMA pipe,
+// bounds it (a 4 x 8 micro-tile spilled at 640 threads); its second
+// launch and its [B*H, n, Tp] scratch (4 MB at the main shape, read
+// back from L2); the backward's 4 warps of a group read the same
+// weights from shared memory, and its CTAs' warps start at different
+// diagonals.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 128;  // the forward's rows per CTA
-
-__device__ __forceinline__ float block_sum(float v, float *red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  float s = 0.f;
-  if (threadIdx.x == 0)
-    for (int w = 0; w < TILE / 32; ++w) s += red[w];  // fixed order
-  return s;
-}
-
-__global__ void __launch_bounds__(TILE)
-capacity_fwd_kernel(const float *__restrict__ lb, float *__restrict__ S,
-                    float *__restrict__ partial, int T, float M) {
-  __shared__ float lb_s[TILE];
-  __shared__ float red[TILE / 32];
-  const int n_tiles = gridDim.x;
-  const int ti = n_tiles - 1 - blockIdx.x;  // heavy tiles first
-  const int bh = blockIdx.y;
-  const float *row = lb + (long)bh * T;
-  const int t = ti * TILE + threadIdx.x;
-  float s = 0.f;
-  for (int ii = 0; ii <= ti; ++ii) {
-    const int i = ii * TILE + threadIdx.x;
-    lb_s[threadIdx.x] = i < T ? row[i] : 0.f;
-    __syncthreads();
-    // (t - i) for j = 0; exact in float32 for t < 2^24
-    const float d0 = (float)(t - ii * TILE);
-    // the diagonal tile stops at i = t: the mask comes before the exp
-    const int jn = ii < ti ? TILE : threadIdx.x + 1;
-    float ts = 0.f;  // the tile's own sum, then one add into s
-    for (int j = 0; j < jn; ++j) ts += expf((d0 - (float)j) * lb_s[j]);
-    s += ts;
-    __syncthreads();
-  }
-  float contrib = 0.f;
-  if (t < T) {
-    S[(long)bh * T + t] = s;
-    contrib = fmaxf(s - M, 0.f) * (1.f / (float)(t + 1));
-  }
-  const float tot = block_sum(contrib, red);
-  if (threadIdx.x == 0) partial[(long)bh * n_tiles + ti] = tot;
-}
-
-// the backward: columns per tile (4 warps, one column per thread), rows
-// per block (a warp's 32 columns span one block, so a warp's diagonal is
-// one block), rows of weights staged at a time, and groups per CTA
+// columns per tile, rows per row block, row blocks per micro-row (a
+// thread's rows of the product), threads across a block's K rows (4
+// each), the most micro-rows a CTA takes at a time
 constexpr int COLS = 128;
 constexpr int K = 32;
+constexpr int RB = 4;
+constexpr int JT = K / 4;
+constexpr int FWD_MAX_ROWS = 40;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// shared memory of the forward, in floats: the tables P [2][COLS][K],
+// the diagonal blocks' sums D [2][RB][K], lb * log2(e) [2][COLS], then
+// each group's carries of one column block [2][K][RB * n_rows] (after
+// the product, group 1's sums)
+constexpr int FWD_FIXED = 2 * COLS * K + 2 * RB * K + 2 * COLS;
+
+__global__ void __launch_bounds__(2 * JT * FWD_MAX_ROWS)
+capacity_fwd_kernel(const float *__restrict__ lb, float *__restrict__ part,
+                    int T, int Tp, int n_split) {
+  extern __shared__ __align__(16) float smem[];
+  float *P = smem, *D = P + 2 * COLS * K, *L2 = D + 2 * RB * K;
+  const int tid = threadIdx.x, nth = blockDim.x, ng = nth / 2;
+  const int n_rows = ng / JT, nq = RB * n_rows;
+  const int n_tiles = (T + COLS - 1) / COLS;
+  const int item = blockIdx.x / n_split, split = blockIdx.x % n_split;
+  const int bh = blockIdx.y;
+  // the CTA's column tiles: item (long) and n - 1 - item (short); its
+  // list of micro-rows is tile ta's n - ta, then tile tb's n - tb
+  const int ta = item, tb = n_tiles - 1 - item;
+  const int halves = tb == ta ? 1 : 2;
+  const int len0 = n_tiles - ta, len = len0 + (halves == 2 ? item + 1 : 0);
+  const float *row = lb + (long)bh * T;
+
+  for (int e = tid; e < 2 * COLS; e += nth) {
+    const int i = (e < COLS ? ta : tb) * COLS + e % COLS;
+    L2[e] = e / COLS < halves && i < T ? row[i] * LOG2E : 0.f;
+  }
+  __syncthreads();
+  // the power tables, one exp2 per entry, once per CTA
+  for (int e = tid; e < 2 * COLS * K; e += nth)
+    P[e] = exp2f((float)(e % K) * L2[e / K]);
+  // the diagonal blocks: rows t = 32 (4 ii + r) + j of columns
+  // i = 32 (4 ii + r) + lane, lane <= j, one exp2 per pair
+  for (int e = tid; e < 2 * RB * K; e += nth) {
+    const int h = e / (RB * K), r = e / K % RB, j = e % K;
+    const int i0 = (h ? tb : ta) * COLS + r * K;
+    const float *l = L2 + h * COLS + r * K;
+    float x = 0.f;
+    for (int lane = 0; lane <= j && i0 + lane < T; ++lane)
+      x += exp2f((float)(j - lane) * l[lane]);
+    D[e] = x;
+  }
+
+  // two groups of ng threads: group kg takes column blocks 2 kg and
+  // 2 kg + 1 of every row block, and its sums meet the other group's in
+  // shared memory. Staging: thread tg of a group computes the carries of
+  // row block q of the round, for columns c0, c0 + 2, ... (ng = 2 nq),
+  // with all its lb loaded before the first store, so its 16 exp2
+  // overlap. Product: thread-row ty takes micro-row ty of the round,
+  // rows j of its blocks 4 tx .. 4 tx + 3.
+  const int kg = tid / ng, tg = tid % ng;
+  const int q = tg % nq, c0 = tg / nq, ty = tg / JT, tx = tg % JT;
+  float *C = smem + FWD_FIXED + kg * K * nq;
+  float *R = smem + FWD_FIXED;  // after the product: group 1's sums
+  for (int g0 = split * n_rows; g0 < len; g0 += n_rows * n_split) {
+    const int gq = g0 + q / RB, r = q % RB;
+    const int hq = gq < len0 ? 0 : 1, mq = gq - hq * len0;
+    const int iq = (hq ? tb : ta) * COLS, rbq = RB * (iq / COLS + mq) + r;
+    const int g = g0 + ty, h = g < len0 ? 0 : 1, m = g - h * len0;
+    const int ii = h ? tb : ta;
+    float acc[RB][4] = {};
+    for (int s = 0; s < 2; ++s) {
+      const int w = 2 * kg + s;
+      float lv[K / 2];
+#pragma unroll
+      for (int k = 0; k < K / 2; ++k)
+        lv[k] = L2[hq * COLS + w * K + c0 + 2 * k];
+      __syncthreads();  // the carries (or sums) before these are read
+#pragma unroll
+      for (int k = 0; k < K / 2; ++k) {
+        const int c = c0 + 2 * k, i = iq + w * K + c;
+        float cv = 0.f;
+        // whole blocks below column block w only: mask before the exp
+        if (gq < len && (mq > 0 || w < r) && i < T)
+          cv = exp2f((float)(rbq * K - i) * lv[k]);
+        C[c * nq + q] = cv;
+      }
+      __syncthreads();
+      const float *Pw = P + (h * COLS + w * K) * K + 4 * tx;
+      const float *Cw = C + RB * ty;
+#pragma unroll 16  // fully unrolled, ptxas spills at the 640-thread bound
+      for (int c = 0; c < K; ++c) {
+        const float4 cv = *reinterpret_cast<const float4 *>(Cw + c * nq);
+        const float4 pv = *reinterpret_cast<const float4 *>(Pw + c * K);
+        const float cr[RB] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+        for (int rr = 0; rr < RB; ++rr) {
+          acc[rr][0] = fmaf(cr[rr], pv.x, acc[rr][0]);
+          acc[rr][1] = fmaf(cr[rr], pv.y, acc[rr][1]);
+          acc[rr][2] = fmaf(cr[rr], pv.z, acc[rr][2]);
+          acc[rr][3] = fmaf(cr[rr], pv.w, acc[rr][3]);
+        }
+      }
+    }
+    __syncthreads();  // every group is done with its carries
+    if (kg == 1) {
+#pragma unroll
+      for (int e = 0; e < RB * 4; ++e) R[e * ng + tg] = acc[e / 4][e % 4];
+    }
+    __syncthreads();
+    if (kg == 0 && g < len) {
+      float *out = part + ((long)bh * n_tiles + ii) * Tp;
+#pragma unroll
+      for (int rr = 0; rr < RB; ++rr) {
+        const int t0 = (RB * (ii + m) + rr) * K + 4 * tx;
+        float x[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // column blocks 0-1, then 2-3, then the diagonal block's sum
+          x[e] = acc[rr][e] + R[(rr * 4 + e) * ng + tg];
+          if (m == 0) x[e] += D[(h * RB + rr) * K + 4 * tx + e];
+        }
+        // a row of part is Tp >= t0 + 4 floats (Tp a multiple of 4)
+        if (t0 < T)
+          *reinterpret_cast<float4 *>(out + t0) =
+              make_float4(x[0], x[1], x[2], x[3]);
+      }
+    }
+  }
+}
+
+// the sum pass: one CTA per (bh, 32 rows t), 8 warps; warp v adds the
+// partials of tiles v, v + 8, ... of its row, then warp 0 adds the 8
+// sums in order, writes S and the rows' hinge terms' sum
+constexpr int SUM_ROWS = 32;
+constexpr int SUM_WARPS = 8;
+
+__global__ void __launch_bounds__(SUM_ROWS * SUM_WARPS)
+capacity_fwd_sum_kernel(const float *__restrict__ part, float *__restrict__ S,
+                        float *__restrict__ partial, int T, int Tp, float M) {
+  __shared__ float red[SUM_WARPS][SUM_ROWS];
+  const int n_tiles = (T + COLS - 1) / COLS, bh = blockIdx.y;
+  const int lane = threadIdx.x % SUM_ROWS, v = threadIdx.x / SUM_ROWS;
+  const int t = blockIdx.x * SUM_ROWS + lane;
+  const int last = blockIdx.x * SUM_ROWS / COLS;  // t / COLS, for every t
+  const float *p = part + (long)bh * n_tiles * Tp + t;
+  float s = 0.f;
+  if (t < T)
+    for (int ii = v; ii <= last; ii += SUM_WARPS) s += p[(long)ii * Tp];
+  red[v][lane] = s;
+  __syncthreads();
+  if (v != 0) return;
+  float x = 0.f;
+#pragma unroll
+  for (int u = 0; u < SUM_WARPS; ++u) x += red[u][lane];  // fixed order
+  float contrib = 0.f;
+  if (t < T) {
+    S[(long)bh * T + t] = x;
+    contrib = fmaxf(x - M, 0.f) * (1.f / (float)(t + 1));
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    contrib += __shfl_down_sync(0xffffffffu, contrib, o);
+  if (lane == 0) partial[(long)bh * gridDim.x + blockIdx.x] = contrib;
+}
+
+// the backward: a column tile is 4 warps, one column per thread (a
+// warp's 32 columns span one row block, so a warp's diagonal is one
+// block); rows of weights staged at a time, and groups per CTA
 constexpr int RCH = 4096;
 constexpr int MAX_GROUPS = 4;
-constexpr float LOG2E = 1.4426950408889634f;
 
 __global__ void __launch_bounds__(COLS * MAX_GROUPS, 1)
 capacity_bwd_kernel(const float *__restrict__ lb, const float *__restrict__ S,
@@ -229,12 +376,34 @@ capacity_bwd_kernel(const float *__restrict__ lb, const float *__restrict__ S,
 
 }  // namespace
 
-extern "C" int capacity_loss_fwd_launch(const void *lb, void *S, void *partial,
-                                        int BH, int T, float M, void *stream) {
-  if (BH <= 0 || BH > 65535 || T <= 0) return (int)cudaErrorInvalidValue;
-  dim3 grid((T + TILE - 1) / TILE, BH), block(TILE);
-  capacity_fwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float *)lb, (float *)S, (float *)partial, T, M);
+extern "C" int capacity_loss_fwd_launch(const void *lb, void *S, void *part,
+                                        void *partial, int BH, int T,
+                                        int n_items, int n_split, int n_rows,
+                                        float M, void *stream) {
+  const int n_tiles = (T + COLS - 1) / COLS;
+  const int Tp = (T + 3) / 4 * 4;  // part's row stride
+  if (BH <= 0 || BH > 65535 || T <= 0 || n_items != (n_tiles + 1) / 2 ||
+      n_split < 1 || n_rows < 1 || n_rows > FWD_MAX_ROWS)
+    return (int)cudaErrorInvalidValue;
+  const int smem = (FWD_FIXED + 2 * K * RB * n_rows) * (int)sizeof(float);
+  static bool attr_set = false;
+  if (!attr_set) {
+    const int most =
+        (FWD_FIXED + 2 * K * RB * FWD_MAX_ROWS) * (int)sizeof(float);
+    const cudaError_t err = cudaFuncSetAttribute(
+        capacity_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        most);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
+  capacity_fwd_kernel<<<dim3(n_items * n_split, BH), 2 * JT * n_rows, smem,
+                        (cudaStream_t)stream>>>((const float *)lb,
+                                                (float *)part, T, Tp, n_split);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  capacity_fwd_sum_kernel<<<dim3((T + SUM_ROWS - 1) / SUM_ROWS, BH),
+                            SUM_ROWS * SUM_WARPS, 0, (cudaStream_t)stream>>>(
+      (const float *)part, (float *)S, (float *)partial, T, Tp, M);
   return (int)cudaGetLastError();
 }
 

@@ -136,3 +136,42 @@ def test_cache_len_matches_jax():
     np.testing.assert_array_equal(
         tcache.cache_len(_to_torch(c0), per_lane=True).numpy(),
         np.asarray(jcache.cache_len(_to_jax(c0), per_lane=True)))
+
+
+def _nan_cache(case):
+    """One lane, two kv heads of four slots filled at t 0..3; kv head 0
+    holds a NaN beta (in one slot, in every slot, or beside an empty
+    slot), kv head 1 finite betas."""
+    beta = np.array([[[0.9, np.nan, 0.5, 0.7], [0.9, 0.3, 0.8, 0.7]]],
+                    np.float32)
+    pos = np.broadcast_to(np.arange(4, dtype=np.int32), (1, 2, 4)).copy()
+    if case == "every slot":
+        beta[0, 0] = np.nan
+    if case == "beside an empty slot":
+        pos[0, 0, 3] = -1
+    rng = np.random.RandomState(4)
+    return {"k": rng.randn(1, 2, 4, D).astype(np.float32),
+            "v": rng.randn(1, 2, 4, D).astype(np.float32),
+            "beta": beta, "pos": pos, "aux": np.zeros((1, 2, 4), np.float32)}
+
+
+@pytest.mark.parametrize("case", ["one slot", "every slot",
+                                  "beside an empty slot"])
+def test_cache_insert_nan_beta_freezes_the_head(case):
+    """A NaN keep score follows jnp.argmin: the first NaN is the victim,
+    its score NaN loses to the incoming token, so that kv head writes
+    nothing (not even into an empty slot) and the other evicts as usual."""
+    c0 = _nan_cache(case)
+    rng = np.random.RandomState(5)
+    k_t = rng.randn(1, 2, D).astype(np.float32)
+    beta_t = np.full((1, 2), 0.95, np.float32)
+    cj = jcache.cache_insert(_to_jax(c0), jnp.asarray(k_t), jnp.asarray(k_t),
+                             jnp.asarray(beta_t), 4, JTrimKV().keep_scores,
+                             incoming_score=1.0)
+    ct = tcache.cache_insert(_to_torch(c0), torch.as_tensor(k_t),
+                             torch.as_tensor(k_t), torch.as_tensor(beta_t), 4,
+                             TrimKV().keep_scores, incoming_score=1.0)
+    _assert_same(ct, cj)
+    for name in ("pos", "k", "v", "beta", "aux"):
+        np.testing.assert_array_equal(ct[name][0, 0].numpy(), c0[name][0, 0])
+    assert ct["pos"][0, 1].tolist() == [0, 4, 2, 3]

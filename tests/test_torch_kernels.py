@@ -21,10 +21,10 @@ from repro.core.losses import capacity_loss_chunked as jax_capacity_chunked
 from repro.kernels import ops as jops
 from repro_torch.core.losses import capacity_loss_ref
 from repro_torch.kernels import ops
-from repro_torch.kernels.capacity_loss import (BWD_COLS, BWD_ROWS,
+from repro_torch.kernels.capacity_loss import (BLOCK_ROWS, TILE_COLS,
                                                bwd_plan,
                                                capacity_loss_bwd_torch,
-                                               occupancy_torch)
+                                               fwd_plan, occupancy_torch)
 from repro_torch.kernels.chunk_attention import F32_ROWS, row_plan
 from repro_torch.kernels.decode_attention import MAX_SPLIT, TILE, split_plan
 
@@ -394,11 +394,11 @@ def _bwd_units(T, item, n_groups, group, warp):
     from the diagonal cb to the last, block rb to group rb % n_groups.
     Column i = 32 cb + lane and row t = 32 rb + j count where
     i <= t < T (on the diagonal, j >= lane)."""
-    n_tiles = -(-T // BWD_COLS)
-    nrb = -(-T // BWD_ROWS)
+    n_tiles = -(-T // TILE_COLS)
+    nrb = -(-T // BLOCK_ROWS)
     out = []
     for ii in dict.fromkeys((item, n_tiles - 1 - item)):
-        cb = ii * (BWD_COLS // BWD_ROWS) + warp
+        cb = ii * (TILE_COLS // BLOCK_ROWS) + warp
         out += [(cb, rb) for rb in range(cb, nrb) if rb % n_groups == group]
     return out
 
@@ -411,24 +411,24 @@ def test_capacity_bwd_plan_covers_lower_triangle_once(T):
     holds more than 1.25x the mean pairs."""
     BH = 8
     n_items, n_groups = bwd_plan(T, BH)
-    assert n_items == (-(-T // BWD_COLS) + 1) // 2
+    assert n_items == (-(-T // TILE_COLS) + 1) // 2
     assert 1 <= n_groups <= 4
-    lane = np.arange(BWD_ROWS)
-    hits = np.zeros((T + BWD_ROWS, T + BWD_COLS), np.int8)   # [t, i]
+    lane = np.arange(BLOCK_ROWS)
+    hits = np.zeros((T + BLOCK_ROWS, T + TILE_COLS), np.int8)   # [t, i]
     cta_pairs, group_pairs = [], []
     for item in range(n_items):
         per_cta = 0
         for group in range(n_groups):
             pairs = 0
-            for warp in range(BWD_COLS // BWD_ROWS):
+            for warp in range(TILE_COLS // BLOCK_ROWS):
                 for cb, rb in _bwd_units(T, item, n_groups, group,
                                          warp):
-                    t0, i0 = rb * BWD_ROWS, cb * BWD_ROWS
-                    blk = np.ones((BWD_ROWS, BWD_ROWS), np.int8)
+                    t0, i0 = rb * BLOCK_ROWS, cb * BLOCK_ROWS
+                    blk = np.ones((BLOCK_ROWS, BLOCK_ROWS), np.int8)
                     if rb == cb:                  # the diagonal: j >= lane
                         blk = (lane[:, None] >= lane[None, :]).astype(np.int8)
                     assert rb >= cb
-                    hits[t0:t0 + BWD_ROWS, i0:i0 + BWD_ROWS] += blk
+                    hits[t0:t0 + BLOCK_ROWS, i0:i0 + BLOCK_ROWS] += blk
                     pairs += int(blk[:max(0, T - t0), :max(0, T - i0)].sum())
             group_pairs.append(pairs)
             per_cta += pairs
@@ -500,3 +500,131 @@ def test_capacity_bwd_blocked_sum_matches_plain(mode):
     assert np.abs(want).max() > 0
     np.testing.assert_array_less(np.abs(got - want).max(),
                                  1e-5 * np.abs(want).max())
+
+
+def _fwd_units(T, item, n_split, split, n_rows):
+    """The (column tile ii, row block rb, column block cb, kind) units
+    that CTA (item, split) of the forward kernel (csrc/capacity_loss.cu)
+    computes, as it walks them: its list of micro-rows is tile item's
+    n - item, then tile n - 1 - item's item + 1 (one list when the two
+    are one tile), n_rows entries a round from entry split * n_rows,
+    rounds n_rows * n_split apart; micro-row m of tile ii holds row
+    blocks 4 (ii + m) + r, r < 4, and against column block cb = 4 ii + w
+    a block is whole where m > 0 or w < r, the diagonal (rows j >= lane)
+    where m = 0 and w = r, and nothing above it."""
+    n = -(-T // TILE_COLS)
+    tiles = list(dict.fromkeys((item, n - 1 - item)))
+    entries = [(ii, m) for ii in tiles for m in range(n - ii)]
+    out = []
+    for g0 in range(split * n_rows, len(entries), n_rows * n_split):
+        for ii, m in entries[g0:g0 + n_rows]:
+            for r in range(4):
+                for w in range(4):
+                    if m > 0 or w < r:
+                        kind = "whole"
+                    elif w == r:
+                        kind = "diagonal"
+                    else:
+                        continue
+                    out.append((ii, 4 * (ii + m) + r, 4 * ii + w, kind))
+    return out
+
+
+@pytest.mark.parametrize("T", [1, 129, 1000, 4096])
+def test_capacity_fwd_plan_covers_lower_triangle_once(T):
+    """The capacity forward's work plan (fwd_plan, and _fwd_units as the
+    kernel walks it): every pair t >= i of each (b, h) row exactly once,
+    nothing above the diagonal, each block's partial written under its
+    own column tile; at T 4096 (B*H 8) one CTA per item, 128 CTAs of 33
+    micro-rows, and no CTA above 1.25x the mean pairs."""
+    BH = 8
+    n_items, n_split, n_rows = fwd_plan(T, BH)
+    assert n_items == (-(-T // TILE_COLS) + 1) // 2
+    assert n_items * n_split * BH <= 132 or n_split == 1
+    lane = np.arange(BLOCK_ROWS)
+    hits = np.zeros((T + 4 * TILE_COLS, T + TILE_COLS), np.int8)   # [t, i]
+    cta_pairs = []
+    for item in range(n_items):
+        for split in range(n_split):
+            pairs = 0
+            for ii, rb, cb, kind in _fwd_units(T, item, n_split, split,
+                                               n_rows):
+                assert rb >= cb and cb // 4 == ii
+                t0, i0 = rb * BLOCK_ROWS, cb * BLOCK_ROWS
+                blk = np.ones((BLOCK_ROWS, BLOCK_ROWS), np.int8)
+                if kind == "diagonal":                    # j >= lane
+                    blk = (lane[:, None] >= lane[None, :]).astype(np.int8)
+                hits[t0:t0 + BLOCK_ROWS, i0:i0 + BLOCK_ROWS] += blk
+                pairs += int(blk[:max(0, T - t0), :max(0, T - i0)].sum())
+            cta_pairs.append(pairs)
+    hits = hits[:T, :T]
+    assert (hits == np.tri(T, dtype=np.int8)).all()
+    assert sum(cta_pairs) == T * (T + 1) // 2
+    if T == 4096:
+        assert (n_items, n_split, n_rows) == (16, 1, 33)
+        assert max(cta_pairs) <= 1.25 * np.mean(cta_pairs)
+
+
+def _blocked_fwd(lb, K=32, cols=128):
+    """The forward kernel's sums in numpy float32: per column tile, the
+    table beta_i^j (j < K) and the carries beta_i^(t0-i) of the row
+    blocks wholly after each column (one exp2 each; 0 above the
+    diagonal and past T) multiplied, plus the diagonal blocks' one exp2
+    per pair; then each row adds its tiles' partials in a fixed order:
+    tiles v, v + 8, ... for v < 8 (the sum pass's warps, rows in groups
+    of 32), then those 8 sums in order. Returns S [B*H, T]."""
+    f = np.float32
+    B, T, H = lb.shape
+    rows = lb.transpose(0, 2, 1).reshape(B * H, T)
+    n = -(-T // cols)
+    j = np.arange(K, dtype=f)
+    S = np.zeros((B * H, T), f)
+    for r in range(B * H):
+        lb2 = np.zeros(n * cols, f)
+        lb2[:T] = rows[r] * f(1.4426950408889634)
+        part = np.zeros((n, 4 * n * K), f)
+        for ii in range(n):
+            i = ii * cols + np.arange(cols)
+            P = np.exp2(lb2[i, None] * j[None, :]).astype(f)         # [c, j]
+            rb = np.arange(4 * ii, 4 * n)
+            whole = (i[None, :] // K < rb[:, None]) & (i[None, :] < T)
+            d0 = np.where(whole, rb[:, None] * K - i[None, :], 0).astype(f)
+            C = np.where(whole, np.exp2(d0 * lb2[i][None, :]), f(0)).astype(f)
+            out = (C @ P).astype(f)                                   # [rb, j]
+            for w in range(4):                  # diagonal block rb = cb
+                lane = ii * cols + w * K + np.arange(K)
+                d = j[:, None] - np.arange(K, dtype=f)[None, :]       # j - lane
+                term = np.where((d >= 0) & (lane[None, :] < T), np.exp2(
+                    np.maximum(d, 0) * lb2[lane][None, :]), f(0)).astype(f)
+                out[w] += term.sum(1, dtype=f)
+            part[ii, 4 * ii * K:] = out.reshape(-1)
+        for t in range(T):
+            last = t // 32 * 32 // cols
+            warp = [part[v:last + 1:8, t].sum(dtype=f) for v in range(8)]
+            s = f(0)
+            for x in warp:
+                s = f(s + x)
+            S[r, t] = s
+    return S
+
+
+@pytest.mark.parametrize("mode", ["spread", "tie"])
+def test_capacity_fwd_blocked_sum_matches_plain(mode):
+    """The forward kernel's blocked power-table sums (K 32, tiles of 128
+    columns, partials added in a fixed order), emulated in numpy
+    float32, against occupancy_torch within 1e-5 of S's largest entry,
+    for beta spread below 1 and for beta = 1.0 exactly, where every sum
+    is an exact integer: S_t = t + 1."""
+    B, H, T = 1, 2, 1000
+    if mode == "tie":
+        lb = np.zeros((B, T, H), np.float32)
+    else:
+        lb = _log_beta(np.random.RandomState(14), B, T, H)
+    want = occupancy_torch(torch.as_tensor(lb)).numpy()
+    got = _blocked_fwd(lb)
+    np.testing.assert_array_less(np.abs(got - want).max(),
+                                 1e-5 * np.abs(want).max())
+    if mode == "tie":
+        np.testing.assert_array_equal(
+            got, np.broadcast_to(np.arange(1, T + 1, dtype=np.float32),
+                                 (B * H, T)))
