@@ -30,9 +30,30 @@ then:
 2. serve — trimkv-paper-4b at full width (36 layers, bfloat16, random
    weights from a seed, perturbed gate biases) through Engine.generate,
    batch 4, prompt 2000, budget 512, 32 new tokens, single-shot and
-   chunked (chunks of 512, the last one padded); asserts the exact
-   kernel launch counts of each (the tensor-core kernels for prefill)
-   and finite logits, prints tokens/s;
+   chunked (chunks of 512, the last one padded), each fused (the step
+   programs as CUDA graphs, serve/graphs.py) and eager (fused=False);
+   asserts the exact kernel launch counts of each (the tensor-core
+   kernels for prefill), finite logits, and graphs against eager:
+   identical ids and slot positions in every layer, logits within
+   GRAPH_LOGIT_TOL; prints prefill and decode tokens/s and the graph
+   pool's size;
+2b. stream — continuous batching (serve/scheduler.py) of the same model
+   on 4 lanes, budget 512, chunks of 512, segments of 16: 12 Poisson
+   requests (seed 0, prompts 256-2000, max_new 16-64, 8 requests/s),
+   phased, interleaved (prefill_budget 1024) and static; asserts every
+   request DONE, dispatch_count equal to the scheduler's formula, the
+   kernel launches its steps imply, finite logits (the lanes' health
+   flags), and each request's ids equal to its one-shot
+   Engine.generate up to the one-shot's first near tie (MARGIN_TOL);
+   prints output tokens/s, TTFT p50 / p99, TPOT p50, segments,
+   dispatches, graph replays and the host's enqueue time per segment;
+   then, per mode, graphs against eager: the trace drained at once
+   through the fused engine and a fused=False engine on the same model
+   (the same step programs, captured and not), with identical ids,
+   identical slot positions in every layer after every scheduler step
+   and logits within GRAPH_LOGIT_TOL; then all of it in float32 at 2
+   layers on 6 requests, where a sound run shows no divergence from
+   the one-shot runs at all;
 3. parity — the same config cut to 2 layers, one set of weights on the
    card (kernels) and on the CPU (plain versions), after single-shot
    and after chunked prefill, with exact launch counts: in float32
@@ -71,7 +92,13 @@ then:
    within atol 1e-6; one train_step on each gives the same loss
    within rel 1e-4 and moves the gates.
 
-Prints the card's name and power limit and a {"kernels": [...]} line,
+Prints the card's name and power limit and a {"kernels": [...]} line
+(each kernel's launches are those of the main paths that run it, each
+counted from 0 just before its run: the decode and bf16 chunk kernels
+over the serve phase's generate calls plus the bf16 stream's phased
+run, the bf16 retention kernel over the serve phase, the float32
+attention kernels over the float32 parity run, the capacity kernels
+over the train phase),
 then, as the last line, {"ok": true, "device": {...}}. Any failure
 raises: the script exits non-zero and prints no result line. It exits
 non-zero at once when no CUDA card is visible.
@@ -740,7 +767,32 @@ def perturb_gates(model, seed):
                                        device=model.device))
 
 
+# graph (fused) against eager serving on the same inputs, logits as a
+# share of their largest magnitude: the same kernels at the same shapes.
+# On the H100 sound runs read 0 (bit-identical); a planted fault in the
+# chunk program's copy-back reads far above (launch/planted_faults.py;
+# PERF.md). The limit only allows for a cuBLAS choice that would differ
+# under capture.
+GRAPH_LOGIT_TOL = 1e-6
+
+
+def check_graphs(name, readings):
+    """Raise unless graphs and eager agree: ids and slot positions
+    identical (readings count what differs), logits within
+    GRAPH_LOGIT_TOL."""
+    if (readings["ids differ"] or readings["slot positions differ"]
+            or not readings["logit gap"] <= GRAPH_LOGIT_TOL):
+        raise AssertionError(f"{name}: graphs and eager disagree: "
+                             f"{readings}")
+
+
 def serve_phase():
+    """Engine.generate at full width, single-shot and chunked, each
+    fused (the step programs' CUDA graphs) and eager (fused=False) on
+    the same inputs: exact launch counts on both paths, identical ids
+    and slot positions, logits within GRAPH_LOGIT_TOL. Returns the
+    launch counts (counted from 0 just before the first call) and the
+    outputs by mode."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_batch
@@ -774,30 +826,298 @@ def serve_phase():
     ops.reset_launches()
     before = dict(ops.LAUNCHES)
     for chunked in (False, True):
-        out = eng.generate(tokens, N, chunked=chunked)
-        now = dict(ops.LAUNCHES)
-        got = {k: now[k] - before[k] for k in now}
-        before = now
-        if got != expect[chunked]:
-            raise AssertionError(f"chunked={chunked}: launches {got}, "
-                                 f"expected {expect[chunked]}")
-        logits = out["logits"]
-        if tuple(logits.shape) != (B, cfg.padded_vocab) or \
-                not torch.isfinite(logits[:, :cfg.vocab_size]).all():
-            raise AssertionError("non-finite or misshapen logits")
-        ids = out["ids"]
-        if ids.shape != (B, N) or ids.min() < 0 or ids.max() >= cfg.vocab_size:
-            raise AssertionError(f"bad ids {ids.shape}")
-        mode = "chunked" if chunked else "single-shot"
-        log(f"serve {mode}: launches {got}; prefill {out['prefill_sec']:.3f}"
-            f" s = {out['prefill_tok_per_sec']:.1f} tok/s; decode "
-            f"{out['decode_sec']:.3f} s = {out['tok_per_sec']:.1f} tok/s; "
-            f"ids[0][:8] {ids[0][:8].tolist()}")
-        results[mode] = out
+        for fused in (True, False):
+            replays = eng.graphs.replays
+            out = eng.generate(tokens, N, chunked=chunked, fused=fused)
+            now = dict(ops.LAUNCHES)
+            got = {k: now[k] - before[k] for k in now}
+            before = now
+            mode = (f"{'chunked' if chunked else 'single-shot'} "
+                    f"{'fused' if fused else 'eager'}")
+            if got != expect[chunked]:
+                raise AssertionError(f"{mode}: launches {got}, expected "
+                                     f"{expect[chunked]}")
+            logits = out["logits"]
+            if tuple(logits.shape) != (B, cfg.padded_vocab) or \
+                    not torch.isfinite(logits[:, :cfg.vocab_size]).all():
+                raise AssertionError("non-finite or misshapen logits")
+            ids = out["ids"]
+            if ids.shape != (B, N) or ids.min() < 0 or \
+                    ids.max() >= cfg.vocab_size:
+                raise AssertionError(f"bad ids {ids.shape}")
+            log(f"serve {mode}: launches {got}; graph replays "
+                f"{eng.graphs.replays - replays}; prefill "
+                f"{out['prefill_sec']:.3f} s = "
+                f"{out['prefill_tok_per_sec']:.1f} tok/s; decode "
+                f"{out['decode_sec']:.3f} s = {out['tok_per_sec']:.1f} "
+                f"tok/s; ids[0][:8] {ids[0][:8].tolist()}")
+            results[mode] = {"ids": ids, "logits": logits.clone(),
+                             "pos": [st["pos"].clone()
+                                     for st in out["state"]["layers"]],
+                             "tok_per_sec": out["tok_per_sec"],
+                             "prefill_tok_per_sec":
+                                 out["prefill_tok_per_sec"]}
+        name = "chunked" if chunked else "single-shot"
+        g, e = (results[f"{name} {m}"] for m in ("fused", "eager"))
+        readings = {
+            "ids differ": int((g["ids"] != e["ids"]).sum()),
+            "slot positions differ": sum(int((a != b).sum())
+                                         for a, b in zip(g["pos"], e["pos"])),
+            "logit gap": ((g["logits"] - e["logits"]).abs().max()
+                          / e["logits"][:, :cfg.vocab_size].abs().max()).item()}
+        log(f"serve {name}: graphs vs eager: {readings['ids differ']} ids "
+            f"and {readings['slot positions differ']} slot positions (all "
+            f"{L} layers) differ, logits |diff| / max |logit| "
+            f"{readings['logit gap']:.3e} (tol {GRAPH_LOGIT_TOL}), "
+            f"bit-identical {torch.equal(g['logits'], e['logits'])}")
+        check_graphs(f"serve {name}", readings)
+    log(f"serve: graph pool {eng.graphs.bytes / 2**20:.1f} MiB over "
+        f"{eng.graphs.captures} captures; static decode state "
+        f"{state_bytes(out['state']) / 2**20:.1f} MiB per batch of {B}")
     main_launches = dict(ops.LAUNCHES)
-    del eng, model
+    del eng, model, out
     torch.cuda.empty_cache()
     return main_launches, results
+
+
+def state_bytes(state):
+    return sum(v.numel() * v.element_size() for st in state["layers"]
+               for v in st.values()) + state["t"].numel() * 4
+
+
+# ------------------------------------------------------------- stream
+
+# The stream phase holds each request's ids against a one-shot
+# Engine.generate(prompt[None], max_new, chunked=True) of the same
+# request: identical up to the first step where the one-shot's top-two
+# logit margin is under MARGIN_TOL[dtype] (there a lane batch of 4 and
+# a batch of 1, whose cuBLAS kernels differ, may pick the other token).
+# The reading is, over the requests that differ, the largest of their
+# smallest one-shot margins up to the first differing token; it must
+# be under the limit. The limits sit between that reading in sound runs
+# and in runs with planted lane faults (launch/planted_faults.py,
+# PERF.md): on the H100 every bf16 divergence of a sound run sat at an
+# exact tie (margin 0: the bf16 logits of the top two tokens were
+# equal); 0.02 admits one bf16 rounding step of a logit below 4 (the
+# top logits read up to ~5) and nothing more. No float32 run diverged.
+MARGIN_TOL = {"bfloat16": 0.02, "float32": 1e-3}
+
+
+def check_stream(name, violations, margin=0.0, tol=math.inf):
+    """Raise unless every stream count is 0 (requests or counters that
+    broke a rule) and the one-shot margin reading is under tol."""
+    bad = {k: v for k, v in violations.items() if v}
+    if bad or not margin < tol:
+        raise AssertionError(f"stream {name}: {bad}, one-shot margin "
+                             f"reading {margin:.3e} (limit {tol})")
+
+
+def first_divergence(got, want):
+    """Index of the first differing id (the shorter length when one is a
+    prefix of the other), or None."""
+    n = min(len(got), len(want))
+    return next((i for i in range(n) if got[i] != want[i]),
+                None if len(got) == len(want) else n)
+
+
+def traced_drain(eng, lanes, reqs, kw):
+    """Serve reqs on a fresh Scheduler with every request submitted at
+    once (no arrival times: the schedule depends on the trace alone),
+    one step() at a time. After each step, record every layer's slot
+    positions and the lanes' last decode logits. Returns (results,
+    trace)."""
+    from repro_torch.serve.scheduler import Scheduler
+    sched = Scheduler(eng, n_lanes=lanes, **kw)
+    for r in sorted(reqs, key=lambda r: r.arrival):
+        sched.submit(r)
+    trace = []
+    while sched.queue or sched.n_running:
+        sched.step()
+        trace.append(([st["pos"].clone()
+                       for st in sched.lanes.state["layers"]],
+                      sched.lanes.logits.clone()))
+    return sched.results, trace
+
+
+def twin_readings(fused, eager, vocab):
+    """Graphs against eager over two traced drains: requests whose ids
+    or status differ, slot positions that differ over every step and
+    layer (a differing number of steps counts as 2**31), and the largest
+    logit gap of a step as a share of its largest |logit|."""
+    (res_f, tr_f), (res_e, tr_e) = fused, eager
+    ids = sum(res_f[k].tokens != res_e[k].tokens
+              or res_f[k].status is not res_e[k].status for k in res_e)
+    pos, gap = (0 if len(tr_f) == len(tr_e) else 2 ** 31), 0.0
+    for (pf, lf), (pe, le) in zip(tr_f, tr_e):
+        pos += sum(int((a != b).sum()) for a, b in zip(pf, pe))
+        lf, le = lf[:, :vocab], le[:, :vocab]
+        gap = max(gap, ((lf - le).abs().max()
+                        / le.abs().max().clamp_min(1e-30)).item())
+    return {"ids differ": ids, "slot positions differ": pos,
+            "logit gap": gap}
+
+
+def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12):
+    """Continuous batching of trimkv-paper-4b (full width; num_layers
+    cuts the depth) through Scheduler.run on 4 lanes, budget 512,
+    prefill_chunk 512, decode_segment 16: a Poisson trace (seed 0) of
+    n_requests prompts of 256-2000 tokens and max_new 16-64 arriving at
+    8 requests/s, served phased, interleaved (prefill_budget 1024) and
+    static (continuous=False). Per mode: every request DONE with its
+    max_new tokens, dispatch_count equal to the scheduler's formula,
+    kernel launches equal to what its steps imply, every logit finite
+    (the scheduler raises on a lane's health flag otherwise), and each
+    request's ids against its one-shot run (see MARGIN_TOL). Then, per
+    mode, graphs against eager: the trace drained at once by the fused
+    engine and by a fused=False engine on the same model, which run the
+    same step programs with and without capture, with identical ids,
+    identical slot positions after every step and logits within
+    GRAPH_LOGIT_TOL (check_graphs). Returns the launch counts of the
+    phased run (counted from 0 just before it) and the readings by
+    mode."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.request import Status, latency_percentiles
+    from repro_torch.serve.scheduler import Scheduler, warm_up
+
+    cfg = get_config("trimkv-paper-4b")
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers, dtype=dtype)
+    L, lanes, tol = cfg.num_layers, 4, MARGIN_TOL[dtype]
+    model = T.init_params(cfg, seed=9, device="cuda")
+    T.init_gate_params(model, cfg, seed=10)
+    perturb_gates(model, seed=11)
+    serve_kw = dict(device="cuda", budget=512, prefill_chunk=512,
+                    decode_segment=16, prefill_budget=1024,
+                    swap_preempt=False)
+    eng = build_engine(cfg, model, **serve_kw)
+    reqs = poisson_requests(n_requests, 8.0, vocab=cfg.vocab_size,
+                            prompt_lo=256, prompt_hi=2000, new_lo=16,
+                            new_hi=64, seed=0)
+    name = f"{dtype} {L} layers"
+    log(f"stream {name}: {len(reqs)} requests, prompts "
+        f"{[r.prompt_len for r in reqs]}, max_new "
+        f"{[r.max_new for r in reqs]}, arrivals over "
+        f"{reqs[-1].arrival:.2f} s; {lanes} lanes, budget 512, chunk 512, "
+        f"segment 16")
+    # the one-shot references (the B = 1 programs), then a warm-up drain
+    # in both admission modes, which captures every lane program before
+    # the measured runs
+    oneshot = {r.rid: eng.generate(r.prompt[None], r.max_new, chunked=True)
+               for r in reqs}
+    margins = np.concatenate([o["margins"][0] for o in oneshot.values()])
+    top = max(o["logits"][0, :cfg.vocab_size].abs().max().item()
+              for o in oneshot.values())
+    log(f"  one-shot top-two margins over {margins.size} steps: "
+        f"{int((margins == 0).sum())} exact ties, "
+        f"{int((margins < tol).sum())} under {tol}, median "
+        f"{np.median(margins):.3e}; largest |logit| of the last steps "
+        f"{top:.3f}")
+    for interleaved in (False, True):
+        warm_up(eng, lanes, reqs, interleaved=interleaved)
+    readings, launches_phased, ids_by_mode = {}, None, {}
+    sfx = "" if dtype == "bfloat16" else "_f32"
+    modes = (("phased", {}), ("interleaved", {"interleaved": True}),
+             ("static", {"continuous": False}))
+    for mode, kw in modes:
+        ops.reset_launches()
+        eng.dispatch_count = 0
+        replays = eng.graphs.replays
+        sched = Scheduler(eng, n_lanes=lanes, **kw)
+        t0 = time.perf_counter()
+        res = sched.run(reqs, respect_arrivals=True)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        if mode == "phased":
+            launches_phased = launches
+        steps = sched.steps_run
+        expect = dict.fromkeys(ops.KERNELS, 0)
+        expect["decode_attention"] = L * (steps["segment"] + steps["mixed"])
+        expect["chunk_attention" + sfx] = L * (steps["chunk"]
+                                               + steps["mixed"])
+        formula = sched.n_prefill_rounds + sched.n_segments + sched.n_resets
+        margin, report = 0.0, []
+        for r in reqs:
+            ref = oneshot[r.rid]
+            got = res[r.rid].tokens
+            diff = first_divergence(got, ref["ids"][0].tolist())
+            if diff is not None:
+                m = float(ref["margins"][0][:diff + 1].min())
+                margin = max(margin, m)
+                report.append(f"{r.rid}: at {diff} of {len(got)} (margin "
+                              f"{ref['margins'][0][min(diff, r.max_new - 1)]:.3e}"
+                              f", smallest up to it {m:.3e})"
+                              f"{'' if m < tol else ' BEFORE A NEAR TIE'}")
+        live = torch.stack([(st["pos"] >= 0).flatten(1).any(1)
+                            for st in sched.lanes.state["layers"]])
+        violations = {
+            # every lane was reset when it last retired, and an inactive
+            # lane writes nothing, so a drained scheduler holds no slot
+            "lanes holding slots after the drain": int(live.any(0).sum()),
+            "requests not DONE with max_new tokens": sum(
+                res[r.rid].status is not Status.DONE
+                or len(res[r.rid].tokens) != r.max_new for r in reqs),
+            "dispatch_count off the formula": int(
+                eng.dispatch_count != formula),
+            "launches off the schedule": int(launches != expect),
+        }
+        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+        ttft = latency_percentiles([res[r.rid].ttft_sec for r in reqs])
+        tpot = latency_percentiles([res[r.rid].tpot_sec for r in reqs])
+        log(f"stream {name} {mode}: {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} output tok/s; TTFT p50 "
+            f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms; "
+            f"TPOT p50 {tpot['p50'] * 1e3:.2f} ms; segments "
+            f"{sched.n_segments} ({sched.n_segment_splits} split), prefill "
+            f"rounds {sched.n_prefill_rounds}, resets {sched.n_resets}, "
+            f"dispatches {eng.dispatch_count} (formula {formula}); steps "
+            f"{steps}; graph replays {eng.graphs.replays - replays}; host "
+            f"enqueue {sched.enqueue_sec / sched.n_segments * 1e3:.2f} ms "
+            f"per segment dispatch; launches {launches}")
+        log(f"  one-shot comparison: {len(report)} of {len(reqs)} requests "
+            f"differ; margin reading {margin:.3e} (limit {tol}): "
+            + ("; ".join(report) if report else "none"))
+        check_stream(f"{name} {mode}", violations, margin, tol)
+        ids_by_mode[mode] = [res[r.rid].tokens for r in reqs]
+        readings[mode] = {"violations": violations, "margin": margin,
+                          "tok_per_sec": n_tok / wall, "ttft": ttft,
+                          "tpot": tpot}
+    # every mode runs the same programs at the same shapes, and a lane's
+    # rows never meet another lane's, so the schedule cannot change a
+    # token: this holds every token, past the one-shot's first near tie
+    same = sum(a == b == c for a, b, c in zip(*ids_by_mode.values()))
+    log(f"stream {name}: ids identical in the three modes for {same} of "
+        f"{len(reqs)} requests")
+    check_stream(f"{name} modes", {
+        "requests whose ids differ between the modes": len(reqs) - same})
+    # graphs against eager: the same step programs, captured and not
+    eager = build_engine(cfg, model, fused=False, **serve_kw)
+    for mode, kw in modes:
+        t0 = time.perf_counter()
+        fused_run = traced_drain(eng, lanes, reqs, kw)
+        t1 = time.perf_counter()
+        eager_run = traced_drain(eager, lanes, reqs, kw)
+        t2 = time.perf_counter()
+        twins = twin_readings(fused_run, eager_run, cfg.vocab_size)
+        log(f"stream {name} {mode}: graphs vs eager over "
+            f"{len(eager_run[1])} steps ({t1 - t0:.2f} s against "
+            f"{t2 - t1:.2f} s): {twins['ids differ']} requests' ids and "
+            f"{twins['slot positions differ']} slot positions (all {L} "
+            f"layers, after every step) differ, logits |diff| / max "
+            f"|logit| {twins['logit gap']:.3e} (tol {GRAPH_LOGIT_TOL})")
+        check_graphs(f"stream {name} {mode}", twins)
+        readings[mode]["graphs vs eager"] = twins
+        del fused_run, eager_run
+    log(f"stream {name}: graph pool {eng.graphs.bytes / 2**20:.1f} MiB over "
+        f"{eng.graphs.captures} captures")
+    del eng, eager, model
+    torch.cuda.empty_cache()
+    return launches_phased, readings
 
 
 # bf16 card-vs-CPU logits, as a share of the step's largest |logit|:
@@ -1154,6 +1474,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with torch.no_grad():
         launches, _ = serve_phase()
+        # the serving paths: Engine.generate and the scheduler's stream
+        stream, _ = stream_phase("bfloat16")
+        for k in ("decode_attention", "chunk_attention"):
+            launches[k] += stream[k]
+        stream_phase("float32", num_layers=2, n_requests=6)
     # the float32 attention kernels' path is the float32 parity run
     f32, _ = parity_phase("float32")
     launches.update({k: f32[k] for k in ("retention_attention_f32",

@@ -3,7 +3,9 @@
 Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (field
 for field, so one config describes the same model and the same
 training in both packages) and a ``ServeConfig``
-cut down to the knobs the dense TRIM-KV serving path reads. The port
+with the JAX package's serving and scheduler fields and defaults (a
+field whose subsystem is not ported yet raises ``NotImplementedError``
+where the scheduler would use it). The port
 imports nothing from the JAX package, so the architecture table and
 the lookup helpers live here too; an architecture the port cannot run
 yet raises ``NotImplementedError``.
@@ -12,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,6 +117,33 @@ class ServeConfig:
     prefill_chunk: int = 2048
     max_decode_steps: int = 64
     temperature: float = 0.0
+    # fused: Engine.generate / teacher_forced_accuracy and
+    # Engine.prefill(chunked=True) run their step programs as captured
+    # CUDA graphs (serve.graphs), one replay per step; False runs the
+    # same steps eagerly, the parity reference. The lane closures of the
+    # scheduler follow it too. On the CPU every step runs eagerly.
+    fused: bool = True
+    # --- continuous batching (serve.scheduler); the JAX package's
+    # fields and defaults ---
+    decode_segment: int = 16          # decode steps per scheduler segment
+    eos_id: int = -1                  # default stop token (-1 = none)
+    max_queue: int = 64               # submit() sheds beyond this
+    sched_policy: str = "fifo"        # fifo | priority | edf
+    interleaved: bool = False         # admission prefill inside segments
+    prefill_budget: int = 0           # prompt tokens per interleaved
+    #                                   segment (0 = unlimited)
+    preempt: bool = True              # priority/edf may evict a lane
+    # swap_preempt: swap a decoding victim out to a host snapshot. The
+    # snapshot store is not ported: with True a swap raises
+    # NotImplementedError where it would happen; False restarts every
+    # victim from scratch (recompute-style preemption)
+    swap_preempt: bool = True
+    checkpoint_every: int = 0         # lane snapshots (not ported)
+    shed_policy: str = "reject"       # reject | evict
+    snapshot_host_bytes: int = 0      # snapshot store (not ported)
+    snapshot_dir: Optional[str] = None
+    prefix_cache_bytes: int = 0       # prefix KV cache (not ported)
+    spec_k: int = 0                   # speculative decoding (not ported)
 
 
 ARCH_IDS = (

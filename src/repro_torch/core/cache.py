@@ -6,7 +6,8 @@ model dtype, with per-slot pos (int32, -1 = empty), beta and aux
 
 Unlike the JAX original, ``cache_insert`` updates the cache IN PLACE:
 it writes the victim slot of each (lane, kv head) and nothing else, and
-returns the same dict. ``cache_topm_merge`` builds new tensors.
+returns the same dict; so do ``reset_lanes`` and ``scrub_lanes``.
+``cache_topm_merge`` builds new tensors.
 """
 from __future__ import annotations
 
@@ -55,8 +56,31 @@ def _first_argmin(scores):
     return idx, low
 
 
+def reset_lanes(cache, lane_mask):
+    """Clear the masked lanes' slots in place: pos := -1, beta := 1,
+    aux := 0. K/V bytes stay: a slot with pos < 0 is invisible to every
+    attention read and scores -1e30 in eviction. lane_mask: [B] bool.
+    Other lanes are untouched. Returns the same dict."""
+    m = lane_mask[:, None, None]
+    cache["pos"].masked_fill_(m, -1)
+    cache["beta"].masked_fill_(m, 1.0)
+    cache["aux"].masked_fill_(m, 0.0)
+    return cache
+
+
+def scrub_lanes(cache, lane_mask):
+    """reset_lanes plus zeroed K/V in the masked lanes (the quarantine
+    primitive: a NaN payload byte would survive the metadata reset,
+    since 0 x NaN = NaN in the p @ v product). In place."""
+    reset_lanes(cache, lane_mask)
+    m = lane_mask[:, None, None, None]
+    cache["k"].masked_fill_(m, 0)
+    cache["v"].masked_fill_(m, 0)
+    return cache
+
+
 def cache_insert(cache, k_t, v_t, beta_t, t, keep_scores_fn,
-                 incoming_score=None, incoming_aux=None):
+                 incoming_score=None, incoming_aux=None, active=None):
     """Insert one token; evict the lowest-keep-score entry (Alg. 1).
 
     k_t, v_t: [B, Hkv, Dh] (k post-RoPE); beta_t: [B, Hkv]; t: position
@@ -65,15 +89,21 @@ def cache_insert(cache, k_t, v_t, beta_t, t, keep_scores_fn,
     incoming token takes part in the argmin: it is written only where
     its score (incoming_score; None = +1e30) is >= the victim's.
 
+    active: optional [B] bool; a lane marked False inserts nothing
+    (continuous batching freezes retired and prefilling lanes so).
+
     In place: each (lane, kv head) writes only its victim slot. Where
-    the incoming token loses, the slot is written with its own values,
-    so nothing changes there. Returns the same dict.
+    the incoming token loses, or the lane is inactive, the slot is
+    written with its own values, so nothing changes there. Returns the
+    same dict.
     """
     B, H, _ = cache["pos"].shape
     scores = keep_scores_fn(cache, t)                       # [B,H,M]
     victim, victim_score = _first_argmin(scores)            # [B,H]
     inc = 1e30 if incoming_score is None else float(incoming_score)
     write = inc >= victim_score                             # [B,H] bool
+    if active is not None:
+        write = write & active[:, None]
     dev = victim.device
     bi = torch.arange(B, device=dev)[:, None]
     hi = torch.arange(H, device=dev)[None, :]

@@ -4,23 +4,31 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --lanes
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
-kernel source) it copies src/repro_torch and chip_smoke.py into a
-temporary directory, applies the change, and runs, in a fresh process
-that builds that copy's kernels, chip_smoke's kernel phases that the
-fault touches and, where listed, its bf16 serving parity, with every
-limit lifted. Each bf16 case gives its row-relative error
-(chip_smoke.row_errors), each float32 case its largest
-|error| / (1 + |value|) against chip_smoke.TOL (the test chip_smoke's
-check applies), each capacity case its readings against
+kernel source) and LANE_FAULTS (one to the lane layer; --lanes runs
+the sound build and these alone) it copies src/repro_torch and
+chip_smoke.py into a temporary directory, applies the change, and runs,
+in a fresh process that builds that copy's kernels, the chip_smoke
+phases that the fault touches, with every limit lifted. Each bf16 case
+gives its row-relative error (chip_smoke.row_errors), each float32 case
+its largest |error| / (1 + |value|) against chip_smoke.TOL (the test
+chip_smoke's check applies), each capacity case its readings against
 chip_smoke.CAP_TOL (the gradient's error relative to its largest entry,
 and a second launch's difference, which must be 0; a capacity check
 with no limit, such as S_{M-1} == M at the tie, reads inf when it
-raises), and the parity its logit gap; the script
-prints every reading beside its limit, the largest reading of the
-sound build per kind, and exits non-zero unless the sound build stays
-within every limit and each fault exceeds at least one.
+raises), the bf16 serving parity its logit gap, the stream phase (its
+bf16 run at full width and its float32 run at 2 layers) per admission
+mode the counts of requests and counters that broke its rules (limit
+0; inf when the phase raised), its one-shot margin reading (against
+chip_smoke.MARGIN_TOL) and its graphs-against-eager counts and logit
+gap, and the serve phase its graphs-against-eager counts and logit gap
+(against chip_smoke.GRAPH_LOGIT_TOL); the script prints
+every reading beside its limit, the largest reading of the sound build
+per kind, and exits non-zero unless the sound build stays within every
+limit and each fault exceeds at least one.
 """
 from __future__ import annotations
 
@@ -99,7 +107,32 @@ FAULTS = [
      "if (m < 0) x[e] += D[(h * RB + rr) * K + 4 * tx + e];",
      ("capacity",)),
 ]
-SOUND = ("decode", "chunk", "retention", "capacity", "parity")
+# faults in the lane layer and the step programs (file under
+# src/repro_torch), caught by the stream phase (chip_smoke.stream_phase,
+# bf16 at full width and float32 at 2 layers) or the serve phase's
+# graphs against eager: python3 -m repro_torch.launch.planted_faults
+# --lanes runs the sound build and these alone
+LANE_FAULTS = [
+    ("lanes: an inactive lane not frozen (the active mask dropped from "
+     "cache_insert)", "core/cache.py",
+     "        write = write & active[:, None]\n", "        write = write\n",
+     ("stream",)),
+    ("lanes: the graph's carry buffer not refreshed before a dispatch's "
+     "replays", "serve/graphs.py", "        self.io.copy_(host)\n",
+     "        del host\n", ("stream",)),
+    ("graphs: the chunk program's copy-back leaves beta out",
+     "serve/graphs.py", "            if s[k] is not v:\n",
+     "            if s[k] is not v and k != \"beta\":\n", ("serve",)),
+    # graph-only: the eager program reads the new tensor, the captured
+    # one the buffer it was captured with (kept alive, so it reads the
+    # first chunk's counts on every replay)
+    ("graphs: the chunk program's n_valid buffer replaced, not refreshed",
+     "serve/graphs.py", "            self.cnv.copy_(nv_dev[i])\n",
+     "            self.__dict__.setdefault(\"_held\", []).append(self.cnv)\n"
+     "            self.cnv = nv_dev[i].clone()\n", ("serve", "stream")),
+]
+SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
+         "serve")
 
 
 def child(phases):
@@ -137,9 +170,17 @@ def child(phases):
             readings.append({"case": f"capacity {name}", "kind": kind,
                              "reading": errs[kind], "limit": limit})
 
+    def record_graphs(name, found):
+        for kind, n in found.items():
+            readings.append({
+                "case": f"{name} graphs vs eager", "kind": kind,
+                "reading": float(n), "limit":
+                    cs.GRAPH_LOGIT_TOL if kind == "logit gap" else 0.0})
+
     cs.check_rows = record
     cs.check = record_f32
     cs.check_capacity = record_capacity
+    cs.check_graphs = record_graphs
     g = torch.Generator(device="cuda")
     with torch.no_grad():
         for name in ("decode", "chunk", "retention"):
@@ -155,6 +196,30 @@ def child(phases):
             print(f"capacity: {e}")
             readings.append({"case": "capacity phase", "kind": "raised",
                              "reading": math.inf, "limit": 0.0})
+    if "serve" in phases:
+        with torch.no_grad():
+            cs.serve_phase()
+        torch.cuda.empty_cache()
+    if "stream" in phases:
+        def record_stream(name, violations, margin=0.0, tol=math.inf):
+            for kind, n in violations.items():
+                readings.append({"case": f"stream {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+            if tol < math.inf:
+                readings.append({"case": f"stream {name}", "kind": "margin",
+                                 "reading": margin, "limit": tol})
+
+        cs.check_stream = record_stream
+        for args in (("bfloat16",), ("float32", 2, 6)):
+            try:
+                with torch.no_grad():
+                    cs.stream_phase(*args)
+            except (AssertionError, RuntimeError, NotImplementedError) as e:
+                print(f"stream {args[0]}: {e}")
+                readings.append({"case": f"stream {args[0]} phase",
+                                 "kind": "raised", "reading": math.inf,
+                                 "limit": 0.0})
+            torch.cuda.empty_cache()
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -181,7 +246,8 @@ def run(fault, phases):
         shutil.copy(ROOT / "chip_smoke.py", tmp)
         if fault is not None:
             _, name, text, new, _ = fault
-            src = tmp / CSRC / name
+            src = (tmp / "src" / "repro_torch" / name if "/" in name
+                   else tmp / CSRC / name)
             body = src.read_text()
             if body.count(text) != 1:
                 raise RuntimeError(f"{name}: the text to change is not "
@@ -190,21 +256,23 @@ def run(fault, phases):
         proc = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.planted_faults",
              "--child", ",".join(phases)], cwd=tmp, capture_output=True,
-            text=True, timeout=900,
+            text=True, timeout=1500,
             env={**os.environ, "PYTHONPATH": str(tmp / "src")})
     if proc.returncode != 0:
         raise RuntimeError(f"run failed (rc {proc.returncode}):\n"
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     lines = proc.stdout.strip().splitlines()
-    return json.loads(lines[-1]), [x for x in lines
-                                   if x.startswith(("parity", "capacity:"))]
+    return json.loads(lines[-1]), [x for x in lines if x.startswith(
+        ("parity", "capacity:", "stream", "serve"))]
 
 
-def main() -> int:
+def main(lanes_only: bool = False) -> int:
     ok = True
-    for fault in [None, *FAULTS]:
+    faults = LANE_FAULTS if lanes_only else FAULTS + LANE_FAULTS
+    sound = ("stream", "serve") if lanes_only else SOUND
+    for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"
-        readings, parity = run(fault, SOUND if fault is None else fault[4])
+        readings, parity = run(fault, sound if fault is None else fault[4])
         over = [r for r in readings if not r["reading"] <= r["limit"]]
         print(f"{title}: {len(over)} of {len(readings)} readings beyond "
               f"their limit", flush=True)
@@ -231,4 +299,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         child(sys.argv[2].split(","))
     else:
-        sys.exit(main())
+        sys.exit(main(lanes_only=sys.argv[1:2] == ["--lanes"]))

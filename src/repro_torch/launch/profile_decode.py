@@ -1,11 +1,14 @@
 """Where a decode step's time goes on the card: host enqueue against
-device busy time.
+device busy time, for the eager step and for its CUDA graph.
 
     PYTHONPATH=src python3 -m repro_torch.launch.profile_decode
 
 Needs one CUDA card. Builds trimkv-paper-4b at full width (36 layers,
 bf16, random weights from a seed), prefills batch 4 x 2000 tokens in
-chunks of 512 under budget 512, then:
+chunks of 512 under budget 512, then, for the eager decode step
+(T.decode_step, one Python call per kernel) and for the decode step
+program replayed as a CUDA graph (serve.graphs, what Engine.generate
+runs when fused):
 
 1. runs 8 decode steps twice on the host clock: once stopping the
    clock when the Python loop returns (the enqueue; PyTorch returns
@@ -13,8 +16,11 @@ chunks of 512 under budget 512, then:
 2. runs 8 more under torch.profiler (CPU and CUDA) and prints the
    device busy time and the kernel launches per step (the sum of the
    kernels' self time and calls), the card's idle share of the
-   untraced wall (1 - busy / wall), and the top operators by host and
-   by device time.
+   untraced wall (1 - busy / wall), the graph replays per step, and the
+   top operators by device time. Where the trace shows no kernel of a
+   replayed graph, busy is read from CUDA events around the 8 steps
+   instead (an upper bound: it includes the gaps between kernels), and
+   the script says so.
 
 When enqueue and wall are equal and the idle share is high, decode is
 bound by the host's launches, not by the card.
@@ -27,7 +33,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
-from repro_torch.core.policies import TrimKV
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.profiling import device_kernels
 from repro_torch.models import transformer as T
@@ -36,11 +41,51 @@ from repro_torch.serve.engine import build_engine
 B, PROMPT, BUDGET, CHUNK, STEPS = 4, 2000, 512, 512, 8
 
 
-def _steps(model, cfg, state, tok, policy, n):
-    for _ in range(n):
-        state, logits = T.decode_step(model, cfg, state, tok, policy)
-        tok = torch.argmax(logits, dim=-1)
-    return state, tok
+def _event_ms(run):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run(STEPS)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def measure(name, run, replays):
+    """Print one path's enqueue, wall, busy, idle share, launches and
+    replays per step, and its top kernels."""
+    run(2)                                               # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(STEPS)
+    enqueue = (time.perf_counter() - t0) / STEPS
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / STEPS
+    r0 = replays()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(STEPS)
+        torch.cuda.synchronize()
+        traced_wall = (time.perf_counter() - t0) / STEPS
+    n_replays = (replays() - r0) / STEPS
+    events = prof.key_averages()
+    kernels, busy, launches = device_kernels(events)
+    busy, launches = busy / STEPS, launches / STEPS
+    source = "profiler"
+    if busy == 0:
+        busy, launches, source = _event_ms(run) / STEPS, float("nan"), \
+            "CUDA events (the trace shows no kernel)"
+    print(f"{name}: decode step, batch {B}, budget {BUDGET}: enqueue "
+          f"{enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms "
+          f"({B / wall:.1f} tok/s); traced wall {traced_wall * 1e3:.3f} ms, "
+          f"device busy {busy:.3f} ms ({source}), {launches:.0f} kernel "
+          f"launches and {n_replays:.0f} graph replays per step; idle share "
+          f"of the untraced wall {1 - busy / (wall * 1e3):.3f}")
+    for e in kernels[:12]:
+        ms = e.self_device_time_total / 1e3 / STEPS
+        print(f"  {ms:10.4f} ms/step {e.count / STEPS:8.1f} x/step  "
+              f"{e.key[:90]}")
 
 
 @torch.no_grad()
@@ -51,36 +96,25 @@ def main():
     eng = build_engine(cfg, model, device="cuda", budget=BUDGET,
                        prefill_chunk=CHUNK)
     tokens, _, _ = make_batch("copy", 0, B, PROMPT, cfg.vocab_size)
-    state, h_last = eng.prefill(tokens, chunked=True)
-    tok = torch.argmax(T.compute_logits(model, cfg, h_last), dim=-1)
-    policy = TrimKV()
-    state, tok = _steps(model, cfg, state, tok, policy, 2)     # warm up
-    torch.cuda.synchronize()
+    _, h_last = eng.prefill(tokens, chunked=True)
+    tok = [torch.argmax(T.compute_logits(model, cfg, h_last), dim=-1)]
+    progs = eng._programs(B)       # its state is the prefilled one
+    print(f"{cfg.name} {cfg.num_layers} layers {cfg.dtype} on "
+          f"{torch.cuda.get_device_name(0)}")
 
-    t0 = time.perf_counter()
-    state, tok = _steps(model, cfg, state, tok, policy, STEPS)
-    enqueue = (time.perf_counter() - t0) / STEPS
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / STEPS
+    def eager(n):
+        for _ in range(n):
+            new, logits = T.decode_step(model, cfg, progs.state, tok[0],
+                                        eng.policy)
+            progs.state["t"].copy_(new["t"])
+            tok[0] = torch.argmax(logits, dim=-1)
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, tok = _steps(model, cfg, state, tok, policy, STEPS)
-        torch.cuda.synchronize()
-        traced_wall = (time.perf_counter() - t0) / STEPS
-    events = prof.key_averages()
-    _, busy, launches = device_kernels(events)
-    busy, launches = busy / STEPS, launches / STEPS
-    print(f"decode step, {cfg.name} {cfg.num_layers} layers, batch {B}, "
-          f"budget {BUDGET}: enqueue {enqueue * 1e3:.2f} ms, wall "
-          f"{wall * 1e3:.2f} ms ({B / wall:.1f} tok/s)")
-    print(f"traced ({len(events)} distinct ops): wall "
-          f"{traced_wall * 1e3:.2f} ms, device busy "
-          f"{busy:.2f} ms and {launches:.0f} kernel launches per step; "
-          f"idle share of the untraced wall {1 - busy / (wall * 1e3):.3f}")
-    print(events.table(sort_by="self_cpu_time_total", row_limit=12))
-    print(events.table(sort_by="self_device_time_total", row_limit=12))
+    def graph(n):
+        for _ in range(n):
+            tok[0] = progs.decode(tok[0])[0]
+
+    measure("eager", eager, lambda: eng.graphs.replays)
+    measure("graph", graph, lambda: eng.graphs.replays)
 
 
 if __name__ == "__main__":

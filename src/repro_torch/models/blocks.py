@@ -131,11 +131,23 @@ def _ffn_residual(block, cfg, x):
                                                   cfg.norm_eps))
 
 
-def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy):
+def _select_rows(mask, new, old):
+    """Per-lane select over two block states (dicts of lane-leading
+    leaves): lanes where mask ([B] bool) is False keep ``old``'s rows
+    bit-identically."""
+    def sel(n, o):
+        return torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+    return {k: sel(new[k], old[k]) for k in new}
+
+
+def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
+                       active=None):
     """x_t: [B, d]; state: the block's slot cache; t: [B] per-lane
     position of this token. Attends over (cache ∪ in-flight token), then
     evicts (Alg. 1). The cache is updated in place (see
-    core.cache.cache_insert). Returns (x_out [B, d], cache, None)."""
+    core.cache.cache_insert); active ([B] bool, optional) leaves the
+    caches of lanes marked False bit-identical. Returns (x_out [B, d],
+    cache, None)."""
     _require_no_attn_aux(policy)
     cache = state
     B = x_t.shape[0]
@@ -153,7 +165,7 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy):
                                return_probs=policy.needs_attn)
     inc = 1.0 if policy.name == "trimkv" else None
     cache = cache_insert(cache, k_t, v_t, beta_t, t, policy.keep_scores,
-                         incoming_score=inc)
+                         incoming_score=inc, active=active)
     x = x_t + dense_apply(block.attn.wo,
                           out.reshape(B, cfg.q_dim).to(x_t.dtype))
     return _ffn_residual(block, cfg, x), cache, None
@@ -190,22 +202,27 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
 def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
                               policy, obs_window=32, n_valid=None):
     """Continue prefill with chunk x [B, C, d]. t0: [B] position of the
-    chunk's first token; n_valid: real tokens in the chunk (None = all
-    C). Tail positions beyond n_valid are padding: position -1, masked
-    out of attention, never kept. Attends through the chunk kernel, then
-    merges the top M of (cache ∪ chunk) at t = t0 + n_valid - 1."""
+    chunk's first token. n_valid: real tokens in the chunk — None (all
+    C), an int, or a [B] tensor (ragged: each row marks its own tail).
+    Tail positions beyond n_valid are padding: position -1, masked out
+    of attention, never kept. Attends through the chunk kernel, then
+    merges the top M of (cache ∪ chunk) at t = t0 + n_valid - 1. With a
+    [B] n_valid, rows whose n_valid is 0 keep their cache bit-identically
+    (the merge could reorder their slots otherwise). n_valid never
+    leaves the device, so a captured CUDA graph serves every tail."""
     del obs_window
     _require_no_attn_aux(policy)
     B, C, _ = x.shape
     dev = x.device
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
-    idx = torch.arange(C, device=dev)
+    idx = torch.arange(C, device=dev, dtype=torch.int32)
     t0b = torch.as_tensor(t0, dtype=torch.int32, device=dev).expand(B)
     positions = t0b[:, None] + idx[None, :]
-    nv = C if n_valid is None else int(n_valid)
-    chunk_pos = torch.where(idx[None, :] < nv, positions,
-                            torch.full_like(positions, -1)).to(torch.int32)
-    t_end = t0b + (nv - 1)                                  # [B]
+    ragged = torch.is_tensor(n_valid) and n_valid.ndim == 1
+    nvb = valid_counts(n_valid, B, C, dev)
+    chunk_pos = torch.where(idx[None, :] < nvb[:, None], positions,
+                            torch.full_like(positions, -1))
+    t_end = t0b + nvb - 1                                   # [B]
     q, k, v = _qkv(block, cfg, normed, positions)
     out, _ = ops.chunk_attention(q, k, v, state, chunk_pos,
                                  window=_window(cfg, block.kind),
@@ -218,8 +235,19 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
                                        aux_c=aux_c, k_c=k_c, t=t_end)
     cache = cache_topm_merge(state, k_c, v_c, beta_c, pos_c, aux_c, t_end,
                              policy.keep_scores, chunk_scores)
+    if ragged:
+        cache = _select_rows(nvb > 0, cache, state)
     x = x + dense_apply(block.attn.wo, out.reshape(B, C, cfg.q_dim))
     return _ffn_residual(block, cfg, x), cache, None
+
+
+def valid_counts(n_valid, B: int, C: int, device):
+    """n_valid (None = all C, an int, a 0-d or a [B] tensor) as an int32
+    [B] tensor on ``device``; no host round trip for a tensor."""
+    if n_valid is None:
+        n_valid = C
+    return torch.as_tensor(n_valid, dtype=torch.int32,
+                           device=device).expand(B)
 
 
 # ======================================================== block: train

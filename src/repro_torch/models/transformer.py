@@ -3,17 +3,22 @@ prefill, decode, sampling, the token loops and the training forward.
 
 Ported from ``repro/models/transformer.py`` (dense path). The model is
 a ``Transformer`` module holding its blocks in order; the JAX package's
-scans over layers and tokens become Python loops. The decode state is
+scans over layers become Python loops, and its scans over tokens and
+chunks become loops over step functions (``serve.graphs`` captures the
+steps as CUDA graphs). The decode state is
 {"t": [B] int32 per-lane clock, "layers": [one slot cache per layer]};
 ``bridge.state_to_numpy`` gives it the JAX package's layout. Decode
 updates the caches in place.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core.cache import reset_lanes as cache_reset_lanes
+from repro_torch.core.cache import scrub_lanes as cache_scrub_lanes
 from repro_torch.models import blocks
 from repro_torch.models.common import (RMSNorm, checkpointed, dense,
                                        resolve_device, rmsnorm_apply,
@@ -130,12 +135,16 @@ def prefill(model: Transformer, cfg, tokens, state, policy, serve_cfg):
 def _prefill_chunk_step(model: Transformer, cfg, tokens, state, policy,
                         serve_cfg, n_valid=None):
     """One chunk of chunked prefill: embed -> per-layer chunk attention
-    + top-M merge -> final norm. tokens: [B, C]; n_valid: real tokens
-    (None = all C). Returns (state, h_last [B, d] of the last real
-    token)."""
+    + top-M merge -> final norm. tokens: [B, C]; n_valid: real tokens —
+    None (all C), an int, or a [B] tensor for a ragged batch, where a
+    row with n_valid 0 keeps its state bit-identically (see
+    blocks.apply_block_prefill_chunk). Returns (state, h_last [B, d] of
+    each row's last real token; a row with an empty chunk returns its
+    position 0 there, which callers replace with the previous value)."""
     h = _embed(model, tokens)
-    C = h.shape[1]
+    B, C = h.shape[:2]
     t0 = state["t"]
+    nvb = blocks.valid_counts(n_valid, B, C, h.device)
     layers = []
     for block, st in zip(model.layers, state["layers"]):
         h, ns, _ = blocks.apply_block_prefill_chunk(
@@ -143,35 +152,49 @@ def _prefill_chunk_step(model: Transformer, cfg, tokens, state, policy,
             obs_window=serve_cfg.obs_window, n_valid=n_valid)
         layers.append(ns)
     h = rmsnorm_apply(model.final_norm.scale, h, cfg.norm_eps)
-    nv = C if n_valid is None else int(n_valid)
-    return {"t": t0 + nv, "layers": layers}, h[:, nv - 1]
+    ix = (nvb - 1).clamp(0, C - 1).long()
+    h_last = torch.gather(h, 1, ix[:, None, None].expand(B, 1, h.shape[-1]))
+    return {"t": t0 + nvb, "layers": layers}, h_last[:, 0]
 
 
 def prefill_chunk_loop(model: Transformer, cfg, chunks, n_valid, state,
                        policy, serve_cfg):
     """Chunked prefill as a loop over chunks [n_chunks, B, C] with
-    real-token counts n_valid [n_chunks] (C except the padded tail).
-    Returns (state, h_last [B, d])."""
+    real-token counts n_valid [n_chunks] (C except the padded tail), or
+    [n_chunks, B] for a ragged batch: mixed-length prompts on one chunk
+    grid, each row with its own counts (full chunks, its tail, then
+    zeros, which freeze the row). Returns (state, h_last [B, d] of each
+    row's last real token, carried across its empty chunks)."""
+    chunks = torch.as_tensor(chunks, device=model.device)
+    n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
+                              device=model.device)
+    ragged = n_valid.ndim == 2
     h_last = None
     for tokens, nv in zip(chunks, n_valid):
-        state, h_last = _prefill_chunk_step(model, cfg, tokens, state,
-                                            policy, serve_cfg,
-                                            n_valid=int(nv))
+        state, h = _prefill_chunk_step(model, cfg, tokens, state, policy,
+                                       serve_cfg, n_valid=nv)
+        h_last = (h if h_last is None or not ragged else
+                  torch.where((nv > 0)[:, None], h, h_last))
     return state, h_last
 
 
-def decode_step(model: Transformer, cfg, state, token, policy):
+def decode_step(model: Transformer, cfg, state, token, policy,
+                active=None):
     """token: [B]. Returns (state, logits [B, Vp] float32); the caches
-    in ``state`` are updated in place and the clock advances by one."""
+    in ``state`` are updated in place and the clock advances by one.
+    active: optional [B] bool; lanes marked False keep their caches and
+    clocks bit-identical (the scheduler freezes retired and prefilling
+    lanes so)."""
     x = _embed(model, token)
     t = state["t"]
     layers = []
     for block, st in zip(model.layers, state["layers"]):
         x, ns, _ = blocks.apply_block_decode(block, cfg, x, st, t,
-                                             policy=policy)
+                                             policy=policy, active=active)
         layers.append(ns)
     x = rmsnorm_apply(model.final_norm.scale, x, cfg.norm_eps)
-    return {"t": t + 1, "layers": layers}, compute_logits(model, cfg, x)
+    t_new = t + 1 if active is None else t + active.to(t.dtype)
+    return {"t": t_new, "layers": layers}, compute_logits(model, cfg, x)
 
 
 def sample_token(logits, *, greedy: bool, temperature: float,
@@ -184,20 +207,192 @@ def sample_token(logits, *, greedy: bool, temperature: float,
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def top2_margin(logits):
+    """logits [B, Vp] -> [B] float32: the largest logit minus the second
+    largest, how near a greedy step came to a tie."""
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
 def decode_loop(model: Transformer, cfg, state, first_token, n_steps: int,
                 policy, *, greedy=True, temperature=0.0, generator=None):
     """n_steps of emit -> decode -> sample. first_token [B] (from the
     prefill logits) is emitted first. Returns (state, ids [B, n_steps],
-    the last step's logits [B, Vp])."""
+    the last step's logits [B, Vp], margins [B, n_steps]: each step's
+    top-two logit margin)."""
     tok = first_token
-    out = []
+    out, margins = [], []
     logits = None
     for _ in range(n_steps):
         out.append(tok)
         state, logits = decode_step(model, cfg, state, tok, policy)
+        margins.append(top2_margin(logits))
         tok = sample_token(logits, greedy=greedy, temperature=temperature,
                            generator=generator)
-    return state, torch.stack(out, dim=1), logits
+    return (state, torch.stack(out, dim=1), logits,
+            torch.stack(margins, dim=1))
+
+
+# --------------------------------------------- continuous-batching lanes
+#
+# The scheduler (serve.scheduler) treats the batch dim as B fixed LANES,
+# each holding one request at its own clock. Retired lanes are reset
+# (pos := -1) and refilled. The helpers below are the model-level
+# surface of that: the masked segment and mixed steps, greedy per-lane
+# sampling and lane-granular state surgery. The JAX package runs each
+# loop as one lax.scan; here the steps are the bodies of the step
+# programs of serve.graphs.LanePrograms, which the scheduler replays as
+# CUDA graphs and the loops below run eagerly.
+
+
+def require_greedy_lanes(greedy: bool, temperature: float):
+    """Raise unless the lanes decode greedily: sampled lanes need a
+    graph-safe generator per lane, which the port does not have yet
+    (ROADMAP queue 1, sampled lanes)."""
+    if not (greedy or temperature == 0.0):
+        raise NotImplementedError(
+            "sampled (temperature > 0) lanes are not ported; see ROADMAP "
+            "queue 1, sampled lanes")
+
+
+def sample_token_lanes(logits, *, greedy: bool = True,
+                       temperature: float = 0.0):
+    """Per-lane greedy tokens [B] (int64) from logits [B, Vp]."""
+    require_greedy_lanes(greedy, temperature)
+    return torch.argmax(logits, dim=-1)
+
+
+def _emit(tok, live, nxt, n_emitted, max_new, eos_id):
+    """The per-step bookkeeping of a segment: lanes in ``live`` emit
+    their carried token and take ``nxt``; a lane that emitted its eos or
+    its max_new-th token stops. Returns (new_tok, n_emitted, done)."""
+    n_emitted = n_emitted + live.to(n_emitted.dtype)
+    done = live & (((eos_id >= 0) & (tok == eos_id)) | (n_emitted >= max_new))
+    return torch.where(live, nxt, tok), n_emitted, done
+
+
+def segment_step(model: Transformer, cfg, state, tok, live, n_emitted,
+                 max_new, eos_id, ok, policy, *, greedy=True,
+                 temperature=0.0):
+    """One step of a masked decode segment over B lanes: lanes in
+    ``live`` ([B] bool) emit their carried token ``tok``, feed it
+    through the masked decode_step (the others are frozen) and take the
+    next greedy token. Returns (state, new_tok, n_emitted, done, ok,
+    logits) — ok [B] turns False for a live lane whose logits were not
+    finite."""
+    state, logits = decode_step(model, cfg, state, tok, policy, active=live)
+    ok = ok & (~live | torch.isfinite(logits).all(dim=-1))
+    nxt = sample_token_lanes(logits, greedy=greedy, temperature=temperature)
+    tok, n_emitted, done = _emit(tok, live, nxt, n_emitted, max_new, eos_id)
+    return state, tok, n_emitted, done, ok, logits
+
+
+def mixed_step(model: Transformer, cfg, state, tok, active, n_emitted,
+               max_new, eos_id, ok, ctoks, nv, fin, policy, serve_cfg, *,
+               finishing: bool, greedy=True, temperature=0.0):
+    """One step of an interleaved segment: the decode sub-step of
+    segment_step over ``active`` lanes, then one prompt chunk ctoks
+    [B, C] with per-lane real counts nv [B] (0 = no chunk: the row is
+    frozen). Lanes in ``fin`` [B] consumed their last chunk: they take
+    the greedy token of that chunk's last hidden state as their carried
+    token, n_emitted 0, and turn active. ``finishing`` (the host's
+    fin.any()) picks the variant that computes those logits; without it
+    the transition is the identity, as when fin has no lane. Returns
+    (state, tok, active, n_emitted, ok, emit, the decode sub-step's
+    logits)."""
+    emit = active
+    state, tok, n_emitted, done, ok, logits = segment_step(
+        model, cfg, state, tok, active, n_emitted, max_new, eos_id, ok,
+        policy, greedy=greedy, temperature=temperature)
+    active = active & ~done
+    state, h_last = _prefill_chunk_step(model, cfg, ctoks, state, policy,
+                                        serve_cfg, n_valid=nv)
+    if finishing:
+        lg = compute_logits(model, cfg, h_last)
+        first = torch.argmax(lg, dim=-1)
+        ok = ok & (~fin | torch.isfinite(lg).all(dim=-1))
+        tok = torch.where(fin, first, tok)
+        n_emitted = torch.where(fin, torch.zeros_like(n_emitted), n_emitted)
+        active = active | fin
+    return state, tok, active, n_emitted, ok, emit, logits
+
+
+def _lane_programs(model, cfg, state, policy, serve_cfg, steps):
+    """The serving layer's lane programs over ``state``, run eagerly:
+    the loops below drive the same step programs that serve.scheduler
+    replays as CUDA graphs."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve.graphs import LanePrograms   # builds on this module
+    serve_cfg = ServeConfig() if serve_cfg is None else serve_cfg
+    return LanePrograms(model, cfg, serve_cfg, policy, state, None,
+                        steps=steps)
+
+
+def decode_segment_loop(model: Transformer, cfg, state, tok, active,
+                        n_emitted, max_new, eos_id, n_steps: int, policy, *,
+                        greedy=True, temperature=0.0, n_real=None,
+                        serve_cfg=None):
+    """A masked continuous-batching decode segment: n_steps of
+    segment_step over B lanes that may be mid-request, finished or
+    empty, through the segment program of serve.graphs.LanePrograms
+    (eager). Per-lane carries: tok [B], active [B] bool, n_emitted [B];
+    limits max_new [B] and eos_id [B] (-1 = never). A lane that emits
+    its eos or its max_new-th token turns inactive at the step's end.
+    n_real (<= n_steps): only the first n_real steps run; the rest are
+    the identity (no emission, no state change), as the JAX package
+    masks a bucket's tail. The caches of ``state`` are updated in place.
+    Returns (state, tok, active, n_emitted, ids [B, n_steps], emitted
+    [B, n_steps] bool, ok [B] bool); ids[l, j] is lane l's output iff
+    emitted[l, j]."""
+    require_greedy_lanes(greedy, temperature)
+    lanes = _lane_programs(model, cfg, state, policy, serve_cfg, n_steps)
+    lanes.tok.copy_(torch.as_tensor(tok))
+    lanes.upload_carries(active, n_emitted, max_new, eos_id)
+    n_real = n_steps if n_real is None else int(n_real)
+    lanes.run_segment(n_real)
+    return (lanes.state, *lanes.results(n_steps, n_real))
+
+
+def mixed_step_loop(model: Transformer, cfg, state, tok, active, n_emitted,
+                    max_new, eos_id, chunks, chunk_valid, finish, policy,
+                    serve_cfg, *, greedy=True, temperature=0.0):
+    """An interleaved prefill/decode segment through the mixed programs
+    of serve.graphs.LanePrograms (eager): step j runs mixed_step with
+    chunks[j] [B, C], chunk_valid[j] [B] and finish[j] [B] (a lane that
+    consumes its last prompt chunk at step j; it starts emitting at step
+    j + 1). A lane is in at most one mode per step (active lanes have
+    chunk_valid 0). The variant with first-token logits runs only on
+    steps where some lane finishes, chosen on the host, where the JAX
+    package's lax.cond chooses on the device. Returns the tuple of
+    decode_segment_loop."""
+    require_greedy_lanes(greedy, temperature)
+    n_steps = int(np.shape(chunks)[0])
+    lanes = _lane_programs(model, cfg, state, policy, serve_cfg, n_steps)
+    lanes.tok.copy_(torch.as_tensor(tok))
+    lanes.upload_carries(active, n_emitted, max_new, eos_id)
+    lanes.run_mixed(np.asarray(chunks), np.asarray(chunk_valid),
+                    np.asarray(finish))
+    return (lanes.state, *lanes.results(n_steps))
+
+
+def reset_lanes(state, lane_mask):
+    """Retire lanes in place: the masked lanes' slot metadata is cleared
+    (core.cache.reset_lanes: pos -1, beta 1, aux 0) and their clock set
+    to 0; K/V bytes stay (invisible once pos < 0). Other lanes are
+    untouched. lane_mask: [B] bool. Returns the same state."""
+    state["t"].masked_fill_(lane_mask, 0)
+    for st in state["layers"]:
+        cache_reset_lanes(st, lane_mask)
+    return state
+
+
+def scrub_lanes(state, lane_mask):
+    """reset_lanes plus zeroed K/V (core.cache.scrub_lanes), in place:
+    the quarantine primitive. Returns the same state."""
+    state["t"].masked_fill_(lane_mask, 0)
+    for st in state["layers"]:
+        cache_scrub_lanes(st, lane_mask)
+    return state
 
 
 def teacher_force_loop(model: Transformer, cfg, state, tokens, policy):

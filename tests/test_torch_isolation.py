@@ -47,6 +47,8 @@ def test_importing_the_port_loads_no_jax():
     """tests/conftest.py imports jax in this process, so the check runs
     in a fresh interpreter."""
     res = _run("import sys, repro_torch.serve.engine, "
+               "repro_torch.serve.graphs, repro_torch.serve.request, "
+               "repro_torch.serve.scheduler, "
                "repro_torch.launch.serve, repro_torch.bridge, "
                "repro_torch.launch.train, repro_torch.checkpoint; "
                "bad = [m for m in sys.modules "
