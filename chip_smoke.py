@@ -16,17 +16,20 @@ then:
    through the decode and CUDA-core kernels, element by element (TOL);
    both chunk kernels take their tiles' edges (M 500, n_valid 1 / 64 /
    65, one live cache slot), the float32 one also G 1 (Hkv 32) and
-   G 8 (Hkv 4); both dtypes take the decode
-   kernel's split edges (whole 64-slot splits empty, a lane with every
-   slot empty with and without new_kv, a window that leaves whole
-   splits invisible, M 500 / 64 / 100, each printed with its split
-   count and grid) and both retention kernels' tile edges (Tq 1, Tk
-   129, window 96, a ragged q tile at Tq 1999); prints each case's
-   errors beside their limits and
+   G 8 (Hkv 4), the bf16 one M 2048 (the FullKV budget); both dtypes
+   take the decode kernel's M 2048 and split edges (whole 64-slot
+   splits empty, a lane with every slot empty with and without new_kv,
+   a window that leaves whole splits invisible, M 500 / 64 / 100, each
+   printed with its split count and grid) and both retention kernels'
+   tile edges (Tq 1, Tk 129, window 96, a ragged q tile at Tq 1999);
+   prints each case's errors beside their limits and
    times the kernel (printing achieved TFLOP/s beside the bound), the
    plain version and one PyTorch library call computing the same
    function (scaled_dot_product_attention, a yardstick the port never
-   calls);
+   calls), and on lines of their own the variants the policy phase runs:
+   the decode kernel with probs and p_new out and at M 2048, both chunk
+   kernels with the cache probabilities out, the bf16 one at M 2048,
+   each beside its bound (the probabilities' bytes added);
 2. serve — trimkv-paper-4b at full width (36 layers, bfloat16, random
    weights from a seed, perturbed gate biases) through Engine.generate,
    batch 4, prompt 2000, budget 512, 32 new tokens, single-shot and
@@ -35,8 +38,19 @@ then:
    asserts the exact kernel launch counts of each (the tensor-core
    kernels for prefill), finite logits, and graphs against eager:
    identical ids and slot positions in every layer, logits within
-   GRAPH_LOGIT_TOL; prints prefill and decode tokens/s and the graph
-   pool's size;
+   GRAPH_LOGIT_TOL, and the policy's aux (aux_violations); prints
+   prefill and decode tokens/s and the graph pool's size;
+2a. policy — the same model and prompt under every eviction policy
+   (trimkv, streaming_llm, h2o, snapkv, rkv, keydiff at budget 512;
+   full at 2048, which covers 2000 + 32), single-shot and chunked, each
+   fused and eager: exact launch counts (h2o, snapkv and rkv run the
+   decode and chunk kernels with their probabilities out, inside the
+   graphs), graphs against eager (ids and slot positions identical,
+   logits and every layer's aux within GRAPH_LOGIT_TOL), the aux
+   rules; then a warm chunked fused call per policy: prints prefill and
+   decode tokens/s, the graph pool and the paper's Table 6 rows (decode
+   tokens/s at the budget beside FullKV's, with the card's name and
+   power limit);
 2b. stream — continuous batching (serve/scheduler.py) of the same model
    on 4 lanes, budget 512, chunks of 512, segments of 16: 12 Poisson
    requests (seed 0, prompts 256-2000, max_new 16-64, 8 requests/s),
@@ -53,7 +67,7 @@ then:
    identical slot positions in every layer after every scheduler step
    and logits within GRAPH_LOGIT_TOL; then all of it in float32 at 2
    layers on 6 requests, where a sound run shows no divergence from
-   the one-shot runs at all;
+   the one-shot runs at all, under trimkv, h2o and rkv;
 3. parity — the same config cut to 2 layers, one set of weights on the
    card (kernels) and on the CPU (plain versions), after single-shot
    and after chunked prefill, with exact launch counts: in float32
@@ -61,7 +75,9 @@ then:
    identical slot positions in every layer; in bfloat16 (the
    tensor-core kernels), logits within BF16_LOGIT_TOL of their largest
    magnitude, beside the same gap with the card on the plain versions
-   (the rounding floor), with the slots that differ counted;
+   (the rounding floor), with the slots that differ counted; float32
+   runs under every policy of the policy phase, with identical greedy
+   ids, identical slot positions and every layer's aux within 1e-3;
 4. capacity — the capacity-loss forward and backward kernels against
    their plain versions (core.losses.capacity_loss_chunked,
    capacity_loss_bwd_torch) at B 1, H 8, T 4096, M 256, at T 1000, at
@@ -95,11 +111,11 @@ then:
 Prints the card's name and power limit and a {"kernels": [...]} line
 (each kernel's launches are those of the main paths that run it, each
 counted from 0 just before its run: the decode and bf16 chunk kernels
-over the serve phase's generate calls plus the bf16 stream's phased
-run, the bf16 retention kernel over the serve phase, the float32
-attention kernels over the float32 parity run, the capacity kernels
-over the train phase),
-then, as the last line, {"ok": true, "device": {...}}. Any failure
+over the serve and policy phases' generate calls plus the bf16
+stream's phased run, the bf16 retention kernel over the serve and
+policy phases, the float32 attention kernels over the float32 parity
+runs, the capacity kernels over the train phase) and each phase's
+seconds, then, as the last line, {"ok": true, "device": {...}}. Any failure
 raises: the script exits non-zero and prints no result line. It exits
 non-zero at once when no CUDA card is visible.
 """
@@ -319,6 +335,9 @@ def decode_phase(g):
         ("M 64 (one split) + probs", 64, 0, True, True, True, 0.2, None),
         ("M 100 (two splits, ragged) + probs", 100, 0, True, True, True, 0.2,
          None),
+        # the FullKV budget of the policy phase
+        ("M 2048 (FullKV)", 2048, 0, True, False, True, 0.0, None),
+        ("M 2048 + probs", 2048, 0, True, True, True, 0.2, None),
     ]
     main_err = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -388,20 +407,53 @@ def decode_phase(g):
         *lib_in[i % 8][:3], attn_mask=lib_in[i % 8][3])
     lib = time_graph_ms(lib_fn, 200)
     lib_loop = time_ms(lib_fn, 200)
-    el = 2
-    n_bytes = (B * Hq * D * el * 2 + 2 * B * Hkv * M * D * el
-               + B * Hkv * M * 4 + B * 4 + 2 * B * Hkv * D * el)
-    n_flops = 4 * B * Hq * D * (M + 1)
+    n_bytes, n_flops = decode_work(B, Hq, Hkv, M, D)
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     log(f"  decode_attention timing (CUDA graph): {ms:.4f} ms; bound "
         f"{b_ms:.5f} ms ({b_by}); library {lib:.4f} ms; event loop over "
         f"the calls (host-bound): kernel {loop_ms:.4f} ms, library "
         f"{lib_loop:.4f} ms")
+    # the variants the policy phase serves: probs and p_new out (H2O,
+    # SnapKV, R-KV) at M 512, and the FullKV budget M 2048 without them
+    probs_ms = time_graph_ms(lambda i=0: decode_attention_cuda(
+        *sets[i % 8][:4], t, new_kv=sets[i % 8][4], return_probs=True), 200)
+    pb_ms, pb_by = bound_ms(*decode_work(B, Hq, Hkv, M, D, probs=True))
+    log(f"  decode_attention + probs, p_new (M {M}) timing (CUDA graph): "
+        f"{probs_ms:.4f} ms; bound {pb_ms:.5f} ms ({pb_by}; the probs add "
+        f"{B * Hq * (M + 1) * 4 / 1e3:.1f} KB)")
+    del sets, lib_in
+    M2 = 2048
+    sets2 = [(rnd(g, (B, Hq, D), dtype), rnd(g, (B, Hkv, M2, D), dtype),
+              rnd(g, (B, Hkv, M2, D), dtype),
+              torch.randint(0, 1800, (B, Hkv, M2), generator=g,
+                            device="cuda", dtype=torch.int32),
+              (rnd(g, (B, Hkv, D), dtype), rnd(g, (B, Hkv, D), dtype)))
+             for _ in range(8)]
+    m2_ms = time_graph_ms(lambda i=0: decode_attention_cuda(
+        *sets2[i % 8][:4], t, new_kv=sets2[i % 8][4]), 200)
+    m2_plain = time_ms(lambda i=0: decode_attention_torch(
+        *sets2[i % 8][:4], t, new_kv=sets2[i % 8][4]), 20)
+    m2_b, m2_by = bound_ms(*decode_work(B, Hq, Hkv, M2, D))
+    log(f"  decode_attention M {M2} (FullKV) timing (CUDA graph): "
+        f"{m2_ms:.4f} ms; bound {m2_b:.5f} ms ({m2_by}); plain "
+        f"{m2_plain:.4f} ms; {split_plan(M2, B * Hkv)[0]} splits")
+    del sets2
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:112",
             "max_abs_err": main_err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib}
+
+
+def decode_work(B, Hq, Hkv, M, D, probs=False, el=2):
+    """(bytes, operations) of one decode call: q in and out, the cache's
+    K, V and positions, the clocks and the in-flight K, V; with probs
+    also the [B, Hq, M] probabilities and [B, Hq] p_new out (float32)."""
+    n_bytes = (B * Hq * D * el * 2 + 2 * B * Hkv * M * D * el
+               + B * Hkv * M * 4 + B * 4 + 2 * B * Hkv * D * el)
+    if probs:
+        n_bytes += B * Hq * (M + 1) * 4
+    return n_bytes, 4 * B * Hq * D * (M + 1)
 
 
 def achieved(name, ms, n_flops, b_ms, b_by, lib):
@@ -456,6 +508,11 @@ def chunk_phase(g):
         ("one live cache slot + probs", 1024, [512, 300, 512, 65], 0, True,
          0.0, False, {"keep_one": True}),
     ]
+    fullkv = [  # the bf16 kernel at the policy phase's FullKV budget
+        ("M 2048 (FullKV)", 2560, full, 0, False, 0.0, False, {"M": 2048}),
+        ("M 2048 + probs", 2560, [512, 464, 300, 17], 0, True, 0.2, False,
+         {"M": 2048}),
+    ]
     groups = [  # the float32 kernel's GQA packing: G 1 and G 8
         ("G 1 (Hkv 32) + probs", 1024, [512, 464, 300, 17], 0, True, 0.2,
          False, {"Hkv": 32}),
@@ -466,7 +523,7 @@ def chunk_phase(g):
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
         for name, t0, nv, window, probs, empty, first, extra in (
-                cases + edges if dtype == torch.bfloat16
+                cases + edges + fullkv if dtype == torch.bfloat16
                 else cases + edges + groups):
             args = inputs(dtype, t0, nv, empty, first, **extra)
             kw = dict(window=window, need_probs=probs)
@@ -505,6 +562,28 @@ def chunk_phase(g):
         n_flops = 4 * D * G * int(vis.sum().item())
         b_ms, b_by = bound_ms(n_bytes, n_flops, fps)
         achieved(name, ms, n_flops, b_ms, b_by, lib)
+        # the policy phase's variant: the cache probabilities out (the
+        # kernel's [B, Hq, C, M] float32, then the wrapper's GQA mean)
+        probs_ms = time_ms(lambda i=0: chunk_attention_cuda(
+            *args, need_probs=True), 20 if dtype == torch.bfloat16 else 10)
+        pb_ms, pb_by = bound_ms(n_bytes + B * Hq * C * M * 4, n_flops, fps)
+        log(f"  {name} + probs timing: {probs_ms:.4f} ms (the kernel and "
+            f"the GQA mean); bound {pb_ms:.4f} ms ({pb_by}; the probs add "
+            f"{B * Hq * C * M * 4 / 1e6:.1f} MB)")
+        if dtype == torch.bfloat16:
+            m2 = inputs(dtype, 2560, full, 0.0, False, M=2048)
+            m2_ms = time_ms(lambda i=0: chunk_attention_cuda(
+                *m2, need_probs=False), 20)
+            m2_plain = time_ms(lambda i=0: chunk_attention_torch(
+                *m2, need_probs=False), 3)
+            m2_bytes = n_bytes + (2 * B * Hkv * 1536 * D * el
+                                  + B * Hkv * 1536 * 4)
+            m2_flops = 4 * D * G * B * Hkv * C * (2048 + (C + 1) / 2)
+            m2_b, m2_by = bound_ms(m2_bytes, m2_flops, fps)
+            log(f"  {name} M 2048 (FullKV) timing: {m2_ms:.4f} ms = "
+                f"{m2_flops / m2_ms / 1e9:.1f} TFLOP/s; bound {m2_b:.4f} ms "
+                f"({m2_by}); plain {m2_plain:.4f} ms")
+            del m2
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/kernels/csrc/{src}",
                     "replaces": "src/repro/kernels/chunk_attention.py:117",
@@ -778,30 +857,23 @@ GRAPH_LOGIT_TOL = 1e-6
 
 def check_graphs(name, readings):
     """Raise unless graphs and eager agree: ids and slot positions
-    identical (readings count what differs), logits within
-    GRAPH_LOGIT_TOL."""
+    identical (readings count what differs), logits and the policies'
+    aux within GRAPH_LOGIT_TOL of their largest magnitude."""
     if (readings["ids differ"] or readings["slot positions differ"]
-            or not readings["logit gap"] <= GRAPH_LOGIT_TOL):
+            or not readings["logit gap"] <= GRAPH_LOGIT_TOL
+            or not readings["aux gap"] <= GRAPH_LOGIT_TOL):
         raise AssertionError(f"{name}: graphs and eager disagree: "
                              f"{readings}")
 
 
-def serve_phase():
-    """Engine.generate at full width, single-shot and chunked, each
-    fused (the step programs' CUDA graphs) and eager (fused=False) on
-    the same inputs: exact launch counts on both paths, identical ids
-    and slot positions, logits within GRAPH_LOGIT_TOL. Returns the
-    launch counts (counted from 0 just before the first call) and the
-    outputs by mode."""
+def full_width_model():
+    """trimkv-paper-4b at full width with the serve phase's seeded
+    weights and perturbed gates: (cfg, model)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.data.synthetic import make_batch
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer as T
-    from repro_torch.serve.engine import build_engine
 
     cfg = get_config("trimkv-paper-4b")
-    B, P, N, budget, chunk = 4, 2000, 32, 512, 512
     t0 = time.perf_counter()
     model = T.init_params(cfg, seed=0, device="cuda")
     T.init_gate_params(model, cfg, seed=1)
@@ -811,19 +883,60 @@ def serve_phase():
     log(f"serve: {cfg.name} {cfg.num_layers} layers {cfg.dtype}, "
         f"{n_params / 1e9:.3f} B parameters, init "
         f"{time.perf_counter() - t0:.1f} s")
-    eng = build_engine(cfg, model, device="cuda", budget=budget,
-                       prefill_chunk=chunk)
-    tokens, _, _ = make_batch("copy", 0, B, P, cfg.vocab_size)
-    L = cfg.num_layers
-    n_chunks = -(-P // chunk)
+    return cfg, model
+
+
+SERVE_SHAPE = dict(B=4, P=2000, N=32, chunk=512)
+
+
+def aux_violations(policy, state):
+    """What the policies' aux must show after a decode step, counted
+    over every (layer, lane, kv head): the last decoded token (position
+    t - 1) is kept, as each policy's recency or score keeps it; under a
+    policy that reads attention its slot holds its own step's attention
+    mass (p_new, > 0: softmax mass over finite scores), and under the
+    others no slot holds any aux."""
+    B = state["t"].shape[0]
+    t_last = (state["t"] - 1)[:, None, None]
+    missing = bad = 0
+    for st in state["layers"]:
+        newest = st["pos"] == t_last
+        missing += B * st["pos"].shape[1] - int(newest.sum())
+        bad += int(((st["aux"] <= 0) & newest).sum() if policy.needs_attn
+                   else (st["aux"] != 0).sum())
+    return {"newest token not kept": missing,
+            ("newest token without its attention mass" if policy.needs_attn
+             else "aux without attention"): bad}
+
+
+def check_aux(name, violations):
+    """Raise unless every count of aux_violations is 0."""
+    if any(violations.values()):
+        raise AssertionError(f"{name}: {violations}")
+
+
+def generate_pairs(eng, cfg, tokens, label):
+    """Engine.generate per mode (single-shot, chunked), fused then eager,
+    on the same inputs: each call's launches against the exact count,
+    finite logits, valid ids, the policy's aux (aux_violations); then
+    graphs against eager (check_graphs):
+    identical ids and slot positions in every layer, logits and every
+    layer's aux within GRAPH_LOGIT_TOL of their largest magnitude.
+    Returns the outputs by mode ("chunked fused", ...)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    B, N = tokens.shape[0], SERVE_SHAPE["N"]
+    L, n_chunks = cfg.num_layers, -(-tokens.shape[1] // SERVE_SHAPE["chunk"])
+    sfx = "" if cfg.dtype == "bfloat16" else "_f32"
     none = dict.fromkeys(ops.KERNELS, 0)        # serving trains nothing
     expect = {
-        False: {**none, "retention_attention": L, "decode_attention": L * N},
-        True: {**none, "chunk_attention": L * n_chunks,
+        False: {**none, "retention_attention" + sfx: L,
+                "decode_attention": L * N},
+        True: {**none, "chunk_attention" + sfx: L * n_chunks,
                "decode_attention": L * N},
     }
     results = {}
-    ops.reset_launches()
     before = dict(ops.LAUNCHES)
     for chunked in (False, True):
         for fused in (True, False):
@@ -835,49 +948,166 @@ def serve_phase():
             mode = (f"{'chunked' if chunked else 'single-shot'} "
                     f"{'fused' if fused else 'eager'}")
             if got != expect[chunked]:
-                raise AssertionError(f"{mode}: launches {got}, expected "
-                                     f"{expect[chunked]}")
+                raise AssertionError(f"{label} {mode}: launches {got}, "
+                                     f"expected {expect[chunked]}")
             logits = out["logits"]
             if tuple(logits.shape) != (B, cfg.padded_vocab) or \
                     not torch.isfinite(logits[:, :cfg.vocab_size]).all():
-                raise AssertionError("non-finite or misshapen logits")
+                raise AssertionError(f"{label}: non-finite or misshapen "
+                                     f"logits")
             ids = out["ids"]
             if ids.shape != (B, N) or ids.min() < 0 or \
                     ids.max() >= cfg.vocab_size:
-                raise AssertionError(f"bad ids {ids.shape}")
-            log(f"serve {mode}: launches {got}; graph replays "
+                raise AssertionError(f"{label}: bad ids {ids.shape}")
+            log(f"{label} {mode}: launches {got}; graph replays "
                 f"{eng.graphs.replays - replays}; prefill "
                 f"{out['prefill_sec']:.3f} s = "
                 f"{out['prefill_tok_per_sec']:.1f} tok/s; decode "
                 f"{out['decode_sec']:.3f} s = {out['tok_per_sec']:.1f} "
                 f"tok/s; ids[0][:8] {ids[0][:8].tolist()}")
+            layers = out["state"]["layers"]
+            check_aux(f"{label} {mode}", aux_violations(eng.policy,
+                                                         out["state"]))
             results[mode] = {"ids": ids, "logits": logits.clone(),
-                             "pos": [st["pos"].clone()
-                                     for st in out["state"]["layers"]],
+                             "pos": [st["pos"].clone() for st in layers],
+                             "aux": [st["aux"].clone() for st in layers],
+                             "state bytes": state_bytes(out["state"]),
                              "tok_per_sec": out["tok_per_sec"],
                              "prefill_tok_per_sec":
                                  out["prefill_tok_per_sec"]}
+            del out
         name = "chunked" if chunked else "single-shot"
         g, e = (results[f"{name} {m}"] for m in ("fused", "eager"))
+        aux_scale = max(a.abs().max().item() for a in e["aux"])
         readings = {
             "ids differ": int((g["ids"] != e["ids"]).sum()),
             "slot positions differ": sum(int((a != b).sum())
                                          for a, b in zip(g["pos"], e["pos"])),
             "logit gap": ((g["logits"] - e["logits"]).abs().max()
-                          / e["logits"][:, :cfg.vocab_size].abs().max()).item()}
-        log(f"serve {name}: graphs vs eager: {readings['ids differ']} ids "
+                          / e["logits"][:, :cfg.vocab_size].abs().max()
+                          ).item(),
+            "aux gap": max((a - b).abs().max().item()
+                           for a, b in zip(g["aux"], e["aux"]))
+            / max(aux_scale, 1e-30)}
+        log(f"{label} {name}: graphs vs eager: {readings['ids differ']} ids "
             f"and {readings['slot positions differ']} slot positions (all "
             f"{L} layers) differ, logits |diff| / max |logit| "
-            f"{readings['logit gap']:.3e} (tol {GRAPH_LOGIT_TOL}), "
-            f"bit-identical {torch.equal(g['logits'], e['logits'])}")
-        check_graphs(f"serve {name}", readings)
+            f"{readings['logit gap']:.3e}, aux |diff| / max |aux| "
+            f"{readings['aux gap']:.3e} (tol {GRAPH_LOGIT_TOL}), "
+            f"bit-identical logits {torch.equal(g['logits'], e['logits'])}")
+        check_graphs(f"{label} {name}", readings)
+    return results
+
+
+def serve_phase(cfg, model):
+    """Engine.generate at full width under TRIM-KV, single-shot and
+    chunked, each fused (the step programs' CUDA graphs) and eager
+    (fused=False) on the same inputs (generate_pairs). Returns the
+    launch counts (counted from 0 just before the first call) and the
+    outputs by mode."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import build_engine
+
+    sh = SERVE_SHAPE
+    eng = build_engine(cfg, model, device="cuda", budget=512,
+                       prefill_chunk=sh["chunk"])
+    tokens, _, _ = make_batch("copy", 0, sh["B"], sh["P"], cfg.vocab_size)
+    ops.reset_launches()
+    results = generate_pairs(eng, cfg, tokens, "serve")
     log(f"serve: graph pool {eng.graphs.bytes / 2**20:.1f} MiB over "
         f"{eng.graphs.captures} captures; static decode state "
-        f"{state_bytes(out['state']) / 2**20:.1f} MiB per batch of {B}")
+        f"{results['chunked fused']['state bytes'] / 2**20:.1f} MiB per "
+        f"batch of {sh['B']}")
     main_launches = dict(ops.LAUNCHES)
-    del eng, model, out
+    del eng
     torch.cuda.empty_cache()
     return main_launches, results
+
+
+# ------------------------------------------------------------- policies
+
+# the policy phase's budgets: 512 as the serve phase, FullKV one that
+# covers the prompt and the new tokens (2000 + 32)
+# warm chunked fused calls per policy for its rates (their medians)
+WARM_CALLS = 3
+POLICY_BUDGETS = (("trimkv", 512), ("streaming_llm", 512), ("h2o", 512),
+                  ("snapkv", 512), ("rkv", 512), ("keydiff", 512),
+                  ("full", 2048))
+
+
+def policy_phase(cfg, model):
+    """Every eviction policy at full width on the serve phase's model and
+    prompt (batch 4, prompt 2000 in chunks of 512, 32 new tokens; budget
+    512, FullKV 2048): generate_pairs per policy (exact launches, graphs
+    against eager: ids and slot positions identical, logits and aux
+    within GRAPH_LOGIT_TOL), then WARM_CALLS chunked fused calls, warm,
+    whose medians are its rates. Prints each policy's prefill and decode
+    tokens/s, its graph pool and the paper's Table 6 rows (decode tok/s
+    at budget M against FullKV at the whole context). Returns the launch
+    counts of all its calls (counted from 0 just before the first) and
+    the rows."""
+    import gc
+
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import build_engine
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: R-KV's and KeyDiff's "
+                             "float32 Gram products would pick other "
+                             "victims")
+    sh = SERVE_SHAPE
+    tokens, _, _ = make_batch("copy", 0, sh["B"], sh["P"], cfg.vocab_size)
+    total = dict.fromkeys(ops.KERNELS, 0)
+    rows = []
+    for name, budget in POLICY_BUDGETS:
+        t0 = time.perf_counter()
+        ops.reset_launches()
+        eng = build_engine(cfg, model, device="cuda", budget=budget,
+                           prefill_chunk=sh["chunk"], policy=name)
+        label = f"policy {name} (budget {budget})"
+        generate_pairs(eng, cfg, tokens, label)
+        warm = [eng.generate(tokens, sh["N"], chunked=True)
+                for _ in range(WARM_CALLS)]
+        dec = sorted(w["decode_sec"] for w in warm)[WARM_CALLS // 2]
+        pre = sorted(w["prefill_sec"] for w in warm)[WARM_CALLS // 2]
+        for k, n in ops.LAUNCHES.items():
+            total[k] += n
+        rows.append({"policy": name, "budget": budget,
+                     "needs_attn": eng.policy.needs_attn,
+                     "decode": sh["B"] * sh["N"] / dec,
+                     "prefill": sh["B"] * sh["P"] / pre,
+                     "pool": eng.graphs.bytes,
+                     "launches": dict(ops.LAUNCHES)})
+        log(f"{label}: {WARM_CALLS} warm chunked fused calls, medians: "
+            f"prefill {pre * 1e3:.1f} ms = {rows[-1]['prefill']:.1f} tok/s, "
+            f"decode {dec / sh['N'] * 1e3:.3f} ms a step = "
+            f"{rows[-1]['decode']:.1f} tok/s (decode steps of the calls "
+            f"{[round(w['decode_sec'] / sh['N'] * 1e3, 3) for w in warm]} "
+            f"ms); graph pool {eng.graphs.bytes / 2**20:.1f} MiB over "
+            f"{eng.graphs.captures} captures; phase "
+            f"{time.perf_counter() - t0:.1f} s")
+        del eng, warm
+        gc.collect()
+        torch.cuda.empty_cache()
+    full = next(r for r in rows if r["policy"] == "full")["decode"]
+    log(f"Table 6 (batch {sh['B']}, prompt {sh['P']}, {sh['N']} new tokens, "
+        f"medians of {WARM_CALLS} warm chunked fused calls; "
+        f"{card_line()}):")
+    log(f"  {'policy':<14} {'budget':>6} {'decode tok/s':>13} "
+        f"{'x full':>7} {'prefill tok/s':>14} {'pool MiB':>9}")
+    for r in rows:
+        log(f"  {r['policy']:<14} {r['budget']:>6} {r['decode']:>13.1f} "
+            f"{r['decode'] / full:>7.3f} {r['prefill']:>14.1f} "
+            f"{r['pool'] / 2**20:>9.1f}")
+    attn = {k: sum(r["launches"][k] for r in rows if r["needs_attn"])
+            for k in ("decode_attention", "chunk_attention")}
+    log(f"policy phase: launches {total}; with the probabilities out "
+        f"(h2o, snapkv, rkv): {attn}")
+    return total, rows
 
 
 def state_bytes(state):
@@ -924,8 +1154,8 @@ def traced_drain(eng, lanes, reqs, kw):
     """Serve reqs on a fresh Scheduler with every request submitted at
     once (no arrival times: the schedule depends on the trace alone),
     one step() at a time. After each step, record every layer's slot
-    positions and the lanes' last decode logits. Returns (results,
-    trace)."""
+    positions and aux and the lanes' last decode logits. Returns
+    (results, trace)."""
     from repro_torch.serve.scheduler import Scheduler
     sched = Scheduler(eng, n_lanes=lanes, **kw)
     for r in sorted(reqs, key=lambda r: r.arrival):
@@ -933,9 +1163,10 @@ def traced_drain(eng, lanes, reqs, kw):
     trace = []
     while sched.queue or sched.n_running:
         sched.step()
-        trace.append(([st["pos"].clone()
-                       for st in sched.lanes.state["layers"]],
-                      sched.lanes.logits.clone()))
+        layers = sched.lanes.state["layers"]
+        trace.append(([st["pos"].clone() for st in layers],
+                      sched.lanes.logits.clone(),
+                      [st["aux"].clone() for st in layers]))
     return sched.results, trace
 
 
@@ -943,21 +1174,28 @@ def twin_readings(fused, eager, vocab):
     """Graphs against eager over two traced drains: requests whose ids
     or status differ, slot positions that differ over every step and
     layer (a differing number of steps counts as 2**31), and the largest
-    logit gap of a step as a share of its largest |logit|."""
+    logit and aux gaps of a step as a share of its largest |logit| and
+    |aux| (0 where a step's aux is all 0)."""
     (res_f, tr_f), (res_e, tr_e) = fused, eager
     ids = sum(res_f[k].tokens != res_e[k].tokens
               or res_f[k].status is not res_e[k].status for k in res_e)
     pos, gap = (0 if len(tr_f) == len(tr_e) else 2 ** 31), 0.0
-    for (pf, lf), (pe, le) in zip(tr_f, tr_e):
+    aux_gap = 0.0
+    for (pf, lf, af), (pe, le, ae) in zip(tr_f, tr_e):
         pos += sum(int((a != b).sum()) for a, b in zip(pf, pe))
         lf, le = lf[:, :vocab], le[:, :vocab]
         gap = max(gap, ((lf - le).abs().max()
                         / le.abs().max().clamp_min(1e-30)).item())
+        scale = max(a.abs().max().item() for a in ae)
+        aux_gap = max(aux_gap, max((a - b).abs().max().item()
+                                   for a, b in zip(af, ae))
+                      / max(scale, 1e-30))
     return {"ids differ": ids, "slot positions differ": pos,
-            "logit gap": gap}
+            "logit gap": gap, "aux gap": aux_gap}
 
 
-def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12):
+def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12,
+                 policy="trimkv"):
     """Continuous batching of trimkv-paper-4b (full width; num_layers
     cuts the depth) through Scheduler.run on 4 lanes, budget 512,
     prefill_chunk 512, decode_segment 16: a Poisson trace (seed 0) of
@@ -971,10 +1209,10 @@ def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12):
     mode, graphs against eager: the trace drained at once by the fused
     engine and by a fused=False engine on the same model, which run the
     same step programs with and without capture, with identical ids,
-    identical slot positions after every step and logits within
-    GRAPH_LOGIT_TOL (check_graphs). Returns the launch counts of the
-    phased run (counted from 0 just before it) and the readings by
-    mode."""
+    identical slot positions after every step and logits (and aux)
+    within GRAPH_LOGIT_TOL (check_graphs). ``policy`` names the eviction
+    policy. Returns the launch counts of the phased run (counted from 0
+    just before it) and the readings by mode."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -994,12 +1232,13 @@ def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12):
     perturb_gates(model, seed=11)
     serve_kw = dict(device="cuda", budget=512, prefill_chunk=512,
                     decode_segment=16, prefill_budget=1024,
-                    swap_preempt=False)
+                    swap_preempt=False, policy=policy)
     eng = build_engine(cfg, model, **serve_kw)
     reqs = poisson_requests(n_requests, 8.0, vocab=cfg.vocab_size,
                             prompt_lo=256, prompt_hi=2000, new_lo=16,
                             new_hi=64, seed=0)
-    name = f"{dtype} {L} layers"
+    name = f"{dtype} {L} layers" + ("" if policy == "trimkv"
+                                    else f" {policy}")
     log(f"stream {name}: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, max_new "
         f"{[r.max_new for r in reqs]}, arrivals over "
@@ -1109,7 +1348,8 @@ def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12):
             f"{t2 - t1:.2f} s): {twins['ids differ']} requests' ids and "
             f"{twins['slot positions differ']} slot positions (all {L} "
             f"layers, after every step) differ, logits |diff| / max "
-            f"|logit| {twins['logit gap']:.3e} (tol {GRAPH_LOGIT_TOL})")
+            f"|logit| {twins['logit gap']:.3e}, aux |diff| / max |aux| "
+            f"{twins['aux gap']:.3e} (tol {GRAPH_LOGIT_TOL})")
         check_graphs(f"stream {name} {mode}", twins)
         readings[mode]["graphs vs eager"] = twins
         del fused_run, eager_run
@@ -1185,11 +1425,13 @@ def slot_flips(a, b):
             "median share": torch.cat(spread).median().item()}
 
 
-def parity_phase(dtype="float32"):
+def parity_phase(dtype="float32", policy="trimkv"):
     """Card (kernels) vs CPU (plain versions) on the full-width config
     cut to 2 layers, with one set of weights, after single-shot and
-    after chunked prefill, 16 teacher-forced decode steps each.
-    float32: logits within 1e-3 and identical slot positions. bfloat16:
+    after chunked prefill, 16 teacher-forced decode steps each, under
+    the eviction ``policy``. float32: logits within 1e-3, identical
+    greedy ids (the argmax of every step), every layer's aux within
+    1e-3 and identical slot positions. bfloat16:
     logits within BF16_LOGIT_TOL of the step's largest |logit|, beside
     the same gap with the card on the plain versions (the rounding
     floor) and the kernels' gap to that; the slot positions that
@@ -1228,7 +1470,7 @@ def parity_phase(dtype="float32"):
         steps = []
         with ctx(), torch.no_grad():
             eng = build_engine(cfg, model, device=device, budget=budget,
-                               prefill_chunk=chunk)
+                               prefill_chunk=chunk, policy=policy)
             state = eng.prefill(tokens[:, :P], chunked=chunked)[0]
             for i in range(L):
                 state, logits = T.decode_step(model, cfg, state,
@@ -1258,14 +1500,23 @@ def parity_phase(dtype="float32"):
         if not torch.isfinite(card[..., :cfg.vocab_size]).all():
             raise AssertionError(f"{dtype} {mode}: non-finite logits")
         if dtype == "float32":
-            if not err <= 1e-3:
-                raise AssertionError(f"float32 {mode}: logits differ by "
-                                     f"{err} (tol 1e-3)")
+            label = f"parity float32 {policy} {mode}"
+            ids_differ = int((card.argmax(-1) != host.argmax(-1)).sum())
+            aux_err = max((a["aux"].cpu() - b["aux"]).abs().max().item()
+                          for a, b in zip(s_card["layers"],
+                                          s_host["layers"]))
+            log(f"{label}: {L} teacher-forced steps, max |logit diff| "
+                f"{err:.3e} (tol 1e-3), {ids_differ} greedy ids differ, "
+                f"max |aux diff| {aux_err:.3e} (tol 1e-3), "
+                f"{flips['by slot']} slot positions differ (all {nl} "
+                f"layers)")
             if flips["by slot"]:
-                raise AssertionError("slot positions differ card vs CPU")
-            log(f"parity float32 {mode}: {L} teacher-forced steps, max "
-                f"|logit diff| {err:.3e} (tol 1e-3), pos identical in all "
-                f"{nl} layers")
+                raise AssertionError(f"{label}: {flips['by slot']} slot "
+                                     f"positions differ card vs CPU")
+            if not err <= 1e-3 or ids_differ or not aux_err <= 1e-3:
+                raise AssertionError(f"{label}: logits differ by {err} "
+                                     f"(tol 1e-3), {ids_differ} ids differ, "
+                                     f"aux by {aux_err} (tol 1e-3)")
             continue
         plain, s_plain = out["plain on card"]
         r = {"kernels vs cpu": err, "plain on card vs cpu": gap(plain, host),
@@ -1443,6 +1694,14 @@ def train_parity_phase():
         f"{host['moved']:.2e}")
 
 
+@contextlib.contextmanager
+def timed(phase):
+    """Print a phase's seconds on the host clock when it ends."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1466,28 +1725,47 @@ def main() -> int:
 
     g = torch.Generator(device="cuda")
     g.manual_seed(0)
-    with torch.no_grad():
+    with torch.no_grad(), timed("kernels"):
         log("kernels (kernel vs plain version on the card):")
         kernels = [decode_phase(g), *chunk_phase(g), *retention_phase(g)]
         torch.cuda.empty_cache()
-    kernels += capacity_phase(g)
+    with timed("capacity"):
+        kernels += capacity_phase(g)
     torch.cuda.empty_cache()
     with torch.no_grad():
-        launches, _ = serve_phase()
+        with timed("serve"):
+            cfg, model = full_width_model()
+            launches, _ = serve_phase(cfg, model)
+        with timed("policy"):
+            pol, _ = policy_phase(cfg, model)
+        del model
+        torch.cuda.empty_cache()
+        for k in ("decode_attention", "chunk_attention",
+                  "retention_attention"):
+            launches[k] += pol[k]
         # the serving paths: Engine.generate and the scheduler's stream
-        stream, _ = stream_phase("bfloat16")
+        with timed("stream bfloat16"):
+            stream, _ = stream_phase("bfloat16")
         for k in ("decode_attention", "chunk_attention"):
             launches[k] += stream[k]
-        stream_phase("float32", num_layers=2, n_requests=6)
-    # the float32 attention kernels' path is the float32 parity run
-    f32, _ = parity_phase("float32")
-    launches.update({k: f32[k] for k in ("retention_attention_f32",
-                                         "chunk_attention_f32")})
-    parity_phase("bfloat16")
-    train_launches = train_phase({k["name"]: k["ms"] for k in kernels})
+        for policy in ("trimkv", "h2o", "rkv"):
+            with timed(f"stream float32 {policy}"):
+                stream_phase("float32", num_layers=2, n_requests=6,
+                             policy=policy)
+    # the float32 attention kernels' path is the float32 parity runs
+    for policy, _ in POLICY_BUDGETS:
+        with timed(f"parity float32 {policy}"):
+            f32, _ = parity_phase("float32", policy)
+        for k in ("retention_attention_f32", "chunk_attention_f32"):
+            launches[k] += f32[k]
+    with timed("parity bfloat16"):
+        parity_phase("bfloat16")
+    with timed("train"):
+        train_launches = train_phase({k["name"]: k["ms"] for k in kernels})
     launches.update({k: train_launches[k]
                      for k in ("capacity_loss", "capacity_loss_bwd")})
-    train_parity_phase()
+    with timed("train parity"):
+        train_parity_phase()
     for k in kernels:
         k["launches"] = launches[k["name"]]
         if k["launches"] == 0:

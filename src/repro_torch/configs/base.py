@@ -110,7 +110,7 @@ class TrainConfig:
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     budget: int = 1024                # KV budget M per (layer, kv-head)
-    policy: str = "trimkv"            # only trimkv is ported so far
+    policy: str = "trimkv"            # a name of core.policies.POLICIES
     sink_tokens: int = 4
     recent_window: int = 32
     obs_window: int = 32

@@ -6,10 +6,14 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --lanes
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --policies
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
-kernel source) and LANE_FAULTS (one to the lane layer; --lanes runs
-the sound build and these alone) it copies src/repro_torch and
+kernel source), LANE_FAULTS (one to the lane layer; --lanes runs the
+sound build and these alone) and POLICY_FAULTS (one to the eviction
+policies' attention aux; --policies runs the sound build and these
+alone) it copies src/repro_torch and
 chip_smoke.py into a temporary directory, applies the change, and runs,
 in a fresh process that builds that copy's kernels, the chip_smoke
 phases that the fault touches, with every limit lifted. Each bf16 case
@@ -24,8 +28,11 @@ bf16 run at full width and its float32 run at 2 layers) per admission
 mode the counts of requests and counters that broke its rules (limit
 0; inf when the phase raised), its one-shot margin reading (against
 chip_smoke.MARGIN_TOL) and its graphs-against-eager counts and logit
-gap, and the serve phase its graphs-against-eager counts and logit gap
-(against chip_smoke.GRAPH_LOGIT_TOL); the script prints
+gap, the serve phase its graphs-against-eager counts and logit gap
+(against chip_smoke.GRAPH_LOGIT_TOL), the policy phase per policy its
+graphs-against-eager counts, logit and aux gaps and its aux counts
+(chip_smoke.aux_violations, limit 0), and the float32 stream under H2O
+and R-KV the stream phase's readings; the script prints
 every reading beside its limit, the largest reading of the sound build
 per kind, and exits non-zero unless the sound build stays within every
 limit and each fault exceeds at least one.
@@ -131,8 +138,30 @@ LANE_FAULTS = [
      "            self.__dict__.setdefault(\"_held\", []).append(self.cnv)\n"
      "            self.cnv = nv_dev[i].clone()\n", ("serve", "stream")),
 ]
+# faults in the policies' attention aux (file under src/repro_torch),
+# caught by the policy phase (chip_smoke.policy_phase; the dense block
+# refuses an aux that is not written in place) or the float32 stream
+# under H2O and R-KV ("stream-policies"): --policies runs the sound
+# build and these alone
+POLICY_FAULTS = [
+    ("policies: H2O's decode_update ignores active (an inactive lane's "
+     "aux grows)", "core/policies.py",
+     "        return _accumulate(cache, probs_kv, active)\n\n\n"
+     "@dataclasses.dataclass(frozen=True)\nclass SnapKV",
+     "        return _accumulate(cache, probs_kv, None)\n\n\n"
+     "@dataclasses.dataclass(frozen=True)\nclass SnapKV",
+     ("stream-policies",)),
+    ("blocks: incoming_aux dropped (p_new unused)", "models/blocks.py",
+     "incoming_score=inc, incoming_aux=aux_new,",
+     "incoming_score=inc, incoming_aux=None,", ("policy",)),
+    ("policies: decode_update rebinds aux instead of writing it in place",
+     "core/policies.py",
+     "    cache[\"aux\"].add_(_lane_probs(probs_kv, active))\n",
+     "    cache[\"aux\"] = cache[\"aux\"] + _lane_probs(probs_kv, active)\n",
+     ("policy",)),
+]
 SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
-         "serve")
+         "serve", "policy", "stream-policies")
 
 
 def child(phases):
@@ -175,12 +204,18 @@ def child(phases):
             readings.append({
                 "case": f"{name} graphs vs eager", "kind": kind,
                 "reading": float(n), "limit":
-                    cs.GRAPH_LOGIT_TOL if kind == "logit gap" else 0.0})
+                    cs.GRAPH_LOGIT_TOL if kind.endswith("gap") else 0.0})
+
+    def record_aux(name, violations):
+        for kind, n in violations.items():
+            readings.append({"case": name, "kind": kind,
+                             "reading": float(n), "limit": 0.0})
 
     cs.check_rows = record
     cs.check = record_f32
     cs.check_capacity = record_capacity
     cs.check_graphs = record_graphs
+    cs.check_aux = record_aux
     g = torch.Generator(device="cuda")
     with torch.no_grad():
         for name in ("decode", "chunk", "retention"):
@@ -196,11 +231,31 @@ def child(phases):
             print(f"capacity: {e}")
             readings.append({"case": "capacity phase", "kind": "raised",
                              "reading": math.inf, "limit": 0.0})
-    if "serve" in phases:
+    if "serve" in phases or "policy" in phases:
         with torch.no_grad():
-            cs.serve_phase()
+            cfg, model = cs.full_width_model()
+            if "serve" in phases:
+                cs.serve_phase(cfg, model)
+            if "policy" in phases:
+                try:
+                    cs.policy_phase(cfg, model)
+                # a check with no limit, a fault the block refuses, or
+                # one that breaks a later replay (its readings so far
+                # are kept)
+                except (AssertionError, RuntimeError) as e:
+                    print(f"policy: {str(e).splitlines()[0]}")
+                    readings.append({"case": "policy phase",
+                                     "kind": "raised", "reading": math.inf,
+                                     "limit": 0.0})
+                    if not isinstance(e, AssertionError):
+                        # the card's context may be lost: report what
+                        # was read, and skip the teardown that would
+                        # touch it
+                        print(json.dumps(readings), flush=True)
+                        os._exit(0)
+            del model
         torch.cuda.empty_cache()
-    if "stream" in phases:
+    if "stream" in phases or "stream-policies" in phases:
         def record_stream(name, violations, margin=0.0, tol=math.inf):
             for kind, n in violations.items():
                 readings.append({"case": f"stream {name}", "kind": kind,
@@ -210,13 +265,17 @@ def child(phases):
                                  "reading": margin, "limit": tol})
 
         cs.check_stream = record_stream
-        for args in (("bfloat16",), ("float32", 2, 6)):
+        runs = ((("bfloat16",), ("float32", 2, 6)) if "stream" in phases
+                else ())
+        if "stream-policies" in phases:
+            runs += (("float32", 2, 6, "h2o"), ("float32", 2, 6, "rkv"))
+        for args in runs:
             try:
                 with torch.no_grad():
                     cs.stream_phase(*args)
             except (AssertionError, RuntimeError, NotImplementedError) as e:
-                print(f"stream {args[0]}: {e}")
-                readings.append({"case": f"stream {args[0]} phase",
+                print(f"stream {args}: {e}")
+                readings.append({"case": f"stream {args} phase",
                                  "kind": "raised", "reading": math.inf,
                                  "limit": 0.0})
             torch.cuda.empty_cache()
@@ -263,13 +322,17 @@ def run(fault, phases):
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     lines = proc.stdout.strip().splitlines()
     return json.loads(lines[-1]), [x for x in lines if x.startswith(
-        ("parity", "capacity:", "stream", "serve"))]
+        ("parity", "capacity:", "stream", "serve", "policy", "Table"))]
 
 
-def main(lanes_only: bool = False) -> int:
+def main(only: str | None = None) -> int:
+    """only: None (every fault), "--lanes" or "--policies"."""
     ok = True
-    faults = LANE_FAULTS if lanes_only else FAULTS + LANE_FAULTS
-    sound = ("stream", "serve") if lanes_only else SOUND
+    faults, sound = {
+        None: (FAULTS + LANE_FAULTS + POLICY_FAULTS, SOUND),
+        "--lanes": (LANE_FAULTS, ("stream", "serve")),
+        "--policies": (POLICY_FAULTS, ("policy", "stream-policies")),
+    }[only]
     for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"
         readings, parity = run(fault, sound if fault is None else fault[4])
@@ -299,4 +362,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
         child(sys.argv[2].split(","))
     else:
-        sys.exit(main(lanes_only=sys.argv[1:2] == ["--lanes"]))
+        sys.exit(main(sys.argv[1] if sys.argv[1:] else None))

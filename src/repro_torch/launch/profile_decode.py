@@ -1,11 +1,14 @@
 """Where a decode step's time goes on the card: host enqueue against
 device busy time, for the eager step and for its CUDA graph.
 
-    PYTHONPATH=src python3 -m repro_torch.launch.profile_decode
+    PYTHONPATH=src python3 -m repro_torch.launch.profile_decode \
+        [--policy h2o] [--budget 512]
 
 Needs one CUDA card. Builds trimkv-paper-4b at full width (36 layers,
 bf16, random weights from a seed), prefills batch 4 x 2000 tokens in
-chunks of 512 under budget 512, then, for the eager decode step
+chunks of 512 under --budget (default 512) and --policy (default
+trimkv; h2o, snapkv and rkv decode through the kernel's probabilities
+and their aux update), then, for the eager decode step
 (T.decode_step, one Python call per kernel) and for the decode step
 program replayed as a CUDA graph (serve.graphs, what Engine.generate
 runs when fused):
@@ -27,18 +30,20 @@ bound by the host's launches, not by the card.
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
+from repro_torch.core.policies import POLICIES
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.profiling import device_kernels
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import build_engine
 
-B, PROMPT, BUDGET, CHUNK, STEPS = 4, 2000, 512, 512, 8
+B, PROMPT, CHUNK, STEPS = 4, 2000, 512, 8
 
 
 def _event_ms(run):
@@ -51,7 +56,7 @@ def _event_ms(run):
     return start.elapsed_time(end)
 
 
-def measure(name, run, replays):
+def measure(name, run, replays, budget):
     """Print one path's enqueue, wall, busy, idle share, launches and
     replays per step, and its top kernels."""
     run(2)                                               # warm up
@@ -76,7 +81,7 @@ def measure(name, run, replays):
     if busy == 0:
         busy, launches, source = _event_ms(run) / STEPS, float("nan"), \
             "CUDA events (the trace shows no kernel)"
-    print(f"{name}: decode step, batch {B}, budget {BUDGET}: enqueue "
+    print(f"{name}: decode step, batch {B}, budget {budget}: enqueue "
           f"{enqueue * 1e3:.3f} ms, wall {wall * 1e3:.3f} ms "
           f"({B / wall:.1f} tok/s); traced wall {traced_wall * 1e3:.3f} ms, "
           f"device busy {busy:.3f} ms ({source}), {launches:.0f} kernel "
@@ -89,18 +94,22 @@ def measure(name, run, replays):
 
 
 @torch.no_grad()
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--policy", choices=tuple(POLICIES), default="trimkv")
+    ap.add_argument("--budget", type=int, default=512)
+    args = ap.parse_args(argv)
     cfg = get_config("trimkv-paper-4b")
     model = T.init_params(cfg, seed=0, device="cuda")
     T.init_gate_params(model, cfg, seed=1)
-    eng = build_engine(cfg, model, device="cuda", budget=BUDGET,
-                       prefill_chunk=CHUNK)
+    eng = build_engine(cfg, model, device="cuda", budget=args.budget,
+                       policy=args.policy, prefill_chunk=CHUNK)
     tokens, _, _ = make_batch("copy", 0, B, PROMPT, cfg.vocab_size)
     _, h_last = eng.prefill(tokens, chunked=True)
     tok = [torch.argmax(T.compute_logits(model, cfg, h_last), dim=-1)]
     progs = eng._programs(B)       # its state is the prefilled one
-    print(f"{cfg.name} {cfg.num_layers} layers {cfg.dtype} on "
-          f"{torch.cuda.get_device_name(0)}")
+    print(f"{cfg.name} {cfg.num_layers} layers {cfg.dtype}, policy "
+          f"{args.policy}, on {torch.cuda.get_device_name(0)}")
 
     def eager(n):
         for _ in range(n):
@@ -113,8 +122,8 @@ def main():
         for _ in range(n):
             tok[0] = progs.decode(tok[0])[0]
 
-    measure("eager", eager, lambda: eng.graphs.replays)
-    measure("graph", graph, lambda: eng.graphs.replays)
+    measure("eager", eager, lambda: eng.graphs.replays, args.budget)
+    measure("graph", graph, lambda: eng.graphs.replays, args.budget)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import PORTED_ARCHS, get_config, get_smoke_config
+from repro_torch.core.policies import POLICIES
 from repro_torch.data.synthetic import make_batch
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import build_engine
@@ -143,7 +144,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (CUDA kernels and graphs) or cpu (plain "
                          "PyTorch, eager)")
-    ap.add_argument("--policy", default="trimkv")
+    ap.add_argument("--policy", choices=tuple(POLICIES), default="trimkv",
+                    help="eviction policy (core.policies)")
     ap.add_argument("--budget", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=256)

@@ -10,6 +10,7 @@ None).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -17,7 +18,7 @@ from repro_torch.core import gates as gates_lib
 from repro_torch.core.cache import cache_insert, cache_topm_merge, init_cache
 from repro_torch.core.gates import Gate
 from repro_torch.kernels import ops
-from repro_torch.models.common import (MLP, RMSNorm, apply_rope,
+from repro_torch.models.common import (NEG_INF, MLP, RMSNorm, apply_rope,
                                        chunked_attention, dense,
                                        dense_apply, mlp_apply,
                                        rmsnorm_apply, to_dtype)
@@ -119,13 +120,6 @@ def _beta(block, cfg, normed):
                       dtype=torch.float32, device=normed.device)
 
 
-def _require_no_attn_aux(policy):
-    if policy.needs_attn:
-        raise NotImplementedError(
-            f"policy {policy.name!r} consumes attention probabilities, "
-            f"which the port does not hand to policies yet")
-
-
 def _ffn_residual(block, cfg, x):
     return x + mlp_apply(block.ffn, rmsnorm_apply(block.norm2.scale, x,
                                                   cfg.norm_eps))
@@ -148,7 +142,6 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
     core.cache.cache_insert); active ([B] bool, optional) leaves the
     caches of lanes marked False bit-identical. Returns (x_out [B, d],
     cache, None)."""
-    _require_no_attn_aux(policy)
     cache = state
     B = x_t.shape[0]
     normed = rmsnorm_apply(block.norm1.scale, x_t, cfg.norm_eps)
@@ -157,15 +150,29 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
     q, k, v = _qkv(block, cfg, normed[:, None], positions)
     q_t, k_t, v_t = q[:, 0], k[:, 0], v[:, 0]              # [B,H,D]
     beta_t = _beta(block, cfg, normed)                      # [B,Hkv]
-    # the policy reads no attention probabilities (needs_attn is False),
-    # so the kernel skips them; TRIM-KV discards them in the JAX block
+    # a policy that reads no attention probabilities (needs_attn False)
+    # has the kernel skip them; TRIM-KV discards them in the JAX block
     out = ops.decode_attention(q_t, cache["k"], cache["v"], cache["pos"], t,
                                window=_window(cfg, block.kind),
                                new_kv=(k_t, v_t),
                                return_probs=policy.needs_attn)
+    aux_new = None
+    if policy.needs_attn:
+        out, probs, p_new = out
+        # before the insert: its keep scores read the updated aux. The
+        # serving step programs keep the caches as static buffers, so an
+        # aux rebound (or a new dict returned) would be lost in a replay
+        aux = cache["aux"]
+        if (policy.decode_update(cache, _probs_to_kv(probs, cfg),
+                                 active=active) is not cache
+                or cache["aux"] is not aux):
+            raise RuntimeError(f"policy {policy.name!r}: decode_update must "
+                               f"write the cache's aux in place")
+        aux_new = _probs_to_kv(p_new[..., None], cfg)[..., 0]
     inc = 1.0 if policy.name == "trimkv" else None
     cache = cache_insert(cache, k_t, v_t, beta_t, t, policy.keep_scores,
-                         incoming_score=inc, active=active)
+                         incoming_score=inc, incoming_aux=aux_new,
+                         active=active)
     x = x_t + dense_apply(block.attn.wo,
                           out.reshape(B, cfg.q_dim).to(x_t.dtype))
     return _ffn_residual(block, cfg, x), cache, None
@@ -175,9 +182,10 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
                         budget, obs_window=32, q_offset=0):
     """Single-shot prefill over x [B, T, d] into an empty cache: causal
     attention through the retention kernel, then the top-M merge of the
-    prompt's keys by keep score at t = q_offset + T - 1."""
-    del budget, obs_window  # the cache carries M; no attention-aux policy
-    _require_no_attn_aux(policy)
+    prompt's keys by keep score at t = q_offset + T - 1. A needs_attn
+    policy's chunk aux is the mean attention of the last obs_window
+    queries over the prompt (_obs_probs)."""
+    del budget  # the cache carries M
     B, T, _ = x.shape
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
     positions = (q_offset + torch.arange(T, device=x.device))[None].expand(
@@ -187,7 +195,12 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
                                   window=_window(cfg, block.kind),
                                   q_offset=q_offset)
     beta_c = _beta(block, cfg, normed).transpose(1, 2)     # [B,Hkv,T]
-    aux_c = torch.zeros_like(beta_c)
+    if policy.needs_attn:
+        W = min(obs_window, T)
+        aux_c = _obs_probs(q[:, -W:], k, positions, q_offset + T - W,
+                           _window(cfg, block.kind))
+    else:
+        aux_c = torch.zeros_like(beta_c)
     k_c, v_c = k.transpose(1, 2), v.transpose(1, 2)         # [B,Hkv,T,D]
     pos_c = positions[:, None].expand(B, cfg.num_kv_heads, T).to(torch.int32)
     t_end = q_offset + T - 1
@@ -209,9 +222,13 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
     merges the top M of (cache ∪ chunk) at t = t0 + n_valid - 1. With a
     [B] n_valid, rows whose n_valid is 0 keep their cache bit-identically
     (the merge could reorder their slots otherwise). n_valid never
-    leaves the device, so a captured CUDA graph serves every tail."""
-    del obs_window
-    _require_no_attn_aux(policy)
+    leaves the device, so a captured CUDA graph serves every tail.
+
+    A needs_attn policy reads the chunk kernel's cache probabilities:
+    their sum over the chunk's queries is added to the cache's aux (on
+    a new tensor: the rows of ``state`` stay intact for the ragged
+    select), and the chunk tokens' aux is the mean attention of each
+    row's last obs_window real queries (_obs_probs_chunk_lanes)."""
     B, C, _ = x.shape
     dev = x.device
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
@@ -224,21 +241,82 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
                             torch.full_like(positions, -1))
     t_end = t0b + nvb - 1                                   # [B]
     q, k, v = _qkv(block, cfg, normed, positions)
-    out, _ = ops.chunk_attention(q, k, v, state, chunk_pos,
-                                 window=_window(cfg, block.kind),
-                                 need_probs=policy.needs_attn)
+    window = _window(cfg, block.kind)
+    out, probs_cache = ops.chunk_attention(q, k, v, state, chunk_pos,
+                                           window=window,
+                                           need_probs=policy.needs_attn)
     beta_c = _beta(block, cfg, normed).transpose(1, 2)     # [B,Hkv,C]
-    aux_c = torch.zeros_like(beta_c)
+    cache = state
+    if policy.needs_attn:
+        W = min(obs_window, C)
+        aux_c = _obs_probs_chunk_lanes(q, k, chunk_pos, nvb, t_end - W + 1,
+                                       window, W)
+        # padded queries were zeroed in the attention: they add nothing
+        cache = {**state, "aux": state["aux"] + probs_cache.sum(dim=2)}
+    else:
+        aux_c = torch.zeros_like(beta_c)
     k_c, v_c = k.transpose(1, 2), v.transpose(1, 2)
     pos_c = chunk_pos[:, None].expand(B, cfg.num_kv_heads, C)
     chunk_scores = policy.chunk_scores(pos_c=pos_c, beta_c=beta_c,
                                        aux_c=aux_c, k_c=k_c, t=t_end)
-    cache = cache_topm_merge(state, k_c, v_c, beta_c, pos_c, aux_c, t_end,
+    cache = cache_topm_merge(cache, k_c, v_c, beta_c, pos_c, aux_c, t_end,
                              policy.keep_scores, chunk_scores)
     if ragged:
         cache = _select_rows(nvb > 0, cache, state)
     x = x + dense_apply(block.attn.wo, out.reshape(B, C, cfg.q_dim))
     return _ffn_residual(block, cfg, x), cache, None
+
+
+def _obs_probs(q_obs, k, positions, obs_start, window):
+    """Mean attention of the obs-window queries over all keys, folded to
+    kv heads (float32). q_obs: [B, W, Hq, D] at positions obs_start ..
+    obs_start + W - 1; k: [B, T, Hkv, D]; positions: [B, T] ->
+    [B, Hkv, T]."""
+    B, W, Hq, D = q_obs.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    qg = q_obs.float().reshape(B, W, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bwkgd,btkd->bkgwt", qg, k.float()) / np.sqrt(D)
+    q_pos = obs_start + torch.arange(W, device=k.device)
+    dist = q_pos[None, :, None] - positions[:, None, :]     # [B,W,T]
+    mask = dist >= 0
+    if window > 0:
+        mask = mask & (dist < window)
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    return torch.softmax(s, dim=-1).mean(dim=3).mean(dim=2)
+
+
+def _obs_probs_chunk_lanes(q, k, chunk_pos, n_valid, obs_start, window, W):
+    """The padding-robust obs-window signal of chunked prefill, per lane:
+    mean attention over the chunk's keys of each row's last W real
+    queries, folded to kv heads (float32). The W query rows start at
+    clamp(n_valid - W, 0, C - W), gathered on the device (no host sync:
+    one captured graph serves every tail); padded rows (position -1)
+    and rows before obs_start drop out of the mean. q: [B, C, Hq, D];
+    k: [B, C, Hkv, D]; chunk_pos: [B, C] (-1 = padding); n_valid,
+    obs_start: [B] -> [B, Hkv, C]."""
+    B, C, Hq, D = q.shape
+    Hkv = k.shape[2]
+    start = (n_valid - W).clamp(0, C - W)
+    rows = (start[:, None]
+            + torch.arange(W, device=q.device, dtype=start.dtype)).long()
+    q_obs = torch.gather(q, 1, rows[:, :, None, None].expand(B, W, Hq, D))
+    q_pos = torch.gather(chunk_pos, 1, rows)                 # [B,W]
+    qg = q_obs.float().reshape(B, W, Hkv, Hq // Hkv, D)
+    s = torch.einsum("bwkgd,bckd->bkgwc", qg, k.float()) / np.sqrt(D)
+    dist = q_pos[:, :, None] - chunk_pos[:, None, :]          # [B,W,C]
+    mask = (chunk_pos[:, None, :] >= 0) & (dist >= 0)
+    if window > 0:
+        mask = mask & (dist < window)
+    mask = mask[:, None, None]
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    probs = torch.where(mask, torch.softmax(s, dim=-1),
+                        torch.zeros_like(s))
+    obs = (q_pos >= obs_start[:, None]) & (q_pos >= 0)        # [B,W]
+    n_obs = obs.float().sum(dim=-1).clamp(min=1.0)
+    probs = (probs * obs[:, None, None, :, None]).sum(dim=3) \
+        / n_obs[:, None, None, None]
+    return probs.mean(dim=2)
 
 
 def valid_counts(n_valid, B: int, C: int, device):

@@ -175,3 +175,42 @@ def test_cache_insert_nan_beta_freezes_the_head(case):
     for name in ("pos", "k", "v", "beta", "aux"):
         np.testing.assert_array_equal(ct[name][0, 0].numpy(), c0[name][0, 0])
     assert ct["pos"][0, 1].tolist() == [0, 4, 2, 3]
+
+
+HEURISTIC = ("streaming_llm", "h2o", "snapkv", "rkv", "keydiff", "full")
+
+
+@pytest.mark.parametrize("name", HEURISTIC)
+def test_cache_insert_admits_the_token_under_heuristic_policies(name):
+    """incoming_score None (+1e30) admits the new token under every
+    heuristic policy, also where every slot is recent and so scores
+    1e30 itself (lane 0, a recency window over the whole cache); the
+    incoming aux lands in the victim's slot. Eight inserts against the
+    JAX package, identical slots."""
+    from repro.core.policies import POLICIES as JPOL
+    from repro_torch.core.policies import POLICIES as TPOL
+    rng = np.random.RandomState(6)
+    c0 = _cache(rng, "perturbed")
+    c0["pos"][0] = np.arange(12, 20, dtype=np.int32)   # all recent at t 20
+    c0["aux"] = rng.uniform(0, 1, (B, H, M)).astype(np.float32)
+    kw = dict(recent_window=8, sink_tokens=2)
+    jpol, tpol = JPOL[name](**kw), TPOL[name](**kw)
+    cj, ct = _to_jax(c0), _to_torch(c0)
+    for step in range(8):
+        k_t = rng.randn(B, H, D).astype(np.float32)
+        aux_t = rng.uniform(0, 1, (B, H)).astype(np.float32)
+        beta_t = rng.uniform(0.5, 1.0, (B, H)).astype(np.float32)
+        ts = np.array([20, 21], np.int32) + step
+        cj = jcache.cache_insert(cj, jnp.asarray(k_t), jnp.asarray(k_t),
+                                 jnp.asarray(beta_t), jnp.asarray(ts),
+                                 jpol.keep_scores,
+                                 incoming_aux=jnp.asarray(aux_t))
+        tcache.cache_insert(ct, torch.as_tensor(k_t), torch.as_tensor(k_t),
+                            torch.as_tensor(beta_t), torch.as_tensor(ts),
+                            tpol.keep_scores,
+                            incoming_aux=torch.as_tensor(aux_t))
+        _assert_same(ct, cj)
+        assert ((ct["pos"] == torch.as_tensor(ts)[:, None, None])
+                .sum(-1) == 1).all(), "the new token was not admitted"
+        got_aux = ct["aux"][ct["pos"] == torch.as_tensor(ts)[:, None, None]]
+        np.testing.assert_array_equal(got_aux.numpy(), aux_t.reshape(-1))
