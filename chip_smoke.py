@@ -68,6 +68,28 @@ then:
    and logits within GRAPH_LOGIT_TOL; then all of it in float32 at 2
    layers on 6 requests, where a sound run shows no divergence from
    the one-shot runs at all, under trimkv, h2o and rkv;
+2c. lifecycle — the lane lifecycle of trimkv-paper-4b at full width
+   (36 layers, budget 512, chunks of 512, segments of 16, 4 lanes),
+   sampled at temperature 0.8 on threefry key chains (core.prng):
+   split keys and bits identical on the card and the CPU, gumbel floats
+   within 1e-6 of max(1, |value|); in float32 and in bf16 a 12-request trace (seed 1,
+   prompts 64-2000, max_new 17-48), phased and interleaved, each
+   request's ids against its one-shot sampled Engine.generate up to the
+   first near tie of the perturbed scores (SAMPLED_MARGIN_TOL; in
+   float32 no divergence at all), exact launch counts, and the sampled
+   decode program against its eager loop (identical ids and key); in
+   float32 swap preemption (a priority stream whose arrivals preempt
+   decoding lanes: swaps and resumes, one-shot ids, extract then resume
+   bit-exact on every leaf), park / drop the scheduler / recover from
+   the snapshot directory / revive (one-shot ids), and quarantine under
+   a seeded FaultInjector with checkpoints every 2 segments (every
+   request terminal, each quarantine answering an injected poison, DONE
+   requests with their one-shot ids, one flipped bit in a stored slab
+   caught and replayed); in bf16 the times: snapshot bytes per lane,
+   swap-out (device-to-host, crc32, store.put), resume (get + verify,
+   host-to-device + install), a disk write and read, the chunked
+   prefill of 2000 tokens a swap saves, and a replayed sampled decode
+   step against a greedy one;
 3. parity — the same config cut to 2 layers, one set of weights on the
    card (kernels) and on the CPU (plain versions), after single-shot
    and after chunked prefill, with exact launch counts: in float32
@@ -111,10 +133,11 @@ then:
 Prints the card's name and power limit and a {"kernels": [...]} line
 (each kernel's launches are those of the main paths that run it, each
 counted from 0 just before its run: the decode and bf16 chunk kernels
-over the serve and policy phases' generate calls plus the bf16
-stream's phased run, the bf16 retention kernel over the serve and
-policy phases, the float32 attention kernels over the float32 parity
-runs, the capacity kernels over the train phase) and each phase's
+over the serve and policy phases' generate calls, the bf16 stream's
+phased run and the lifecycle phase, the bf16 retention kernel over the
+serve and policy phases, the float32 chunk kernel over the float32
+parity runs and the lifecycle phase, the float32 retention kernel over
+the float32 parity runs, the capacity kernels over the train phase) and each phase's
 seconds, then, as the last line, {"ok": true, "device": {...}}. Any failure
 raises: the script exits non-zero and prints no result line. It exits
 non-zero at once when no CUDA card is visible.
@@ -1360,6 +1383,545 @@ def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12,
     return launches_phased, readings
 
 
+# ------------------------------------------------------------- lifecycle
+
+# Sampled lanes are held to their one-shot runs as the stream phase
+# holds greedy ones, on the scores a sampled step takes the argmax of:
+# logits / T plus the gumbel noise (Engine.generate's margins). A lane
+# batch of 4 and a batch of 1 may round a bf16 logit one step apart;
+# over T that moves a score by the step / T, and the two leading
+# candidates can move apart by twice that. The stream phase's logits
+# reach ~5, where a bf16 step is 2^-5: 2 * 2^-5 / 0.8 = 0.078, so 0.08.
+# float32 rounds alike in both (no float32 stream has diverged): the
+# stream phase's float32 limit over T.
+TEMPERATURE = 0.8
+SAMPLED_MARGIN_TOL = {"bfloat16": 0.08,
+                      "float32": MARGIN_TOL["float32"] / TEMPERATURE}
+
+
+def check_lifecycle(name, violations, margin=0.0, tol=math.inf):
+    """Raise unless every lifecycle count is 0 and the one-shot margin
+    reading (oneshot_margin) is under tol."""
+    bad = {k: v for k, v in violations.items() if v}
+    if bad or not margin < tol:
+        raise AssertionError(f"lifecycle {name}: {bad}, one-shot margin "
+                             f"reading {margin:.3e} (limit {tol})")
+
+
+def lifecycle_model(dtype):
+    """trimkv-paper-4b at full width (36 layers) in ``dtype`` with seeded
+    weights and perturbed gates: (cfg, model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("trimkv-paper-4b"), dtype=dtype)
+    model = T.init_params(cfg, seed=21, device="cuda")
+    T.init_gate_params(model, cfg, seed=22)
+    perturb_gates(model, seed=23)
+    return cfg, model
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def oneshot_margin(res, oneshot, reqs):
+    """The stream phase's one-shot reading over sampled runs: for the
+    requests whose ids part from their one-shot run, the largest of
+    their smallest one-shot margins up to the first differing token
+    (0 when none parts). Returns (reading, report)."""
+    margin, report = 0.0, []
+    for r in reqs:
+        ref = oneshot[r.rid]
+        got = res[r.rid].tokens
+        diff = first_divergence(got, ref["ids"][0].tolist())
+        if diff is not None:
+            m = float(ref["margins"][0][:diff + 1].min())
+            margin = max(margin, m)
+            report.append(f"{r.rid}: at {diff} of {len(got)} (smallest "
+                          f"margin up to it {m:.3e})")
+    return margin, report
+
+
+def threefry_on_card():
+    """The same keys give the same split keys and bits on the card and
+    on the CPU (exact integers), and gumbel floats within 1e-6 of
+    max(1, |value|)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.serve.scheduler import _prng_keys
+    keys = torch.as_tensor(_prng_keys([0, 7, 2**31 + 3, 123456789012])
+                           .astype(np.int64))
+    V = 151936
+    out = {}
+    for dev in ("cpu", "cuda"):
+        k = keys.to(dev)
+        new, sub = prng.split(k)
+        rows = prng.random_bits(sub, V)
+        flat = prng.random_bits(sub[0], 4 * V)
+        out[dev] = (new.cpu(), sub.cpu(), rows.cpu(), flat.cpu(),
+                    prng.gumbel_from_bits(rows).cpu())
+    c, g = out["cpu"], out["cuda"]
+    diff = (c[4] - g[4]).abs()
+    # one float32 ulp of a gumbel value of 8-16 is 9.5e-7: the gap is
+    # read against max(1, |value|)
+    rel = diff / c[4].abs().clamp_min(1.0)
+    violations = {
+        "split keys that differ": int((c[0] != g[0]).sum()
+                                      + (c[1] != g[1]).sum()),
+        "bits that differ": int((c[2] != g[2]).sum() + (c[3] != g[3]).sum()),
+        "gumbel beyond 1e-6 of max(1, |value|)": int(rel.gt(1e-6).sum()),
+    }
+    log(f"lifecycle threefry: card vs CPU over 4 keys x {V} and one key x "
+        f"{4 * V}: {violations}; gumbel |diff| max {diff.max().item():.3e}, "
+        f"over max(1, |value|) {rel.max().item():.3e}")
+    check_lifecycle("threefry", violations)
+
+
+def sampled_stream(cfg, eng, reqs, oneshot, tol):
+    """Sampled lanes (T 0.8), phased and interleaved, every request
+    submitted at once: DONE with max_new tokens, the dispatch formula,
+    the kernel launches its steps imply, and ids against the one-shot
+    runs (see SAMPLED_MARGIN_TOL)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.request import Status
+    from repro_torch.serve.scheduler import Scheduler, warm_up
+    sfx = "" if cfg.dtype == "bfloat16" else "_f32"
+    L = cfg.num_layers
+    for interleaved in (False, True):
+        warm_up(eng, 4, reqs, interleaved=interleaved, greedy=False)
+        before = dict(ops.LAUNCHES)
+        eng.dispatch_count = 0
+        sched = Scheduler(eng, n_lanes=4, greedy=False,
+                          interleaved=interleaved)
+        t0 = time.perf_counter()
+        res = sched.run(reqs)
+        wall = time.perf_counter() - t0
+        sched.close()
+        steps = sched.steps_run
+        expect = dict.fromkeys(ops.KERNELS, 0)
+        expect["decode_attention"] = L * (steps["segment"] + steps["mixed"])
+        expect["chunk_attention" + sfx] = L * (steps["chunk"]
+                                               + steps["mixed"])
+        margin, report = oneshot_margin(res, oneshot, reqs)
+        mode = "interleaved" if interleaved else "phased"
+        violations = {
+            "requests not DONE with max_new tokens": sum(
+                res[r.rid].status is not Status.DONE
+                or len(res[r.rid].tokens) != r.max_new for r in reqs),
+            "dispatch_count off the formula": int(
+                eng.dispatch_count != sched.n_prefill_rounds
+                + sched.n_segments + sched.n_resets),
+            "launches off the schedule": int(
+                {k: ops.LAUNCHES[k] - before[k] for k in before} != expect),
+        }
+        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+        log(f"lifecycle sampled stream {cfg.dtype} {mode}: {n_tok} tokens "
+            f"in {wall:.2f} s, segments {sched.n_segments}, dispatches "
+            f"{eng.dispatch_count}; {len(report)} of {len(reqs)} requests "
+            f"part from their one-shot run, margin reading {margin:.3e} "
+            f"(limit {tol:.3e}){': ' + '; '.join(report) if report else ''}")
+        check_lifecycle(f"sampled stream {cfg.dtype} {mode}", violations,
+                        margin, tol)
+
+
+def sampled_program_vs_eager(eng, cfg):
+    """The sampled decode program (a CUDA graph) against the eager loop
+    on the same prompt: identical ids and final key."""
+    import numpy as np
+    tokens = np.random.RandomState(5).randint(0, cfg.vocab_size, (4, 700))
+    runs = [eng.generate(tokens, 16, chunked=True, greedy=False, seed=99,
+                         fused=fused) for fused in (True, False)]
+    violations = {
+        "ids that differ": int((runs[0]["ids"] != runs[1]["ids"]).sum()),
+        "key words that differ": int((runs[0]["key"]
+                                      != runs[1]["key"]).sum()),
+    }
+    log(f"lifecycle sampled decode program vs eager loop {cfg.dtype} "
+        f"(batch 4, 16 steps): {violations}")
+    check_lifecycle(f"sampled program vs eager {cfg.dtype}", violations)
+
+
+def extract_resume_exact(lanes):
+    """Extract every lane, scrub them, resume them: every leaf of the
+    static state, the carried tokens and the keys bit-exact."""
+    import torch
+    before = {"t": lanes.state["t"].clone(),
+              "layers": [{k: v.clone() for k, v in st.items()}
+                         for st in lanes.state["layers"]]}
+    tok, keys = lanes.tok.clone(), lanes.keys.clone()
+    all_lanes = list(range(lanes.batch))
+    snaps = lanes.extract(all_lanes)
+    lanes.scrub(torch.ones(lanes.batch, dtype=torch.bool,
+                           device=lanes.tok.device))
+    lanes.tok.zero_()
+    lanes.keys.zero_()
+    lanes.resume(all_lanes, *zip(*snaps))
+    n = int(not torch.equal(lanes.state["t"], before["t"]))
+    for a, b in zip(lanes.state["layers"], before["layers"]):
+        n += sum(not torch.equal(a[k], b[k]) for k in a)
+    return n + int(not torch.equal(lanes.tok, tok)) + int(
+        not torch.equal(lanes.keys, keys))
+
+
+def swap_preemption(cfg, eng, reqs, oneshot):
+    """A priority stream on 4 lanes, swap_preempt=True (the default):
+    eight priority-0 requests, one step (four admitted, a segment of 16
+    decode steps; every max_new is over 16, so all four still decode),
+    then four priority-1 ones, which preempt the decoding lanes. Swaps
+    and resumes happen, every request DONE with its one-shot ids;
+    extract then resume is bit-exact on every leaf."""
+    from repro_torch.serve.request import Status
+    from repro_torch.serve.scheduler import Scheduler
+    eng.serve = dataclasses.replace(eng.serve, sched_policy="priority")
+    eng.dispatch_count = 0
+    reqs = [dataclasses.replace(r, priority=int(i >= 8))
+            for i, r in enumerate(reqs)]
+    sched = Scheduler(eng, n_lanes=4, greedy=False)
+    for r in reqs[:8]:
+        sched.submit(r)
+    sched.step()
+    leaves = extract_resume_exact(sched.lanes)
+    for r in reqs[8:]:
+        sched.submit(r)
+    res = sched.run()
+    sched.close()
+    margin, report = oneshot_margin(res, oneshot, reqs)
+    tol = SAMPLED_MARGIN_TOL[cfg.dtype]
+    violations = {
+        "no swap": int(sched.n_swaps == 0),
+        "no resume": int(sched.n_resumes == 0),
+        "requests not DONE with max_new tokens": sum(
+            res[r.rid].status is not Status.DONE
+            or len(res[r.rid].tokens) != r.max_new for r in reqs),
+        "dispatch_count off the formula": int(
+            eng.dispatch_count != sched.n_prefill_rounds + sched.n_segments
+            + sched.n_resets + sched.n_swaps + sched.n_resumes),
+        "leaves not bit-exact after extract and resume": leaves,
+    }
+    log(f"lifecycle swap preemption {cfg.dtype}: swaps {sched.n_swaps}, "
+        f"resumes {sched.n_resumes}, preempted {sched.n_preempted}, "
+        f"dispatches {eng.dispatch_count}; margin reading {margin:.3e} "
+        f"(limit {tol:.3e}){': ' + '; '.join(report) if report else ''}; "
+        f"{violations}")
+    eng.serve = dataclasses.replace(eng.serve, sched_policy="fifo")
+    check_lifecycle(f"swap {cfg.dtype}", violations, margin, tol)
+
+
+def park_and_recover(cfg, eng, reqs, oneshot):
+    """Two decoding requests parked with a snapshot directory; the
+    scheduler is dropped; a new one over the directory recovers both as
+    PARKED, revives them and finishes them with their one-shot ids."""
+    import shutil
+    import tempfile
+    from repro_torch.serve.request import Status
+    from repro_torch.serve.scheduler import Scheduler
+    pick = sorted(reqs, key=lambda r: -r.max_new)[:2]
+    tmp = tempfile.mkdtemp(prefix="lifecycle_")
+    try:
+        eng.serve = dataclasses.replace(eng.serve, snapshot_dir=tmp)
+        first = Scheduler(eng, n_lanes=4, greedy=False)
+        for r in pick:
+            first.submit(r)
+        first.step()
+        for r in pick:
+            first.park(r.rid)
+        first.close()
+        del first
+        second = Scheduler(eng, n_lanes=4, greedy=False)
+        recovered = second.n_recovered_sessions
+        parked = sum(rs.status is Status.PARKED
+                     for rs in second.results.values())
+        for r in pick:
+            second.revive(r.rid)
+        res = second.run()
+        second.close()
+        st = second.stats()
+    finally:
+        eng.serve = dataclasses.replace(eng.serve, snapshot_dir=None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    margin, report = oneshot_margin(res, oneshot, pick)
+    tol = SAMPLED_MARGIN_TOL[cfg.dtype]
+    violations = {
+        "sessions not recovered": 2 - recovered,
+        "recovered sessions not PARKED": 2 - parked,
+        "slabs not read from disk": 2 - st["store_disk_hits"],
+        "requests not DONE with max_new tokens": sum(
+            res[r.rid].status is not Status.DONE
+            or len(res[r.rid].tokens) != r.max_new for r in pick),
+    }
+    log(f"lifecycle park, restart, revive {cfg.dtype}: recovered "
+        f"{recovered}, disk hits {st['store_disk_hits']}, resumes "
+        f"{second.n_resumes}; margin reading {margin:.3e}"
+        f"{': ' + '; '.join(report) if report else ''}; {violations}")
+    check_lifecycle(f"park and recover {cfg.dtype}", violations, margin,
+                    tol)
+
+
+def quarantine(cfg, eng, oneshot):
+    """Six requests with prompts of 64-400 tokens (seed 2) and their
+    one-shot runs; a seeded FaultInjector poisons decoding lanes for the
+    first six steps, checkpoint_every=2: every request terminates, DONE or FAILED
+    only past max_retries, each quarantine answers an injected poison,
+    and DONE requests carry their one-shot ids. Then a parked request's
+    stored slab gets one flipped bit: its checksum catches it at the
+    revival (n_snapshot_lost) and the request is replayed to its
+    one-shot ids."""
+    import numpy as np
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.faults import FaultInjector
+    from repro_torch.serve.request import TERMINAL_STATUSES, Status
+    from repro_torch.serve.scheduler import Scheduler
+    # prompts under the budget, so a lane's next occupant leaves slots
+    # empty (a poisoned payload that was not zeroed would show there)
+    short = poisson_requests(6, 8.0, vocab=cfg.vocab_size, prompt_lo=64,
+                             prompt_hi=400, new_lo=17, new_hi=48, seed=2)
+    short = [dataclasses.replace(r, rid=100 + r.rid) for r in short]
+    oneshot = dict(oneshot)
+    oneshot.update({r.rid: eng.generate(r.prompt[None], r.max_new,
+                                        chunked=True, greedy=False,
+                                        seed=r.seed) for r in short})
+    eng.serve = dataclasses.replace(eng.serve, checkpoint_every=2,
+                                    max_retries=2)
+    eng.dispatch_count = 0
+    inj = FaultInjector(seed=3, corrupt_prob=0.5)
+    sched = Scheduler(eng, n_lanes=4, greedy=False, injector=inj)
+    for r in short:
+        sched.submit(r)
+    for _ in range(6):
+        sched.step()
+    inj.corrupt_prob = 0.0
+    res = sched.run()
+    sched.close()
+    done = [r for r in short if res[r.rid].status is Status.DONE]
+    margin, report = oneshot_margin(res, oneshot, done)
+    tol = SAMPLED_MARGIN_TOL[cfg.dtype]
+    violations = {
+        "requests not terminal": sum(res[r.rid].status
+                                     not in TERMINAL_STATUSES
+                                     for r in short),
+        "FAILED within max_retries": sum(
+            res[r.rid].status is Status.FAILED
+            and res[r.rid].n_retries <= 2 for r in short),
+        "no quarantine": int(sched.n_quarantined == 0),
+        "quarantines beyond the injected poisons": max(
+            0, sched.n_quarantined - sched.n_faults_injected),
+        "DONE requests short of max_new": sum(
+            len(res[r.rid].tokens) != r.max_new for r in done),
+        "dispatch_count off the formula": int(
+            eng.dispatch_count != sched.n_prefill_rounds + sched.n_segments
+            + sched.n_resets + sched.n_swaps + sched.n_resumes
+            + sched.n_faults_injected),
+    }
+    st = sched.stats()
+    log(f"lifecycle quarantine {cfg.dtype}: poisons "
+        f"{sched.n_faults_injected}, quarantined {sched.n_quarantined}, "
+        f"retries {st['n_retries']}, failed {sched.n_failed}, DONE "
+        f"{len(done)} of {len(short)}, checkpoints (swaps) {sched.n_swaps}, "
+        f"resumes {sched.n_resumes}, prefill rounds "
+        f"{sched.n_prefill_rounds}; margin reading {margin:.3e}"
+        f"{': ' + '; '.join(report) if report else ''}; {violations}")
+    # one flipped bit in a parked slab
+    eng.serve = dataclasses.replace(eng.serve, checkpoint_every=0)
+    r = max(short, key=lambda r: r.max_new)
+    sched = Scheduler(eng, n_lanes=4, greedy=False)
+    sched.submit(r)
+    sched.step()
+    sched.park(r.rid)
+    where = sched.store.chaos_corrupt(np.random.default_rng(0), rid=r.rid)
+    sched.revive(r.rid)
+    res = sched.run()
+    sched.close()
+    margin2, _ = oneshot_margin(res, oneshot, [r])
+    violations.update({
+        "flipped bit not caught": int(where != "ram"
+                                      or sched.n_snapshot_lost != 1),
+        "replayed request not DONE with max_new tokens": int(
+            res[r.rid].status is not Status.DONE
+            or len(res[r.rid].tokens) != r.max_new),
+    })
+    log(f"lifecycle flipped snapshot bit {cfg.dtype}: corrupted {where}, "
+        f"snapshots lost {sched.n_snapshot_lost}, store corrupt detected "
+        f"{sched.stats()['store_corrupt_detected']}, prefill rounds "
+        f"{sched.n_prefill_rounds}, status {res[r.rid].status.value}")
+    eng.serve = dataclasses.replace(eng.serve, max_retries=2)
+    check_lifecycle(f"quarantine {cfg.dtype}", violations,
+                    max(margin, margin2), tol)
+
+
+def _median_ms(fn, n=5):
+    import statistics
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def lifecycle_times(cfg, eng):
+    """Per-lane snapshot bytes; swap-out split into the device-to-host
+    copy (and, within it, the copy out of the pinned staging buffer),
+    crc32 and store.put; resume into get + verify and
+    host-to-device + install; a disk write and read; the recompute a
+    swap saves (a chunked prefill of a 2000-token prompt, one lane); and
+    a replayed sampled decode step against a greedy one. Host clock
+    medians of 5 (each ends in a synchronize), decode steps by CUDA
+    events over 32 replays in turns."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.serve.graphs import host_row_template
+    from repro_torch.serve.request import LaneSnapshot
+    from repro_torch.serve.store import (SnapshotStore, checksum_snapshot,
+                                         snapshot_nbytes, state_spec)
+    lanes = eng.lane_closures(4)
+    dev = lanes.tok.device
+    row, tok, key = lanes.extract([1])[0]
+    snap = LaneSnapshot(state=row, tok=tok, key=key, n_emitted=0,
+                        n_tokens=0)
+    nbytes = snapshot_nbytes(snap)
+    d2h = _median_ms(lambda: lanes.extract([1]))
+    # extract's copy out of its pinned staging buffer into ordinary host
+    # memory (part of d2h): one host copy of every leaf of a lane's row
+    leaves = [row["t"]] + [v for st in row["layers"] for v in st.values()]
+    copy_out = _median_ms(lambda: [np.copy(a) for a in leaves])
+    crc = _median_ms(lambda: checksum_snapshot(snap))
+    store = SnapshotStore()
+    put = _median_ms(lambda: store.put(0, snap))
+    get = _median_ms(lambda: store.get(0))
+    install = _median_ms(lambda: lanes.resume([1], [row], [tok], [key]))
+    tmp = tempfile.mkdtemp(prefix="lifecycle_times_")
+    try:
+        expected = state_spec(host_row_template(cfg, eng.serve.budget))
+        disk = SnapshotStore(directory=tmp, expected_spec=expected)
+        t0 = time.perf_counter()
+        disk.put(0, snap, kind="park")
+        disk.flush()
+        write = (time.perf_counter() - t0) * 1e3
+        disk.close()
+        again = SnapshotStore(directory=tmp, expected_spec=expected)
+        t0 = time.perf_counter()
+        ok = again.get(0) is not None
+        read = (time.perf_counter() - t0) * 1e3
+        again.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    prompt = np.random.RandomState(6).randint(0, cfg.vocab_size, (1, 2000))
+
+    def recompute():
+        eng.prefill(prompt, chunked=True)
+        _sync(dev)
+
+    recompute()
+    prefill = _median_ms(recompute)
+    progs = eng._programs(4)
+    tokens = np.random.RandomState(7).randint(0, cfg.vocab_size, (4, 2000))
+    eng.prefill(tokens, chunked=True)
+    tk = [progs.tok.clone()]
+
+    def steps(sampled):
+        def go():
+            for _ in range(32):
+                tk[0] = progs.decode(tk[0], sampled=sampled)[0]
+        go()                                   # capture and warm
+        _sync(dev)
+        if dev.type != "cuda":
+            return _median_ms(go, 1) / 32
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        go()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 32
+
+    turns = [steps(s) for s in (False, True, True, False)]
+    greedy_ms = (turns[0] + turns[3]) / 2
+    sampled_ms = (turns[1] + turns[2]) / 2
+    times = {"snapshot_bytes": nbytes, "d2h_ms": d2h,
+             "copy_out_ms": copy_out, "crc32_ms": crc,
+             "put_ms": put, "get_verify_ms": get, "h2d_install_ms": install,
+             "disk_write_ms": write, "disk_read_ms": read,
+             "recompute_prefill_ms": prefill, "greedy_step_ms": greedy_ms,
+             "sampled_step_ms": sampled_ms, "step_turns_ms": turns}
+    log(f"lifecycle snapshot bytes per lane {cfg.dtype}: {nbytes} "
+        f"({nbytes / 2**20:.1f} MiB)")
+    log(f"lifecycle swap-out per lane: device-to-host {d2h:.2f} ms (its "
+        f"copy out of the pinned staging buffer {copy_out:.2f} ms), crc32 "
+        f"{crc:.2f} ms, store.put {put:.2f} ms (its crc32 included)")
+    log(f"lifecycle resume per lane: store.get + verify {get:.2f} ms, "
+        f"host-to-device + install {install:.2f} ms")
+    log(f"lifecycle disk tier: write {write:.2f} ms (put + flush), read "
+        f"{read:.2f} ms (a new store's get + verify; ok {ok})")
+    log(f"lifecycle recompute a swap saves: chunked prefill of 2000 tokens, "
+        f"one lane, {prefill:.2f} ms")
+    log(f"lifecycle decode step, batch 4, replayed: greedy "
+        f"{greedy_ms:.3f} ms, sampled (T {TEMPERATURE}) {sampled_ms:.3f} ms "
+        f"(+{(sampled_ms / greedy_ms - 1) * 100:.1f} %; turns greedy, "
+        f"sampled, sampled, greedy: "
+        f"{', '.join(f'{t:.3f}' for t in turns)})")
+    check_lifecycle("disk read", {"disk slab not read back": int(not ok)})
+    return times
+
+
+def lifecycle_phase(parts=("float32", "bfloat16"), paths=("float32",)):
+    """The lane lifecycle of trimkv-paper-4b at full width (36 layers,
+    budget 512, chunks of 512, segments of 16, 4 lanes), sampled at
+    T 0.8: threefry on the card against the CPU; then per dtype in
+    ``parts`` a 12-request trace (poisson_requests seed 1, prompts
+    64-2000, max_new 17-48) with each request's one-shot sampled run,
+    the sampled stream phased and interleaved, the sampled decode
+    program against its eager loop, and for the dtypes in ``paths``
+    swap preemption, park / restart / revive and quarantine; in
+    bfloat16 the times (lifecycle_times). Returns (the launches of the
+    phase's runs, counted from 0 before it, the bfloat16 times or
+    None)."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    threefry_on_card()
+    ops.reset_launches()
+    times = None
+    for dtype in parts:
+        cfg, model = lifecycle_model(dtype)
+        eng = build_engine(cfg, model, device=model.device, budget=512,
+                           prefill_chunk=512, decode_segment=16,
+                           prefill_budget=1024, temperature=TEMPERATURE)
+        reqs = poisson_requests(12, 8.0, vocab=cfg.vocab_size, prompt_lo=64,
+                                prompt_hi=2000, new_lo=17, new_hi=48, seed=1)
+        log(f"lifecycle {dtype} {cfg.num_layers} layers: prompts "
+            f"{[r.prompt_len for r in reqs]}, max_new "
+            f"{[r.max_new for r in reqs]}, T {TEMPERATURE}")
+        oneshot = {r.rid: eng.generate(r.prompt[None], r.max_new,
+                                       chunked=True, greedy=False,
+                                       seed=r.seed) for r in reqs}
+        sampled_stream(cfg, eng, reqs, oneshot, SAMPLED_MARGIN_TOL[dtype])
+        sampled_program_vs_eager(eng, cfg)
+        if dtype in paths:
+            swap_preemption(cfg, eng, reqs, oneshot)
+            park_and_recover(cfg, eng, reqs, oneshot)
+            quarantine(cfg, eng, oneshot)
+        if dtype == "bfloat16":
+            times = lifecycle_times(cfg, eng)
+        del eng, model, oneshot
+        gc.collect()
+        torch.cuda.empty_cache()
+    total = dict(ops.LAUNCHES)
+    path = ["decode_attention"] + [
+        "chunk_attention" + ("" if d == "bfloat16" else "_f32")
+        for d in parts]
+    check_lifecycle("launches", {f"{k} never launched": int(total[k] == 0)
+                                 for k in path})
+    log(f"lifecycle launches: {total}")
+    return total, times
+
+
 # bf16 card-vs-CPU logits, as a share of the step's largest |logit|:
 # card and CPU round to bf16 at different places in every projection,
 # norm and residual add, and the tensor-core kernels round P to bf16
@@ -1752,6 +2314,12 @@ def main() -> int:
             with timed(f"stream float32 {policy}"):
                 stream_phase("float32", num_layers=2, n_requests=6,
                              policy=policy)
+        # the lane lifecycle: sampled lanes, swaps, parks, quarantine
+        with timed("lifecycle"):
+            life, _ = lifecycle_phase()
+        for k in ("decode_attention", "chunk_attention",
+                  "chunk_attention_f32"):
+            launches[k] += life[k]
     # the float32 attention kernels' path is the float32 parity runs
     for policy, _ in POLICY_BUDGETS:
         with timed(f"parity float32 {policy}"):

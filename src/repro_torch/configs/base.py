@@ -4,8 +4,9 @@ Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (field
 for field, so one config describes the same model and the same
 training in both packages) and a ``ServeConfig``
 with the JAX package's serving and scheduler fields and defaults (a
-field whose subsystem is not ported yet raises ``NotImplementedError``
-where the scheduler would use it). The port
+field whose subsystem is not ported yet, the prefix cache and
+speculative decoding, raises ``NotImplementedError`` where the
+scheduler would use it). The port
 imports nothing from the JAX package, so the architecture table and
 the lookup helpers live here too; an architecture the port cannot run
 yet raises ``NotImplementedError``.
@@ -133,15 +134,31 @@ class ServeConfig:
     prefill_budget: int = 0           # prompt tokens per interleaved
     #                                   segment (0 = unlimited)
     preempt: bool = True              # priority/edf may evict a lane
-    # swap_preempt: swap a decoding victim out to a host snapshot. The
-    # snapshot store is not ported: with True a swap raises
-    # NotImplementedError where it would happen; False restarts every
-    # victim from scratch (recompute-style preemption)
+    # swap_preempt: a decoding victim is swapped out to a host snapshot
+    # and resumes where it stopped; False restarts every victim from
+    # scratch (recompute-style preemption)
     swap_preempt: bool = True
-    checkpoint_every: int = 0         # lane snapshots (not ported)
+    # max_retries: fault recoveries (quarantine + replay) a request may
+    # consume before it is FAILED terminally. A lane whose segment
+    # produced non-finite logits is scrubbed (T.scrub_lanes) and its
+    # request replayed from its last snapshot (or from scratch).
+    max_retries: int = 2
+    # snapshot every decoding lane every N segments (0 = off), so a
+    # fault replays from the checkpoint instead of from scratch
+    checkpoint_every: int = 0
     shed_policy: str = "reject"       # reject | evict
-    snapshot_host_bytes: int = 0      # snapshot store (not ported)
+    # snapshot store (serve.store): RAM budget for host snapshots in
+    # bytes (0 = unlimited) and an optional disk tier, where parked and
+    # checkpointed sessions survive a restart of the process
+    snapshot_host_bytes: int = 0
     snapshot_dir: Optional[str] = None
+    # park_exempts_timeout: True (default) exempts PARKED sessions from
+    # Request.timeout_ms — parking is an explicit caller decision, and
+    # an idle parked chat session may far outlive any per-request SLO.
+    # False enforces the timeout while parked too: an expired parked
+    # request goes TIMED_OUT (zero dispatches) and its snapshots are
+    # released from every tier.
+    park_exempts_timeout: bool = True
     prefix_cache_bytes: int = 0       # prefix KV cache (not ported)
     spec_k: int = 0                   # speculative decoding (not ported)
 

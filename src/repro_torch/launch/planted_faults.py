@@ -8,13 +8,17 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --policies
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --lifecycle
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
 kernel source), LANE_FAULTS (one to the lane layer; --lanes runs the
-sound build and these alone) and POLICY_FAULTS (one to the eviction
+sound build and these alone), POLICY_FAULTS (one to the eviction
 policies' attention aux; --policies runs the sound build and these
-alone) it copies src/repro_torch and
-chip_smoke.py into a temporary directory, applies the change, and runs,
+alone) and LIFECYCLE_FAULTS (one to the sampling, snapshot, resume or
+quarantine path; --lifecycle runs the sound build and these alone) it
+copies src/repro_torch and chip_smoke.py into a temporary directory,
+applies the change, and runs,
 in a fresh process that builds that copy's kernels, the chip_smoke
 phases that the fault touches, with every limit lifted. Each bf16 case
 gives its row-relative error (chip_smoke.row_errors), each float32 case
@@ -31,8 +35,13 @@ chip_smoke.MARGIN_TOL) and its graphs-against-eager counts and logit
 gap, the serve phase its graphs-against-eager counts and logit gap
 (against chip_smoke.GRAPH_LOGIT_TOL), the policy phase per policy its
 graphs-against-eager counts, logit and aux gaps and its aux counts
-(chip_smoke.aux_violations, limit 0), and the float32 stream under H2O
-and R-KV the stream phase's readings; the script prints
+(chip_smoke.aux_violations, limit 0), the float32 stream under H2O
+and R-KV the stream phase's readings, and the lifecycle phase
+(chip_smoke.lifecycle_phase, both dtypes, each through swap, park and
+quarantine as well) its counts of requests, leaves and
+counters that broke its rules (limit 0; inf when it raised) and its
+one-shot margin readings (against chip_smoke.SAMPLED_MARGIN_TOL); the
+script prints
 every reading beside its limit, the largest reading of the sound build
 per kind, and exits non-zero unless the sound build stays within every
 limit and each fault exceeds at least one.
@@ -160,8 +169,43 @@ POLICY_FAULTS = [
      "    cache[\"aux\"] = cache[\"aux\"] + _lane_probs(probs_kv, active)\n",
      ("policy",)),
 ]
+# faults in the sampling, snapshot, resume and quarantine path (file
+# under src/repro_torch), caught by the lifecycle phase
+# (chip_smoke.lifecycle_phase), run here in float32 and in bfloat16,
+# each dtype through swap, park and quarantine, so that the bfloat16
+# limit has readings on both sides: --lifecycle runs the sound build
+# and these alone
+LIFECYCLE_FAULTS = [
+    # graph-only: the eager programs read the new tensors, the captured
+    # ones the buffers they were captured with (kept alive)
+    ("lifecycle: insert_lanes (the resume's install) rebinds the state's "
+     "leaves instead of writing them in place", "models/transformer.py",
+     "            v.index_copy_(0, idx, sub[k])\n",
+     "            globals().setdefault(\"_HELD\", []).append(v)\n"
+     "            st[k] = v.index_copy(0, idx, sub[k])\n", ("lifecycle",)),
+    ("lifecycle: resume drops the lane's key (a sampled stream goes on "
+     "from a stale key)", "serve/graphs.py",
+     "        self.keys.index_copy_(0, idx, torch.as_tensor(\n"
+     "            np.asarray(keys, np.int64).reshape(-1, 2), device=dev))\n",
+     "", ("lifecycle",)),
+    ("lifecycle: verify_snapshot always passes (a flipped bit revives)",
+     "serve/store.py",
+     "    return crc == snap.crc and meta_crc == snap.meta_crc",
+     "    return True", ("lifecycle",)),
+    ("lifecycle: quarantine resets the lane without zeroing its K/V",
+     "serve/scheduler.py",
+     "        self.lanes.scrub(torch.as_tensor(mask, "
+     "device=self.lanes.tok.device))",
+     "        self.lanes.reset(torch.as_tensor(mask, "
+     "device=self.lanes.tok.device))", ("lifecycle",)),
+    ("lifecycle: lanes draw over [B, Vp] from lane 0's key (the one-shot "
+     "layout) instead of each from its own", "models/transformer.py",
+     "    return prng.categorical_rows(sub, logits / temperature), new_keys",
+     "    return prng.categorical(sub[0], logits / temperature), new_keys",
+     ("lifecycle",)),
+]
 SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
-         "serve", "policy", "stream-policies")
+         "serve", "policy", "stream-policies", "lifecycle")
 
 
 def child(phases):
@@ -279,6 +323,29 @@ def child(phases):
                                  "kind": "raised", "reading": math.inf,
                                  "limit": 0.0})
             torch.cuda.empty_cache()
+    if "lifecycle" in phases:
+        def record_lifecycle(name, violations, margin=0.0, tol=math.inf):
+            for kind, n in violations.items():
+                readings.append({"case": f"lifecycle {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+            if tol < math.inf:
+                readings.append({"case": f"lifecycle {name}",
+                                 "kind": "margin", "reading": margin,
+                                 "limit": tol})
+
+        cs.check_lifecycle = record_lifecycle
+        try:
+            with torch.no_grad():
+                cs.lifecycle_phase(("float32", "bfloat16"),
+                                   paths=("float32", "bfloat16"))
+        except (AssertionError, RuntimeError, ValueError) as e:
+            print(f"lifecycle: {str(e).splitlines()[0]}")
+            readings.append({"case": "lifecycle phase", "kind": "raised",
+                             "reading": math.inf, "limit": 0.0})
+            if isinstance(e, RuntimeError):
+                print(json.dumps(readings), flush=True)
+                os._exit(0)
+        torch.cuda.empty_cache()
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -322,16 +389,20 @@ def run(fault, phases):
                            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
     lines = proc.stdout.strip().splitlines()
     return json.loads(lines[-1]), [x for x in lines if x.startswith(
-        ("parity", "capacity:", "stream", "serve", "policy", "Table"))]
+        ("parity", "capacity:", "stream", "serve", "policy", "Table",
+         "lifecycle"))]
 
 
 def main(only: str | None = None) -> int:
-    """only: None (every fault), "--lanes" or "--policies"."""
+    """only: None (every fault), "--lanes", "--policies" or
+    "--lifecycle"."""
     ok = True
     faults, sound = {
-        None: (FAULTS + LANE_FAULTS + POLICY_FAULTS, SOUND),
+        None: (FAULTS + LANE_FAULTS + POLICY_FAULTS + LIFECYCLE_FAULTS,
+               SOUND),
         "--lanes": (LANE_FAULTS, ("stream", "serve")),
         "--policies": (POLICY_FAULTS, ("policy", "stream-policies")),
+        "--lifecycle": (LIFECYCLE_FAULTS, ("lifecycle",)),
     }[only]
     for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"

@@ -2,7 +2,7 @@
 device busy time, for the eager step and for its CUDA graph.
 
     PYTHONPATH=src python3 -m repro_torch.launch.profile_decode \
-        [--policy h2o] [--budget 512]
+        [--policy h2o] [--budget 512] [--temperature 0.8]
 
 Needs one CUDA card. Builds trimkv-paper-4b at full width (36 layers,
 bf16, random weights from a seed), prefills batch 4 x 2000 tokens in
@@ -25,6 +25,11 @@ runs when fused):
    instead (an upper bound: it includes the gaps between kernels), and
    the script says so.
 
+With --temperature T > 0 the sampled decode step program (threefry
+key split, gumbel noise over [4, Vp] and argmax, core.prng, captured in
+the same graph) is measured after the greedy one, so its busy time and
+top kernels stand beside the greedy step's.
+
 When enqueue and wall are equal and the idle share is high, decode is
 bound by the host's launches, not by the card.
 """
@@ -37,6 +42,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs import get_config
+from repro_torch.core import prng
 from repro_torch.core.policies import POLICIES
 from repro_torch.data.synthetic import make_batch
 from repro_torch.launch.profiling import device_kernels
@@ -98,12 +104,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--policy", choices=tuple(POLICIES), default="trimkv")
     ap.add_argument("--budget", type=int, default=512)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="also measure the sampled step program at this "
+                         "temperature")
     args = ap.parse_args(argv)
     cfg = get_config("trimkv-paper-4b")
     model = T.init_params(cfg, seed=0, device="cuda")
     T.init_gate_params(model, cfg, seed=1)
     eng = build_engine(cfg, model, device="cuda", budget=args.budget,
-                       policy=args.policy, prefill_chunk=CHUNK)
+                       policy=args.policy, prefill_chunk=CHUNK,
+                       temperature=args.temperature)
     tokens, _, _ = make_batch("copy", 0, B, PROMPT, cfg.vocab_size)
     _, h_last = eng.prefill(tokens, chunked=True)
     tok = [torch.argmax(T.compute_logits(model, cfg, h_last), dim=-1)]
@@ -124,6 +134,15 @@ def main(argv=None):
 
     measure("eager", eager, lambda: eng.graphs.replays, args.budget)
     measure("graph", graph, lambda: eng.graphs.replays, args.budget)
+    if args.temperature > 0:
+        progs.key.copy_(prng.prng_key(0, device="cuda"))
+
+        def sampled(n):
+            for _ in range(n):
+                tok[0] = progs.decode(tok[0], sampled=True)[0]
+
+        measure(f"graph sampled (T {args.temperature})", sampled,
+                lambda: eng.graphs.replays, args.budget)
 
 
 if __name__ == "__main__":

@@ -35,7 +35,9 @@ from repro_torch.core.policies import POLICIES
 from repro_torch.data.synthetic import make_batch
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import build_engine
-from repro_torch.serve.request import Request, latency_percentiles
+from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.request import (TERMINAL_STATUSES, Request,
+                                       latency_percentiles)
 from repro_torch.serve.scheduler import Scheduler, warm_up
 
 
@@ -83,22 +85,37 @@ def _run_stream(cfg, model, args):
                        prefill_budget=args.prefill_budget,
                        interleaved=args.interleaved,
                        shed_policy=args.shed_policy, fused=not args.eager,
-                       swap_preempt=False)
+                       temperature=args.temperature,
+                       checkpoint_every=args.checkpoint_every,
+                       snapshot_dir=args.snapshot_dir,
+                       snapshot_host_bytes=args.snapshot_host_bytes)
     reqs = poisson_requests(
         args.requests, args.rate, vocab=cfg.vocab_size,
         prompt_lo=max(args.prompt_len // 4, 4), prompt_hi=args.prompt_len,
         new_lo=max(args.max_new // 4, 1), new_hi=args.max_new,
         seed=args.seed, priority_frac=args.priority_frac,
         high_deadline_ms=args.deadline_ms, timeout_ms=args.timeout_ms)
+    greedy = args.temperature == 0.0
+    injector = None
+    if args.inject_faults:
+        injector = FaultInjector(seed=args.fault_seed,
+                                 corrupt_prob=args.corrupt_prob,
+                                 delay_prob=args.delay_prob,
+                                 delay_sec=args.delay_sec,
+                                 burst_prob=args.burst_prob,
+                                 snap_corrupt_prob=args.snap_corrupt_prob,
+                                 io_error_prob=args.io_error_prob)
     # a short warm-up drain captures the step programs, so the printed
     # latencies measure serving
-    warm_up(eng, args.lanes, reqs)
-    sched = Scheduler(eng, n_lanes=args.lanes)
+    warm_up(eng, args.lanes, reqs, greedy=greedy)
+    sched = Scheduler(eng, n_lanes=args.lanes, greedy=greedy,
+                      injector=injector)
     eng.dispatch_count = 0           # count the measured run only
     replays0 = eng.graphs.replays if eng.graphs is not None else 0
     results = sched.run(reqs, respect_arrivals=True)
+    sched.close()
     lats = [results[r.rid].latency_sec for r in reqs
-            if results[r.rid].latency_sec is not None]
+            if results[r.rid].latency_sec is not None] or [0.0]
     total_tok = sum(len(results[r.rid].tokens) for r in reqs)
     wall = max(rs.finish_sec or 0.0 for rs in results.values())
     st = sched.stats()
@@ -114,7 +131,28 @@ def _run_stream(cfg, model, args):
           f"segments={sched.n_segments}, resets={sched.n_resets}, "
           f"preempted={sched.n_preempted}); steps {sched.steps_run}; "
           f"graph replays={replays}")
-    print(f"  supervision: shed={st['n_shed']} timeouts={st['n_timeouts']}")
+    print(f"  supervision: swaps={st['n_swaps']} "
+          f"resumes={st['n_resumes']} retries={st['n_retries']} "
+          f"quarantined={st['n_quarantined']} shed={st['n_shed']} "
+          f"timeouts={st['n_timeouts']} failed={st['n_failed']} "
+          f"faults_injected={st['n_faults_injected']}")
+    print(f"  store: puts={st['store_puts']} "
+          f"ram_hits={st['store_ram_hits']} "
+          f"disk_hits={st['store_disk_hits']} "
+          f"spills={st['store_spills']} "
+          f"evictions={st['store_evictions']} "
+          f"dropped={st['store_dropped']} "
+          f"corrupt_detected={st['store_corrupt_detected']} "
+          f"write_errors={st['store_write_errors']} "
+          f"io_errors={st['store_io_errors']} "
+          f"snapshot_lost={st['n_snapshot_lost']} "
+          f"recovered_sessions={st['n_recovered_sessions']}")
+    if injector is not None:
+        n_terminal = sum(rs.status in TERMINAL_STATUSES
+                         for rs in results.values())
+        print(f"  chaos: {len(results)} submitted (bursts included), "
+              f"{n_terminal} terminal; liveness "
+              f"{'OK' if n_terminal == len(results) else 'VIOLATED'}")
     print(f"  {total_tok} tokens in {wall:.2f}s "
           f"= {total_tok / max(wall, 1e-9):.1f} tok/s; latency "
           f"mean {np.mean(lats):.2f}s p95 {np.percentile(lats, 95):.2f}s; "
@@ -179,6 +217,47 @@ def main(argv=None):
     ap.add_argument("--timeout-ms", type=float, default=None)
     ap.add_argument("--shed-policy", choices=("reject", "evict"),
                     default="reject")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy); each "
+                         "request's threefry key chain starts from its "
+                         "seed")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="--stream: snapshot decoding lanes every N "
+                         "segments (0 = off) so fault replay resumes "
+                         "from the last checkpoint")
+    ap.add_argument("--snapshot-dir", default=None,
+                    help="--stream: disk tier for lane snapshots "
+                         "(np.memmap slab files + JSON manifest; parks "
+                         "and checkpoints write through, and a restart "
+                         "over the same dir recovers parked sessions)")
+    ap.add_argument("--snapshot-host-bytes", type=int, default=0,
+                    help="--stream: host-RAM budget of the snapshot "
+                         "LRU pool in bytes (0 = unlimited); over "
+                         "budget, cold snapshots spill to "
+                         "--snapshot-dir or are dropped with a counter")
+    ap.add_argument("--inject-faults", action="store_true",
+                    help="--stream: attach a seeded FaultInjector and "
+                         "report the liveness verdict")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="--inject-faults: injector RNG seed")
+    ap.add_argument("--corrupt-prob", type=float, default=0.25,
+                    help="--inject-faults: per-step probability of "
+                         "NaN-poisoning one decoding lane's KV cache")
+    ap.add_argument("--delay-prob", type=float, default=0.0,
+                    help="--inject-faults: per-step probability of a "
+                         "host-side dispatch delay")
+    ap.add_argument("--delay-sec", type=float, default=0.05,
+                    help="--inject-faults: length of an injected delay")
+    ap.add_argument("--burst-prob", type=float, default=0.1,
+                    help="--inject-faults: per-step probability of "
+                         "burst-submitting hostile traffic")
+    ap.add_argument("--snap-corrupt-prob", type=float, default=0.0,
+                    help="--inject-faults: per-step probability of "
+                         "flipping one bit in a stored snapshot slab")
+    ap.add_argument("--io-error-prob", type=float, default=0.0,
+                    help="--inject-faults: per-step probability of "
+                         "arming a snapshot-store disk fault (write "
+                         "failure or silent truncation)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -187,12 +266,13 @@ def main(argv=None):
     if args.stream:
         _run_stream(cfg, model, args)
         return
-    eng = build_engine(cfg, model, device=args.device, budget=args.budget,
-                       policy=args.policy, prefill_chunk=args.prefill_chunk,
-                       fused=not args.eager)
     tokens, _, _ = make_batch("copy", args.seed, args.batch,
                               args.prompt_len, cfg.vocab_size)
-    out = eng.generate(tokens, args.max_new, chunked=args.chunked)
+    eng = build_engine(cfg, model, device=args.device, budget=args.budget,
+                       policy=args.policy, prefill_chunk=args.prefill_chunk,
+                       fused=not args.eager, temperature=args.temperature)
+    out = eng.generate(tokens, args.max_new, chunked=args.chunked,
+                       greedy=args.temperature == 0.0, seed=args.seed)
     print(f"device={eng.device} policy={args.policy} budget={args.budget} "
           f"prefill {out['prefill_tok_per_sec']:.1f} tok/s, "
           f"decode {out['tok_per_sec']:.1f} tok/s "

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import prng
 from repro_torch.core.cache import reset_lanes as cache_reset_lanes
 from repro_torch.core.cache import scrub_lanes as cache_scrub_lanes
 from repro_torch.models import blocks
@@ -197,69 +198,73 @@ def decode_step(model: Transformer, cfg, state, token, policy,
     return {"t": t_new, "layers": layers}, compute_logits(model, cfg, x)
 
 
-def sample_token(logits, *, greedy: bool, temperature: float,
-                 generator=None):
-    """logits [B, Vp] -> token [B] (int64). Greedy argmax (the first
-    maximum), or a temperature draw from ``generator``."""
+def sample_token(logits, key, *, greedy: bool, temperature: float):
+    """logits [B, Vp] -> (token [B] int64, new key, the scores the token
+    is the first argmax of). Greedy: the logits (the key is returned as
+    it came). Sampled at ``temperature`` from the threefry chain ``key``
+    [2]: the key is split once and one categorical draw covers the whole
+    [B, Vp] array, as the JAX package's sample_token; the scores are
+    logits / temperature plus the gumbel noise."""
     if greedy or temperature == 0.0:
-        return torch.argmax(logits, dim=-1)
-    probs = torch.softmax(logits / temperature, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return torch.argmax(logits, dim=-1), key, logits
+    key, sub = prng.split(key)
+    scores = prng.perturb(sub, logits / temperature)
+    return torch.argmax(scores, dim=-1), key, scores
 
 
 def top2_margin(logits):
     """logits [B, Vp] -> [B] float32: the largest logit minus the second
-    largest, how near a greedy step came to a tie."""
+    largest, how near an argmax came to a tie."""
     top = torch.topk(logits, 2, dim=-1).values
     return top[:, 0] - top[:, 1]
 
 
 def decode_loop(model: Transformer, cfg, state, first_token, n_steps: int,
-                policy, *, greedy=True, temperature=0.0, generator=None):
+                policy, *, greedy=True, temperature=0.0, key=None):
     """n_steps of emit -> decode -> sample. first_token [B] (from the
-    prefill logits) is emitted first. Returns (state, ids [B, n_steps],
-    the last step's logits [B, Vp], margins [B, n_steps]: each step's
-    top-two logit margin)."""
+    prefill logits) is emitted first. ``key`` [2] (default the key of
+    seed 0) is the sampling chain, split once per sampled step. Returns
+    (state, ids [B, n_steps], the last step's logits [B, Vp], margins
+    [B, n_steps]: each step's top-two margin of the scores it took the
+    argmax of, the final key)."""
     tok = first_token
+    if key is None:
+        key = prng.prng_key(0, device=tok.device)
     out, margins = [], []
     logits = None
     for _ in range(n_steps):
         out.append(tok)
         state, logits = decode_step(model, cfg, state, tok, policy)
-        margins.append(top2_margin(logits))
-        tok = sample_token(logits, greedy=greedy, temperature=temperature,
-                           generator=generator)
+        tok, key, scores = sample_token(logits, key, greedy=greedy,
+                                        temperature=temperature)
+        margins.append(top2_margin(scores))
     return (state, torch.stack(out, dim=1), logits,
-            torch.stack(margins, dim=1))
+            torch.stack(margins, dim=1), key)
 
 
 # --------------------------------------------- continuous-batching lanes
 #
 # The scheduler (serve.scheduler) treats the batch dim as B fixed LANES,
-# each holding one request at its own clock. Retired lanes are reset
-# (pos := -1) and refilled. The helpers below are the model-level
-# surface of that: the masked segment and mixed steps, greedy per-lane
-# sampling and lane-granular state surgery. The JAX package runs each
-# loop as one lax.scan; here the steps are the bodies of the step
-# programs of serve.graphs.LanePrograms, which the scheduler replays as
-# CUDA graphs and the loops below run eagerly.
+# each holding one request at its own clock and its own threefry key
+# chain. Retired lanes are reset (pos := -1) and refilled. The helpers
+# below are the model-level surface of that: the masked segment and
+# mixed steps, per-lane sampling and lane-granular state surgery. The
+# JAX package runs each loop as one lax.scan; here the steps are the
+# bodies of the step programs of serve.graphs.LanePrograms, which the
+# scheduler replays as CUDA graphs and the loops below run eagerly.
 
 
-def require_greedy_lanes(greedy: bool, temperature: float):
-    """Raise unless the lanes decode greedily: sampled lanes need a
-    graph-safe generator per lane, which the port does not have yet
-    (ROADMAP queue 1, sampled lanes)."""
-    if not (greedy or temperature == 0.0):
-        raise NotImplementedError(
-            "sampled (temperature > 0) lanes are not ported; see ROADMAP "
-            "queue 1, sampled lanes")
-
-
-def sample_token_lanes(logits, *, greedy: bool = True,
+def sample_token_lanes(logits, keys, *, greedy: bool = True,
                        temperature: float = 0.0):
-    """Per-lane greedy tokens [B] (int64) from logits [B, Vp]."""
-    require_greedy_lanes(greedy, temperature)
-    return torch.argmax(logits, dim=-1)
+    """Per-lane tokens [B] (int64) from logits [B, Vp] and the lanes' own
+    key chains keys [B, 2]: greedy argmax (keys returned as they came),
+    or each lane splits its key once and draws from its own row, the
+    stream a B = 1 generate seeded with that key draws. Returns
+    (tokens, new keys)."""
+    if greedy or temperature == 0.0:
+        return torch.argmax(logits, dim=-1), keys
+    new_keys, sub = prng.split(keys)
+    return prng.categorical_rows(sub, logits / temperature), new_keys
 
 
 def _emit(tok, live, nxt, n_emitted, max_new, eos_id):
@@ -271,39 +276,44 @@ def _emit(tok, live, nxt, n_emitted, max_new, eos_id):
     return torch.where(live, nxt, tok), n_emitted, done
 
 
-def segment_step(model: Transformer, cfg, state, tok, live, n_emitted,
+def segment_step(model: Transformer, cfg, state, tok, keys, live, n_emitted,
                  max_new, eos_id, ok, policy, *, greedy=True,
                  temperature=0.0):
     """One step of a masked decode segment over B lanes: lanes in
     ``live`` ([B] bool) emit their carried token ``tok``, feed it
     through the masked decode_step (the others are frozen) and take the
-    next greedy token. Returns (state, new_tok, n_emitted, done, ok,
-    logits) — ok [B] turns False for a live lane whose logits were not
+    next token; a live lane advances its key (keys [B, 2]), the others
+    keep theirs. Returns (state, new_tok, keys, n_emitted, done, ok,
+    logits); ok [B] turns False for a live lane whose logits were not
     finite."""
     state, logits = decode_step(model, cfg, state, tok, policy, active=live)
     ok = ok & (~live | torch.isfinite(logits).all(dim=-1))
-    nxt = sample_token_lanes(logits, greedy=greedy, temperature=temperature)
+    nxt, new_keys = sample_token_lanes(logits, keys, greedy=greedy,
+                                       temperature=temperature)
+    keys = torch.where(live[:, None], new_keys, keys)
     tok, n_emitted, done = _emit(tok, live, nxt, n_emitted, max_new, eos_id)
-    return state, tok, n_emitted, done, ok, logits
+    return state, tok, keys, n_emitted, done, ok, logits
 
 
-def mixed_step(model: Transformer, cfg, state, tok, active, n_emitted,
-               max_new, eos_id, ok, ctoks, nv, fin, policy, serve_cfg, *,
-               finishing: bool, greedy=True, temperature=0.0):
+def mixed_step(model: Transformer, cfg, state, tok, keys, active, n_emitted,
+               max_new, eos_id, ok, ctoks, nv, fin, new_keys, policy,
+               serve_cfg, *, finishing: bool, greedy=True, temperature=0.0):
     """One step of an interleaved segment: the decode sub-step of
     segment_step over ``active`` lanes, then one prompt chunk ctoks
     [B, C] with per-lane real counts nv [B] (0 = no chunk: the row is
     frozen). Lanes in ``fin`` [B] consumed their last chunk: they take
     the greedy token of that chunk's last hidden state as their carried
-    token, n_emitted 0, and turn active. ``finishing`` (the host's
-    fin.any()) picks the variant that computes those logits; without it
-    the transition is the identity, as when fin has no lane. Returns
-    (state, tok, active, n_emitted, ok, emit, the decode sub-step's
-    logits)."""
+    token (one-shot generate's first token is the prefill argmax under
+    sampling too), their request's key from new_keys [B, 2] (after this
+    step's split, so their first draw splits the seed's key), n_emitted
+    0, and turn active. ``finishing`` (the host's fin.any()) picks the
+    variant that computes those logits; without it the transition is
+    the identity, as when fin has no lane. Returns (state, tok, keys,
+    active, n_emitted, ok, emit, the decode sub-step's logits)."""
     emit = active
-    state, tok, n_emitted, done, ok, logits = segment_step(
-        model, cfg, state, tok, active, n_emitted, max_new, eos_id, ok,
-        policy, greedy=greedy, temperature=temperature)
+    state, tok, keys, n_emitted, done, ok, logits = segment_step(
+        model, cfg, state, tok, keys, active, n_emitted, max_new, eos_id,
+        ok, policy, greedy=greedy, temperature=temperature)
     active = active & ~done
     state, h_last = _prefill_chunk_step(model, cfg, ctoks, state, policy,
                                         serve_cfg, n_valid=nv)
@@ -312,9 +322,10 @@ def mixed_step(model: Transformer, cfg, state, tok, active, n_emitted,
         first = torch.argmax(lg, dim=-1)
         ok = ok & (~fin | torch.isfinite(lg).all(dim=-1))
         tok = torch.where(fin, first, tok)
+        keys = torch.where(fin[:, None], new_keys, keys)
         n_emitted = torch.where(fin, torch.zeros_like(n_emitted), n_emitted)
         active = active | fin
-    return state, tok, active, n_emitted, ok, emit, logits
+    return state, tok, keys, active, n_emitted, ok, emit, logits
 
 
 def _lane_programs(model, cfg, state, policy, serve_cfg, steps):
@@ -328,50 +339,51 @@ def _lane_programs(model, cfg, state, policy, serve_cfg, steps):
                         steps=steps)
 
 
-def decode_segment_loop(model: Transformer, cfg, state, tok, active,
+def decode_segment_loop(model: Transformer, cfg, state, tok, keys, active,
                         n_emitted, max_new, eos_id, n_steps: int, policy, *,
-                        greedy=True, temperature=0.0, n_real=None,
-                        serve_cfg=None):
+                        greedy=True, n_real=None, serve_cfg=None):
     """A masked continuous-batching decode segment: n_steps of
     segment_step over B lanes that may be mid-request, finished or
     empty, through the segment program of serve.graphs.LanePrograms
-    (eager). Per-lane carries: tok [B], active [B] bool, n_emitted [B];
-    limits max_new [B] and eos_id [B] (-1 = never). A lane that emits
-    its eos or its max_new-th token turns inactive at the step's end.
-    n_real (<= n_steps): only the first n_real steps run; the rest are
-    the identity (no emission, no state change), as the JAX package
-    masks a bucket's tail. The caches of ``state`` are updated in place.
-    Returns (state, tok, active, n_emitted, ids [B, n_steps], emitted
-    [B, n_steps] bool, ok [B] bool); ids[l, j] is lane l's output iff
-    emitted[l, j]."""
-    require_greedy_lanes(greedy, temperature)
+    (eager). Per-lane carries: tok [B], keys [B, 2] (the lanes' key
+    chains), active [B] bool, n_emitted [B]; limits max_new [B] and
+    eos_id [B] (-1 = never). Sampling follows serve_cfg.temperature
+    unless ``greedy``. A lane that emits its eos or its max_new-th token
+    turns inactive at the step's end. n_real (<= n_steps): only the
+    first n_real steps run; the rest are the identity (no emission, no
+    state or key change), as the JAX package masks a bucket's tail. The
+    caches of ``state`` are updated in place. Returns (state, tok, keys,
+    active, n_emitted, ids [B, n_steps], emitted [B, n_steps] bool, ok
+    [B] bool); ids[l, j] is lane l's output iff emitted[l, j]."""
     lanes = _lane_programs(model, cfg, state, policy, serve_cfg, n_steps)
     lanes.tok.copy_(torch.as_tensor(tok))
+    lanes.keys.copy_(torch.as_tensor(np.asarray(keys, np.int64)))
     lanes.upload_carries(active, n_emitted, max_new, eos_id)
     n_real = n_steps if n_real is None else int(n_real)
-    lanes.run_segment(n_real)
+    lanes.run_segment(n_real, greedy=greedy)
     return (lanes.state, *lanes.results(n_steps, n_real))
 
 
-def mixed_step_loop(model: Transformer, cfg, state, tok, active, n_emitted,
-                    max_new, eos_id, chunks, chunk_valid, finish, policy,
-                    serve_cfg, *, greedy=True, temperature=0.0):
+def mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
+                    n_emitted, max_new, eos_id, chunks, chunk_valid, finish,
+                    new_keys, policy, serve_cfg, *, greedy=True):
     """An interleaved prefill/decode segment through the mixed programs
     of serve.graphs.LanePrograms (eager): step j runs mixed_step with
     chunks[j] [B, C], chunk_valid[j] [B] and finish[j] [B] (a lane that
-    consumes its last prompt chunk at step j; it starts emitting at step
-    j + 1). A lane is in at most one mode per step (active lanes have
-    chunk_valid 0). The variant with first-token logits runs only on
-    steps where some lane finishes, chosen on the host, where the JAX
-    package's lax.cond chooses on the device. Returns the tuple of
-    decode_segment_loop."""
-    require_greedy_lanes(greedy, temperature)
+    consumes its last prompt chunk at step j takes its key from new_keys
+    [B, 2] and starts emitting at step j + 1). A lane is in at most one
+    mode per step (active lanes have chunk_valid 0). The variant with
+    first-token logits runs only on steps where some lane finishes,
+    chosen on the host, where the JAX package's lax.cond chooses on the
+    device. Returns the tuple of decode_segment_loop."""
     n_steps = int(np.shape(chunks)[0])
     lanes = _lane_programs(model, cfg, state, policy, serve_cfg, n_steps)
     lanes.tok.copy_(torch.as_tensor(tok))
+    lanes.keys.copy_(torch.as_tensor(np.asarray(keys, np.int64)))
     lanes.upload_carries(active, n_emitted, max_new, eos_id)
     lanes.run_mixed(np.asarray(chunks), np.asarray(chunk_valid),
-                    np.asarray(finish))
+                    np.asarray(finish), np.asarray(new_keys, np.int64),
+                    greedy=greedy)
     return (lanes.state, *lanes.results(n_steps))
 
 
@@ -392,6 +404,34 @@ def scrub_lanes(state, lane_mask):
     state["t"].masked_fill_(lane_mask, 0)
     for st in state["layers"]:
         cache_scrub_lanes(st, lane_mask)
+    return state
+
+
+def extract_lanes(state, lanes):
+    """Gather lanes ``lanes`` ([k] int) of the B-lane state into a new
+    batch-k sub-state. Eviction keeps each lane's live KV inside its
+    bounded M-slot slab, so the sub-state is the lane's complete movable
+    state, O(M x layers) however many tokens it has generated."""
+    idx = torch.as_tensor(lanes, dtype=torch.long, device=state["t"].device)
+    return {"t": state["t"].index_select(0, idx),
+            "layers": [{k: v.index_select(0, idx) for k, v in st.items()}
+                       for st in state["layers"]]}
+
+
+def insert_lanes(state, sub_state, lanes):
+    """Scatter a batch-k sub_state into lanes ``lanes`` ([k] int) of the
+    B-lane state, IN PLACE (every leaf of those lanes overwritten, K/V
+    included): the static buffers of captured programs keep their
+    addresses, where a rebound leaf would leave the next replay reading
+    the old buffer. insert_lanes(s, extract_lanes(s, l), l) changes
+    nothing. The JAX package also has a mask twin, install_lanes, for
+    its mesh (lane-aligned, shard-local installs); resume here moves
+    only the chosen lanes' rows. Returns the same state."""
+    idx = torch.as_tensor(lanes, dtype=torch.long, device=state["t"].device)
+    state["t"].index_copy_(0, idx, sub_state["t"])
+    for st, sub in zip(state["layers"], sub_state["layers"]):
+        for k, v in st.items():
+            v.index_copy_(0, idx, sub[k])
     return state
 
 

@@ -15,7 +15,9 @@ programs then run uncaptured: ``serve.graphs.LanePrograms`` without a
 pool). Single-shot prefill
 is one eager pass either way (the card is busy through it, and a graph
 per prompt length would buy nothing). Sampled (temperature) decoding
-runs the eager loop. On the CPU every step runs eagerly.
+replays the sampled decode program, which draws from a threefry key
+chain seeded as ``jax.random.PRNGKey(seed)`` (core.prng), so a seed
+gives the JAX package's tokens. On the CPU every step runs eagerly.
 
 ``dispatch_count`` counts what the JAX engine counts: one per
 single-shot prefill, per fused chunked prefill (one per chunk when
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ServeConfig
+from repro_torch.core import prng
 from repro_torch.core.policies import make_policy
 from repro_torch.models import transformer as T
 from repro_torch.models.common import resolve_device
@@ -90,14 +93,13 @@ class Engine:
         return T.init_decode_state(self.cfg, batch, self.serve.budget,
                                    self.model.device)
 
-    def lane_closures(self, greedy: bool, n_lanes: int) -> LanePrograms:
+    def lane_closures(self, n_lanes: int) -> LanePrograms:
         """The continuous-batching programs of ``n_lanes`` lanes
-        (serve.scheduler), made once per engine so that every Scheduler
-        on it shares one set of graphs; a Scheduler resets their static
-        state when it starts. Captured graphs when ``serve.fused`` on
-        the card. Greedy lanes only: sampled lanes need a graph-safe
-        generator per lane (ROADMAP queue 1, sampled lanes)."""
-        T.require_greedy_lanes(greedy, self.serve.temperature)
+        (serve.scheduler), greedy and sampled alike (the caller picks per
+        dispatch), made once per engine and keyed by n_lanes, so that
+        every Scheduler on it shares one set of graphs; a Scheduler
+        resets their static state when it starts. Captured graphs when
+        ``serve.fused`` on the card."""
         if n_lanes not in self._lane_closures:
             self._lane_closures[n_lanes] = self._lane_programs(
                 n_lanes, self.graphs if self.serve.fused else None)
@@ -157,13 +159,18 @@ class Engine:
                  greedy: bool = True, seed: int = 0, fused=None):
         """Prefill, then max_new decode steps. Returns a dict with ids
         [B, max_new] (numpy), margins [B, max_new] (numpy: the top-two
-        logit margin of the step that chose each id), the last step's
-        logits [B, Vp] and the final state (tensors on the engine's
-        device), prefill_sec and decode_sec (host clock around work that
-        ends in a device synchronize) and the token rates. fused (default
-        serve_cfg.fused): greedy decode replays the decode program's
-        graph per token; sampled decoding and fused=False run the eager
-        loop."""
+        margin of the scores the step that chose each id took the argmax
+        of: the logits, or under sampling logits / T plus gumbel noise),
+        the final key [2] (numpy; the seed's own key when greedy), the
+        last step's logits [B, Vp] and the final state (tensors on the
+        engine's device), prefill_sec and decode_sec (host clock around work that
+        ends in a device synchronize) and the token rates. The first
+        token is the prefill's greedy token; with ``greedy`` False (and
+        serve.temperature > 0) every later one is drawn from the key
+        chain of ``seed``: one split per step, one categorical draw over
+        the whole [B, Vp] logits. fused (default serve_cfg.fused): the
+        decode program's graph (greedy or sampled) replays per token;
+        fused=False runs the eager loop."""
         fused = self._fused(fused)
         tokens = torch.as_tensor(tokens, device=self.model.device)
         B, Tn = tokens.shape
@@ -174,32 +181,33 @@ class Engine:
         self._sync()
         t1 = time.perf_counter()
         greedy = greedy or self.serve.temperature == 0.0
-        if fused and greedy:
+        key = prng.prng_key(seed, device=self.model.device)
+        if fused:
             progs = self._programs(B)
             if state is not progs.state:         # single-shot prefill
                 copy_state(progs.state, state)
+            progs.key.copy_(key)
             self.dispatch_count += 1
             outs, margins, logits = [], [margin0], None
             for _ in range(max_new):
                 outs.append(tok.clone())
-                tok, margin, logits = progs.decode(tok)
+                tok, margin, logits = progs.decode(tok, sampled=not greedy)
                 margins.append(margin.clone())
             state, ids = progs.state, torch.stack(outs, dim=1)
             margins = torch.stack(margins[:max_new], dim=1)
             logits = None if logits is None else logits.clone()
+            key = progs.key.clone()
         else:
-            gen = torch.Generator(device=self.model.device)
-            gen.manual_seed(seed)
             self.dispatch_count += max_new
-            state, ids, logits, steps = T.decode_loop(
+            state, ids, logits, steps, key = T.decode_loop(
                 self.model, self.cfg, state, tok, max_new, self.policy,
-                greedy=greedy, temperature=self.serve.temperature,
-                generator=gen)
+                greedy=greedy, temperature=self.serve.temperature, key=key)
             margins = torch.cat([margin0[:, None], steps], dim=1)[:, :max_new]
         ids, margins = ids.cpu().numpy(), margins.cpu().numpy()
         t2 = time.perf_counter()
         prefill_sec, decode_sec = t1 - t0, t2 - t1
         return {"ids": ids, "margins": margins, "logits": logits,
+                "key": key.cpu().numpy(),
                 "state": state, "prefill_sec": prefill_sec,
                 "decode_sec": decode_sec,
                 "prefill_tok_per_sec": B * Tn / max(prefill_sec, 1e-9),

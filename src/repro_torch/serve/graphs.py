@@ -20,13 +20,33 @@ the programs over it:
   ragged admission grid (rows with 0 are frozen);
 - ``decode``: one lock-step decode step (Engine.generate and teacher
   forcing), with its logits, greedy token and top-two margin;
+  ``decode_sampled`` draws the token at serve.temperature from the
+  threefry key ``key`` [2] instead, advancing it in place (its margin is
+  that of the perturbed scores it took the argmax of);
 - ``segment``: one step of a masked scheduler segment (per-lane active,
   emission count, max_new, eos and health flags);
 - ``mixed`` and ``mixed_first``: one interleaved step (a decode
   sub-step and a chunk sub-step), without and with the first-token
-  logits of lanes that finish their prompt; the host picks the variant
-  per step from its finish grid, where the JAX package's lax.cond picks
-  on the device.
+  logits of lanes that finish their prompt (which take their request's
+  key from ``gkeys``); the host picks the variant per step from its
+  finish grid, where the JAX package's lax.cond picks on the device.
+
+Each of the segment and mixed programs has a sampled twin (the name
+with ``_sampled`` appended) that draws per lane at serve.temperature
+from the lanes' key chains ``keys`` [B, 2]; the caller picks greedy or
+sampled per dispatch, as it does for ``decode``. Sampling is threefry
+(core.prng) on key tensors, so a graph captures it like any other
+elementwise work and no generator state is involved.
+
+Lane surgery runs outside the graphs, as reset and scrub do: ``extract``
+copies chosen lanes' rows, carried tokens and keys to the host (through
+one reused pinned staging buffer on the card, one synchronize, then
+into ordinary host memory) and ``resume`` copies snapshot
+rows, tokens and keys back into chosen lanes, in place, so the captured
+programs read the installed rows on their next replay. (The JAX package
+moves all B lanes, lane-aligned, and installs the chosen ones with a
+mask, which keeps its programs shard-local under a mesh; here only the
+chosen lanes' rows move.)
 
 Capture rules the programs follow. Nothing in them copies to or from
 the host or synchronizes. ``cache_topm_merge`` builds new cache tensors,
@@ -48,8 +68,10 @@ from __future__ import annotations
 
 import gc
 
+import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
@@ -127,6 +149,36 @@ class StepProgram:
         self.graph = graph
 
 
+def host_dtype(dtype: torch.dtype):
+    """The numpy dtype a state leaf of ``dtype`` travels to the host as:
+    bfloat16 as its int16 bit patterns (numpy has no bfloat16)."""
+    if dtype == torch.bfloat16:
+        return np.dtype(np.int16)
+    return torch.empty((), dtype=dtype).numpy().dtype
+
+
+def _to_host(t):
+    """A host tensor -> numpy, bfloat16 as int16 bits (shares memory)."""
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _from_host(a, dtype):
+    """numpy (bfloat16 as int16 bits) -> a CPU tensor of ``dtype``."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(dtype) if dtype == torch.bfloat16 else t
+
+
+def host_row_template(cfg, budget: int):
+    """One lane's snapshot state with unwritten numpy leaves: the shapes
+    and host dtypes extract gives a lane of this config (its spec, for
+    serve.store.state_spec)."""
+    from repro_torch.models.transformer import init_decode_state
+    meta = init_decode_state(cfg, 1, budget, "meta")
+    return {"t": np.empty((1,), host_dtype(meta["t"].dtype)),
+            "layers": [{k: np.empty(tuple(v.shape), host_dtype(v.dtype))
+                        for k, v in st.items()} for st in meta["layers"]]}
+
+
 def copy_state(dst, src):
     """Copy a decode state's leaves into the static state ``dst``."""
     dst["t"].copy_(src["t"])
@@ -150,6 +202,7 @@ class LanePrograms:
         self.model, self.cfg = model, cfg
         self.serve, self.policy = serve, policy
         self.pool = pool
+        self.temperature = serve.temperature
         self.state = state
         self.batch = B = int(state["t"].shape[0])
         dev = self.model.device
@@ -161,6 +214,11 @@ class LanePrograms:
         self.logits = torch.zeros((B, self.cfg.padded_vocab),
                                   dtype=torch.float32, device=dev)
         self.margin = torch.zeros((B,), dtype=torch.float32, device=dev)
+        # threefry keys: the lock-step chain [2], the lanes' chains
+        # [B, 2] and the keys lanes finishing their prompt take [B, 2]
+        self.key = torch.zeros((2,), dtype=torch.int64, device=dev)
+        self.keys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
+        self.gkeys = torch.zeros((B, 2), dtype=torch.int64, device=dev)
         # one chunk: tokens, real counts, the carried last hidden state
         self.ctok = torch.zeros((B, C), dtype=torch.int64, device=dev)
         self.cnv = torch.zeros((B,), dtype=torch.int32, device=dev)
@@ -175,16 +233,23 @@ class LanePrograms:
         self.ids = torch.zeros((B, W), dtype=torch.int64, device=dev)
         self.emitted = torch.zeros((B, W), dtype=torch.bool, device=dev)
         self.programs = {}
+        self._staging = None      # extract's pinned host rows, made once
 
     # ------------------------------------------------------------ programs
 
     def program(self, name: str) -> StepProgram:
         prog = self.programs.get(name)
         if prog is None:
-            fn = {"chunk": self._chunk, "decode": self._decode,
-                  "segment": self._segment,
-                  "mixed": lambda: self._mixed(False),
-                  "mixed_first": lambda: self._mixed(True)}[name]
+            fn = {"chunk": self._chunk,
+                  "decode": lambda: self._decode(False),
+                  "decode_sampled": lambda: self._decode(True),
+                  "segment": lambda: self._segment(False),
+                  "segment_sampled": lambda: self._segment(True),
+                  "mixed": lambda: self._mixed(False, False),
+                  "mixed_sampled": lambda: self._mixed(False, True),
+                  "mixed_first": lambda: self._mixed(True, False),
+                  "mixed_first_sampled": lambda: self._mixed(True, True),
+                  }[name]
             prog = self.programs[name] = StepProgram(name, fn, self.pool)
         return prog
 
@@ -196,53 +261,63 @@ class LanePrograms:
         self.h_last.copy_(torch.where((self.cnv > 0)[:, None], h,
                                       self.h_last))
 
-    def _decode(self):
+    def _decode(self, sampled: bool):
         new, logits = T.decode_step(self.model, self.cfg, self.state,
                                     self.tok, self.policy)
         self.state["t"].copy_(new["t"])
         self.logits.copy_(logits)
-        self.margin.copy_(T.top2_margin(logits))
-        self.tok.copy_(torch.argmax(logits, dim=-1))
+        tok, key, scores = T.sample_token(logits, self.key,
+                                          greedy=not sampled,
+                                          temperature=self.temperature)
+        self.margin.copy_(T.top2_margin(scores))
+        self.tok.copy_(tok)
+        if sampled:
+            self.key.copy_(key)
 
     def _carries(self):
         io = self.io
         return (io[IO_ACTIVE] != 0, io[IO_EMITTED], io[IO_MAX_NEW],
                 io[IO_EOS], io[IO_OK] != 0, io[IO_STEP, :1].long())
 
-    def _commit(self, j, emitted_tok, emit, tok, active, n_emitted, ok):
+    def _commit(self, j, emitted_tok, emit, tok, keys, active, n_emitted,
+                ok):
         """Write one step's results into the static buffers."""
         io = self.io
         self.ids.index_copy_(1, j, emitted_tok[:, None])
         self.emitted.index_copy_(1, j, emit[:, None])
         self.tok.copy_(tok)
+        self.keys.copy_(keys)
         io[IO_ACTIVE].copy_(active)
         io[IO_EMITTED].copy_(n_emitted)
         io[IO_OK].copy_(ok)
         io[IO_STEP, :1].add_(1)
 
-    def _segment(self):
+    def _segment(self, sampled: bool):
         active, n_emitted, max_new, eos, ok, j = self._carries()
         tok = self.tok
-        new, ntok, n_emitted, done, ok, logits = T.segment_step(
-            self.model, self.cfg, self.state, tok, active, n_emitted,
-            max_new, eos, ok, self.policy)
+        new, ntok, keys, n_emitted, done, ok, logits = T.segment_step(
+            self.model, self.cfg, self.state, tok, self.keys, active,
+            n_emitted, max_new, eos, ok, self.policy, greedy=not sampled,
+            temperature=self.temperature)
         self.state["t"].copy_(new["t"])
         self.logits.copy_(logits)
-        self._commit(j, tok, active, ntok, active & ~done, n_emitted, ok)
+        self._commit(j, tok, active, ntok, keys, active & ~done, n_emitted,
+                     ok)
 
-    def _mixed(self, finishing: bool):
+    def _mixed(self, finishing: bool, sampled: bool):
         active, n_emitted, max_new, eos, ok, j = self._carries()
         tok = self.tok
         ctoks = self.grid.index_select(0, j)[0]
         nv = self.gnv.index_select(0, j)[0]
         fin = self.gfin.index_select(0, j)[0]
-        new, ntok, nactive, n_emitted, ok, emit, logits = T.mixed_step(
-            self.model, self.cfg, self.state, tok, active, n_emitted,
-            max_new, eos, ok, ctoks, nv, fin, self.policy, self.serve,
-            finishing=finishing)
+        new, ntok, keys, nactive, n_emitted, ok, emit, logits = T.mixed_step(
+            self.model, self.cfg, self.state, tok, self.keys, active,
+            n_emitted, max_new, eos, ok, ctoks, nv, fin, self.gkeys,
+            self.policy, self.serve, finishing=finishing,
+            greedy=not sampled, temperature=self.temperature)
         copy_state(self.state, new)
         self.logits.copy_(logits)
-        self._commit(j, tok, emit, ntok, nactive, n_emitted, ok)
+        self._commit(j, tok, emit, ntok, keys, nactive, n_emitted, ok)
 
     # ------------------------------------------------------- lock-step use
 
@@ -253,6 +328,9 @@ class LanePrograms:
                           device=self.tok.device)
         self.scrub(mask)
         self.tok.zero_()
+        self.key.zero_()
+        self.keys.zero_()
+        self.gkeys.zero_()
         self.io.zero_()
         self.h_last.zero_()
 
@@ -275,28 +353,33 @@ class LanePrograms:
             prog.run()
         return self.h_last
 
-    def admit(self, chunks, n_valid, lane_mask):
+    def admit(self, chunks, n_valid, lane_mask, new_keys=None):
         """Phased admission: prefill the ragged chunk grid (chunks
         [n, B, C], n_valid [n, B], numpy; lanes not admitted ride as
         all-zero rows and stay frozen) straight into the lanes of
-        lane_mask ([B] bool, numpy), which are reset, and set their
-        carried token to the greedy token of their prompt's last
-        hidden state. The JAX package prefills a fresh sub-state and
-        installs its rows; into a reset lane that gives the same tokens
-        and slot positions (a reset slot's stale K/V bytes are never
-        read)."""
+        lane_mask ([B] bool, numpy), which are reset, set their carried
+        token to the greedy token of their prompt's last hidden state
+        and their key chain to new_keys ([B, 2], numpy; None keeps the
+        keys). The JAX package prefills a fresh sub-state and installs
+        its rows; into a reset lane that gives the same tokens and slot
+        positions (a reset slot's stale K/V bytes are never read)."""
         h_last = self.prefill_chunks(chunks, n_valid)
         first = torch.argmax(T.compute_logits(self.model, self.cfg, h_last),
                              dim=-1)
         mask = torch.as_tensor(lane_mask, device=self.tok.device)
         self.tok.copy_(torch.where(mask, first, self.tok))
+        if new_keys is not None:
+            keys = torch.as_tensor(np.asarray(new_keys, np.int64),
+                                   device=self.keys.device)
+            self.keys.copy_(torch.where(mask[:, None], keys, self.keys))
 
-    def decode(self, tok):
+    def decode(self, tok, sampled: bool = False):
         """One lock-step decode step feeding tok [B] (device). Returns
-        (next greedy token, its top-two margin, logits): views of the
-        static buffers, valid until the next step."""
+        (next token: greedy, or sampled from ``key``; the top-two
+        margin; logits): views of the static buffers, valid until the
+        next step."""
         self.tok.copy_(tok)
-        self.program("decode").run()
+        self.program("decode_sampled" if sampled else "decode").run()
         return self.tok, self.margin, self.logits
 
     # ----------------------------------------------------------- lane ops
@@ -311,6 +394,71 @@ class LanePrograms:
         (transformer.scrub_lanes)."""
         T.scrub_lanes(self.state, mask)
 
+    def extract(self, lanes):
+        """Copy the lanes ``lanes`` (host ints) to the host: their rows of
+        every state leaf (transformer.extract_lanes, then one
+        device-to-host copy per leaf), carried tokens and keys, then one
+        synchronize. On the card the copies land in a pinned staging
+        buffer of B lanes, made at the first extract and reused, and
+        each lane's rows are then copied out into ordinary host memory,
+        so a snapshot the store keeps pins no page-locked memory.
+        Returns one (row, tok, key) per lane: row a state of batch 1
+        with numpy leaves (bfloat16 as int16 bits), tok an int32 scalar,
+        key [2] uint32."""
+        pin = self.tok.device.type == "cuda"
+        sub = T.extract_lanes(self.state, lanes)
+        flat = [sub["t"]] + [v for st in sub["layers"] for v in st.values()]
+        flat += [self.tok, self.keys]
+        if pin:
+            if self._staging is None or any(
+                    b.dtype != v.dtype or b.shape[1:] != v.shape[1:]
+                    for b, v in zip(self._staging, flat)):
+                self._staging = [torch.empty((self.batch, *v.shape[1:]),
+                                             dtype=v.dtype, pin_memory=True)
+                                 for v in flat]
+            host = [buf[:len(v)].copy_(v, non_blocking=True)
+                    for buf, v in zip(self._staging, flat)]
+            torch.cuda.current_stream(self.tok.device).synchronize()
+        else:
+            host = flat
+        toks, keys = host[-2], host[-1]
+        out = []
+        for i, lane in enumerate(lanes):
+            rows = iter([_to_host(v[i:i + 1]).copy() for v in host[:-2]])
+            row = {"t": next(rows),
+                   "layers": [{k: next(rows) for k in st}
+                              for st in sub["layers"]]}
+            out.append((row, np.int32(toks[lane]),
+                        keys[lane].numpy().astype(np.uint32)))
+        return out
+
+    def resume(self, lanes, rows, toks, keys):
+        """Install snapshots into lanes ``lanes`` (host ints): rows[i] (a
+        batch-1 state with numpy leaves, as extract gives) replaces every
+        leaf's row of lanes[i] IN PLACE (transformer.insert_lanes), and
+        the lane's carried token and key become toks[i] and keys[i]
+        ([2] uint32). One synchronize at the end, so the host buffers may
+        be freed."""
+        dev = self.tok.device
+        nb = dev.type == "cuda"
+
+        def stack(leaves, dtype):
+            return torch.cat([_from_host(a, dtype).to(dev, non_blocking=nb)
+                              for a in leaves])
+
+        sub = {"t": stack([r["t"] for r in rows], self.state["t"].dtype),
+               "layers": [{k: stack([r["layers"][i][k] for r in rows],
+                                    v.dtype) for k, v in st.items()}
+                          for i, st in enumerate(self.state["layers"])]}
+        T.insert_lanes(self.state, sub, lanes)
+        idx = torch.as_tensor(lanes, dtype=torch.long, device=dev)
+        self.tok.index_copy_(0, idx, torch.as_tensor(
+            np.asarray(toks, np.int64), device=dev))
+        self.keys.index_copy_(0, idx, torch.as_tensor(
+            np.asarray(keys, np.int64).reshape(-1, 2), device=dev))
+        if nb:
+            torch.cuda.current_stream(dev).synchronize()
+
     def upload_carries(self, active, n_emitted, max_new, eos):
         """Refresh the per-lane carries before a dispatch (one host copy):
         the host's active / n_emitted / max_new / eos, ok all True and
@@ -324,8 +472,8 @@ class LanePrograms:
         self.io.copy_(host)
 
     def results(self, n_steps: int, n_run: int | None = None):
-        """A dispatch's results as new tensors on the device: (tok,
-        active [B] bool, n_emitted [B], ids [B, n_steps], emitted
+        """A dispatch's results as new tensors on the device: (tok, keys
+        [B, 2], active [B] bool, n_emitted [B], ids [B, n_steps], emitted
         [B, n_steps] bool, ok [B] bool). Only the first n_run (default
         n_steps) steps ran; the rest read as the identity steps of a
         masked bucket tail: no emission, the final carried token."""
@@ -335,33 +483,45 @@ class LanePrograms:
         emitted = self.emitted[:, :n_steps].clone()
         ids[:, n_run:] = self.tok[:, None]
         emitted[:, n_run:] = False
-        return (self.tok.clone(), io[IO_ACTIVE] != 0, io[IO_EMITTED].clone(),
-                ids, emitted, io[IO_OK] != 0)
+        return (self.tok.clone(), self.keys.clone(), io[IO_ACTIVE] != 0,
+                io[IO_EMITTED].clone(), ids, emitted, io[IO_OK] != 0)
 
     def download(self, n_steps: int):
         """The dispatch's results on the host: (active [B] bool,
         n_emitted [B], ok [B] bool, ids [B, n_steps], emitted
         [B, n_steps]) as numpy arrays (one sync)."""
-        _, active, n_emitted, ids, emitted, ok = (
+        _, _, active, n_emitted, ids, emitted, ok = (
             x.cpu().numpy() for x in self.results(n_steps))
         return active, n_emitted, ok, ids, emitted
 
-    def run_segment(self, n_real: int):
-        """n_real replays of the segment program; the carries must have
-        been uploaded."""
-        prog = self.program("segment")
+    def _suffix(self, greedy: bool) -> str:
+        return "" if greedy or self.temperature == 0.0 else "_sampled"
+
+    def run_segment(self, n_real: int, greedy: bool = True):
+        """n_real replays of the segment program (its sampled twin unless
+        ``greedy``); the carries must have been uploaded."""
+        prog = self.program("segment" + self._suffix(greedy))
         for _ in range(n_real):
             prog.run()
 
-    def run_mixed(self, chunks, nv, finish):
-        """The mixed programs over a schedule of d steps: chunks
-        [d, B, C], nv [d, B], finish [d, B] (numpy, d <= decode_segment);
-        one replay per step, the variant with first-token logits where
-        some lane finishes."""
+    def run_mixed(self, chunks, nv, finish, new_keys=None,
+                  greedy: bool = True):
+        """The mixed programs (their sampled twins unless ``greedy``) over
+        a schedule of d steps: chunks [d, B, C], nv [d, B], finish
+        [d, B] (numpy, d <= decode_segment) and the keys of the lanes
+        finishing their prompt in it, new_keys [B, 2] (numpy; None:
+        zeros); one replay per step, the variant with first-token logits
+        where some lane finishes."""
         d = chunks.shape[0]
         self.grid[:d].copy_(torch.as_tensor(chunks))
         self.gnv[:d].copy_(torch.as_tensor(nv))
         self.gfin[:d].copy_(torch.as_tensor(finish))
+        if new_keys is None:
+            self.gkeys.zero_()
+        else:
+            self.gkeys.copy_(torch.as_tensor(np.asarray(new_keys,
+                                                        np.int64)))
+        suffix = self._suffix(greedy)
         for j in range(d):
-            self.program("mixed_first" if finish[j].any()
-                         else "mixed").run()
+            self.program(("mixed_first" if finish[j].any() else "mixed")
+                         + suffix).run()

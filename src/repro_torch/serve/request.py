@@ -3,13 +3,13 @@
 A copy of the JAX package's ``repro/serve/request.py`` (numpy only; the
 port imports nothing of that package). A `Request` is one user
 generation: a ragged prompt, its own decode budget (`max_new`), an RNG
-seed (kept for the record: the port serves greedy lanes only), an
+seed (its lane's threefry key chain under temperature sampling), an
 optional stop token, and its SLO metadata: a `priority` class (higher =
 more urgent) and an optional `deadline_ms` latency target.
 `RequestState` is the scheduler-side bookkeeping: queue -> lane -> done
 lifecycle, emitted tokens, and the timestamps the stream launcher turns
-into TTFT/TPOT/latency percentiles. `LaneSnapshot` is the record a
-snapshot store would hold; the port has no store yet.
+into TTFT/TPOT/latency percentiles. `LaneSnapshot` is one lane's state
+on the host, the record the snapshot store (serve.store) holds.
 """
 from __future__ import annotations
 
@@ -163,26 +163,24 @@ class Request:
 @dataclasses.dataclass
 class LaneSnapshot:
     """Host-side copy of one lane's COMPLETE movable state, gathered by
-    T.extract_lanes: the retained KV slab of every layer (K/V, slot
-    positions, retention betas, policy aux), recurrent/SSM hidden +
-    conv tails, the cross-memory slab + mem_len, the per-lane clock
-    state["t"], the carried next-token, the lane's RNG chain, and the
-    emission count. Restoring it with insert_lanes is bit-identical to
-    never having left the device — the parity oracle in
-    tests/test_faults.py — and its footprint is O(M x layers), small by
-    construction (eviction already compressed the lane), which is what
-    makes swap-out preemption, parking, and replay-on-fault affordable.
+    LanePrograms.extract: the retained KV slab of every layer (K/V, slot
+    positions, retention betas, policy aux; bfloat16 leaves as their
+    int16 bits), the per-lane clock state["t"], the carried next-token,
+    the lane's RNG chain, and the emission count. Restoring it with
+    LanePrograms.resume is bit-identical to never having left the
+    device, and its footprint is O(M x layers), small by construction
+    (eviction already compressed the lane), which is what makes swap-out
+    preemption, parking, and replay-on-fault affordable.
 
     `n_tokens` records len(RequestState.tokens) at capture so a replay
     can truncate the host-side stream to the snapshot point.
 
-    In the JAX package snapshots live in the Scheduler's
-    `SnapshotStore` (serve.store, not ported yet), which stamps
-    `crc`/`meta_crc` at capture — crc32 over the state leaves' bytes in
-    flatten order plus a metadata digest — and verifies them on every
-    fetch, so a silently-corrupted-but-finite slab is detected instead
-    of reviving as wrong tokens."""
-    state: dict                      # per-lane sub-state pytree (numpy)
+    Snapshots live in the Scheduler's `SnapshotStore` (serve.store),
+    which stamps `crc`/`meta_crc` at capture — crc32 over the state
+    leaves' bytes in flatten order plus a metadata digest — and
+    verifies them on every fetch, so a silently-corrupted-but-finite
+    slab is detected instead of reviving as wrong tokens."""
+    state: dict                      # batch-1 state (numpy leaves)
     tok: np.ndarray                  # [] int32 next token to emit/feed
     key: np.ndarray                  # [2] uint32 RNG chain
     n_emitted: int

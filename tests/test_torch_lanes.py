@@ -193,11 +193,11 @@ def _lane_ops(n_emitted, max_new, eos):
 
 
 def _assert_segment(got, want):
-    """decode_segment_loop / mixed_step_loop outputs: the port's
-    (state, tok, active, n_emitted, ids, emitted, ok) against JAX's
-    (state, tok, keys, active, n_emitted, ids, emitted, ok)."""
-    ts, ttok, tact, tne, tids, tem, tok_ = got
-    js, jtok, _, jact, jne, jids, jem, jok = want
+    """decode_segment_loop / mixed_step_loop outputs: the port's and
+    JAX's (state, tok, keys, active, n_emitted, ids, emitted, ok)."""
+    ts, ttok, tkeys, tact, tne, tids, tem, tok_ = got
+    js, jtok, jkeys, jact, jne, jids, jem, jok = want
+    np.testing.assert_array_equal(tkeys.numpy(), np.asarray(jkeys))
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_array_equal(tem.numpy(), np.asarray(jem))
     np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
@@ -219,8 +219,9 @@ def test_decode_segment_loop_matches_jax():
     n_emitted, max_new, eos = _lane_ops([0, 2, 0], [6, 4, 5],
                                         [int(tok[0]), -1, -1])
     before = _clone(ts)
-    got = T.decode_segment_loop(model, cfg, ts, tok, active, n_emitted,
-                                max_new, eos, 6, TrimKV(), n_real=4)
+    got = T.decode_segment_loop(model, cfg, ts, tok, np.zeros((B, 2)),
+                                active, n_emitted, max_new, eos, 6,
+                                TrimKV(), n_real=4)
     want = JT.decode_segment_loop(
         params, gates, cfg_j, js, jnp.asarray(tok.numpy(), jnp.int32),
         jnp.zeros((B, 2), jnp.uint32), jnp.asarray(active),
@@ -228,7 +229,7 @@ def test_decode_segment_loop_matches_jax():
         JTrimKV(), n_real=jnp.int32(4))
     _assert_segment(got, want)
     _assert_lanes_frozen(got[0], before, [2])
-    assert got[5].numpy()[:, 4:].sum() == 0
+    assert got[6].numpy()[:, 4:].sum() == 0
 
 
 def test_mixed_step_loop_matches_jax():
@@ -249,8 +250,9 @@ def test_mixed_step_loop_matches_jax():
     cv[:2, 1] = [CHUNK, 5]
     finish = np.zeros((3, B), bool)
     finish[1, 1] = True
-    got = T.mixed_step_loop(model, cfg, ts, tok, active, n_emitted, max_new,
-                            eos, chunks, cv, finish, TrimKV(), st)
+    got = T.mixed_step_loop(model, cfg, ts, tok, np.zeros((B, 2)), active,
+                            n_emitted, max_new, eos, chunks, cv, finish,
+                            np.zeros((B, 2)), TrimKV(), st)
     want = JT.mixed_step_loop(
         params, gates, cfg_j, js, jnp.asarray(tok.numpy(), jnp.int32),
         jnp.zeros((B, 2), jnp.uint32), jnp.asarray(active),
@@ -258,7 +260,7 @@ def test_mixed_step_loop_matches_jax():
         jnp.asarray(chunks), jnp.asarray(cv), jnp.asarray(finish),
         jnp.zeros((B, 2), jnp.uint32), JTrimKV(), sj)
     _assert_segment(got, want)
-    assert got[5].numpy()[1].tolist() == [False, False, True]
+    assert got[6].numpy()[1].tolist() == [False, False, True]
 
 
 @pytest.mark.parametrize("helper", ["reset", "scrub"])
@@ -290,8 +292,9 @@ def test_decode_segment_loop_n_real_edges_match_jax(n_real):
     active = np.array([True, False, True])
     n_emitted, max_new, eos = _lane_ops([0, 0, 3], [6, 6, 5], [-1] * B)
     before = _clone(ts)
-    got = T.decode_segment_loop(model, cfg, ts, tok, active, n_emitted,
-                                max_new, eos, 6, TrimKV(), n_real=n_real)
+    got = T.decode_segment_loop(model, cfg, ts, tok, np.zeros((B, 2)),
+                                active, n_emitted, max_new, eos, 6,
+                                TrimKV(), n_real=n_real)
     want = JT.decode_segment_loop(
         params, gates, cfg_j, js, jnp.asarray(tok.numpy(), jnp.int32),
         jnp.zeros((B, 2), jnp.uint32), jnp.asarray(active),

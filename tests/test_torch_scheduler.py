@@ -12,7 +12,7 @@ Also: on the smoke config of tests/test_torch_model.py every request's
 ids equal the port's own one-shot Engine.generate(prompt[None],
 chunked=True), graphs' eager twin against the reference loops; and the
 parts of the JAX scheduler the port has not reached raise
-NotImplementedError.
+NotImplementedError, while those it has run.
 """
 import dataclasses
 import functools
@@ -166,28 +166,42 @@ def test_scheduler_matches_port_oneshot(interleaved):
 
 
 def test_unported_parts_raise():
+    """The prefix cache, speculative decoding and cross-memory families
+    raise; the parts this module ported since (sampled lanes, park and
+    revive, an injector, checkpoints and a snapshot directory, and swap
+    preemption, the default) run."""
     _, _, _, cfg, model = _models()
     eng = build_engine(cfg, model, device="cpu", **SERVE)
-    for kw in (dict(prefix_cache_bytes=1 << 20), dict(spec_k=2),
-               dict(checkpoint_every=2), dict(snapshot_dir="snaps")):
+    for kw in (dict(prefix_cache_bytes=1 << 20), dict(spec_k=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Scheduler(build_engine(cfg, model, device="cpu", **SERVE, **kw),
                       n_lanes=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(eng, n_lanes=2, injector=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(build_engine(cfg, model, device="cpu", temperature=0.7,
-                               **SERVE), n_lanes=2, greedy=False)
+    reqs = _trace(Request)
+    for kw in (dict(checkpoint_every=2), dict(snapshot_host_bytes=1 << 30)):
+        sched = Scheduler(build_engine(cfg, model, device="cpu", **SERVE,
+                                       **kw), n_lanes=2)
+        res = sched.run(reqs[:2])
+        sched.close()
+        assert all(res[r.rid].status is Status.DONE for r in reqs[:2])
+    from repro_torch.serve.faults import FaultInjector
+    sched = Scheduler(eng, n_lanes=2, injector=FaultInjector(seed=0))
+    res = sched.run(reqs[:2])
+    assert all(res[r.rid].status is Status.DONE for r in reqs[:2])
+    sampled = Scheduler(build_engine(cfg, model, device="cpu",
+                                     temperature=0.7, **SERVE),
+                        n_lanes=2, greedy=False)
+    res = sampled.run(reqs[:2])
+    assert all(len(res[r.rid].tokens) == r.max_new for r in reqs[:2])
     sched = Scheduler(eng, n_lanes=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.park(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sched.revive(0)
-    # a decoding victim under swap_preempt=True would be swapped out
+    sched.submit(reqs[0])
+    sched.step()
+    assert sched.park(0).status is Status.PARKED
+    assert sched.revive(0).status is Status.QUEUED
+    assert sched.run()[0].status is Status.DONE
+    # a decoding victim under swap_preempt=True is swapped out
     swap = Scheduler(build_engine(cfg, model, device="cpu",
                                   sched_policy="priority", **SERVE),
                      n_lanes=1)
-    reqs = _trace(Request)
-    with pytest.raises(NotImplementedError, match="swap"):
-        _drive(swap, [reqs[0], reqs[3]], preempt=True)
-    assert swap.lane_req[0].rid == 0
+    res = _drive(swap, [reqs[0], reqs[3]], preempt=True)
+    assert swap.n_swaps >= 1 and swap.n_resumes >= 1
+    assert res[0].status is res[3].status is Status.DONE
