@@ -68,7 +68,27 @@ then:
    and logits within GRAPH_LOGIT_TOL; then all of it in float32 at 2
    layers on 6 requests, where a sound run shows no divergence from
    the one-shot runs at all, under trimkv, h2o and rkv;
-2c. lifecycle — the lane lifecycle of trimkv-paper-4b at full width
+2c. reuse — the prefix KV cache (serve/prefix_cache.py) and
+   speculative decoding on the scheduler: in bf16 at full width (the
+   stream phase's model, 4 lanes, budget 512, chunks of 512, segments
+   of 16) a shared-prefix trace (poisson_requests seed 0, 12 requests,
+   2 pools of 1536 tokens drawn Zipf(1.1) before user turns of 64-464
+   tokens, max_new 16-64, 8 requests/s), phased and interleaved, with
+   the cache off and on (a cold 1 GiB trie, prefix_min_tokens 512):
+   every request DONE, dispatch_count equal to the formula with its
+   prefix terms, the launches the steps imply, a hit in each mode and
+   ids identical on and off; prints hits, misses, reused tokens,
+   installs, extracts, ms per install and per capture, TTFT and output
+   tokens/s on and off; then spec_k 2 on the stream phase's own trace,
+   phased and interleaved: ids identical to the stream phase's spec_k 0
+   ids, the launches a verify round implies (layers x (spec_k + 1)
+   decode launches), acceptance, output tokens/s and TPOT beside
+   spec_k 0's, and the device ms of a replayed verify round beside a
+   plain segment step's; then in float32 at 2 layers under trimkv and
+   h2o, phased and interleaved, the cache off, cold and warm, spec_k 2,
+   and both: every request's ids equal to its one-shot run's, warm to
+   cold and spec + prefix to neither (check_reuse: every count 0);
+2d. lifecycle — the lane lifecycle of trimkv-paper-4b at full width
    (36 layers, budget 512, chunks of 512, segments of 16, 4 lanes),
    sampled at temperature 0.8 on threefry key chains (core.prng):
    split keys and bits identical on the card and the CPU, gumbel floats
@@ -134,9 +154,10 @@ Prints the card's name and power limit and a {"kernels": [...]} line
 (each kernel's launches are those of the main paths that run it, each
 counted from 0 just before its run: the decode and bf16 chunk kernels
 over the serve and policy phases' generate calls, the bf16 stream's
-phased run and the lifecycle phase, the bf16 retention kernel over the
-serve and policy phases, the float32 chunk kernel over the float32
-parity runs and the lifecycle phase, the float32 retention kernel over
+phased run, the reuse phase's drains and the lifecycle phase, the bf16
+retention kernel over the serve and policy phases, the float32 chunk
+kernel over the float32 parity runs, the reuse phase's float32 drains
+and the lifecycle phase, the float32 retention kernel over
 the float32 parity runs, the capacity kernels over the train phase) and each phase's
 seconds, then, as the last line, {"ok": true, "device": {...}}. Any failure
 raises: the script exits non-zero and prints no result line. It exits
@@ -1217,6 +1238,21 @@ def twin_readings(fused, eager, vocab):
             "logit gap": gap, "aux gap": aux_gap}
 
 
+def stream_model(dtype="bfloat16", num_layers=None):
+    """The stream phase's model: trimkv-paper-4b at full width (num_layers
+    cuts the depth, and then dtype applies), seeded weights (9), gates
+    (10) and perturbed gate biases (11). Returns (cfg, model)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = get_config("trimkv-paper-4b")
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers, dtype=dtype)
+    model = T.init_params(cfg, seed=9, device="cuda")
+    T.init_gate_params(model, cfg, seed=10)
+    perturb_gates(model, seed=11)
+    return cfg, model
+
+
 def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12,
                  policy="trimkv"):
     """Continuous batching of trimkv-paper-4b (full width; num_layers
@@ -1235,24 +1271,18 @@ def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12,
     identical slot positions after every step and logits (and aux)
     within GRAPH_LOGIT_TOL (check_graphs). ``policy`` names the eviction
     policy. Returns the launch counts of the phased run (counted from 0
-    just before it) and the readings by mode."""
+    just before it) and the readings by mode (with each request's ids,
+    ``ids``, {rid: tokens})."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import poisson_requests
-    from repro_torch.models import transformer as T
     from repro_torch.serve.engine import build_engine
     from repro_torch.serve.request import Status, latency_percentiles
     from repro_torch.serve.scheduler import Scheduler, warm_up
 
-    cfg = get_config("trimkv-paper-4b")
-    if num_layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=num_layers, dtype=dtype)
+    cfg, model = stream_model(dtype, num_layers)
     L, lanes, tol = cfg.num_layers, 4, MARGIN_TOL[dtype]
-    model = T.init_params(cfg, seed=9, device="cuda")
-    T.init_gate_params(model, cfg, seed=10)
-    perturb_gates(model, seed=11)
     serve_kw = dict(device="cuda", budget=512, prefill_chunk=512,
                     decode_segment=16, prefill_budget=1024,
                     swap_preempt=False, policy=policy)
@@ -1348,7 +1378,8 @@ def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12,
         ids_by_mode[mode] = [res[r.rid].tokens for r in reqs]
         readings[mode] = {"violations": violations, "margin": margin,
                           "tok_per_sec": n_tok / wall, "ttft": ttft,
-                          "tpot": tpot}
+                          "tpot": tpot,
+                          "ids": {r.rid: res[r.rid].tokens for r in reqs}}
     # every mode runs the same programs at the same shapes, and a lane's
     # rows never meet another lane's, so the schedule cannot change a
     # token: this holds every token, past the one-shot's first near tie
@@ -1381,6 +1412,393 @@ def stream_phase(dtype="bfloat16", num_layers=None, n_requests=12,
     del eng, eager, model
     torch.cuda.empty_cache()
     return launches_phased, readings
+
+
+# ------------------------------------------------------------- reuse
+
+# The reuse phase's counts (requests or counters that broke a rule) must
+# all read 0: prefix-cache ids against cache-off ids, speculative ids
+# against the stream phase's spec_k 0 ids, float32 ids against one-shot
+# runs, warm against cold. Exact equality is what the design gives:
+# every lane runs the same kernels at the same shapes with the cache on
+# or off and with spec_k 2 or 0, and a lane's rows never meet another
+# lane's. Four planted faults (launch/planted_faults.py --reuse) read
+# above 0.
+PREFIX_TRIE_BYTES = 1 << 30        # 13 full-width bf16 slabs
+SPEC_K = 2
+
+
+def check_reuse(name, violations):
+    """Raise unless every reuse count is 0."""
+    bad = {k: v for k, v in violations.items() if v}
+    if bad:
+        raise AssertionError(f"reuse {name}: {bad}")
+
+
+def _time_lane_ops(lanes):
+    """Time LanePrograms.install and extract (prefix-cache installs and
+    captures, each ending in a synchronize) on the host clock for one
+    scheduler run, from a synchronize (so no queued step is counted):
+    returns {op: [(seconds, lanes), ...]}; _untime_lane_ops restores the
+    methods. The first extract of a LanePrograms also allocates its
+    pinned staging buffer."""
+    times = {"install": [], "extract": []}
+    for name, calls in times.items():
+        fn = getattr(lanes, name)
+
+        def wrapped(sel, *a, _fn=fn, _calls=calls, **k):
+            _sync(lanes.tok.device)
+            t0 = time.perf_counter()
+            out = _fn(sel, *a, **k)
+            _calls.append((time.perf_counter() - t0, len(sel)))
+            return out
+        setattr(lanes, name, wrapped)
+    return times
+
+
+def _untime_lane_ops(lanes):
+    for name in ("install", "extract"):
+        lanes.__dict__.pop(name, None)
+
+
+def reuse_drain(eng, reqs, trie, respect, totals, **kw):
+    """One drain of ``reqs`` on a fresh 4-lane Scheduler over ``eng``
+    with the prefix trie ``trie`` (None: the cache off), its kernel
+    launches counted from 0 and added to ``totals``: returns (scheduler,
+    results, wall seconds, lane-op times, the counts that broke a rule:
+    requests not DONE with max_new tokens, dispatch_count off the
+    formula, kernel launches off what the steps imply)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.request import Status
+    from repro_torch.serve.scheduler import Scheduler
+    eng.prefix_cache = trie
+    ops.reset_launches()
+    eng.dispatch_count = 0
+    sched = Scheduler(eng, n_lanes=4, **kw)
+    times = _time_lane_ops(sched.lanes)
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    res = sched.run(reqs, respect_arrivals=respect)
+    wall = time.perf_counter() - t0
+    _untime_lane_ops(sched.lanes)
+    for k, n in ops.LAUNCHES.items():
+        totals[k] += n
+    L, C = eng.cfg.num_layers, sched.spec_k + 1
+    sfx = "" if eng.cfg.dtype == "bfloat16" else "_f32"
+    steps = sched.steps_run
+    expect = dict.fromkeys(ops.KERNELS, 0)
+    if eng.device.type == "cuda":   # the plain versions count no launch
+        expect["decode_attention"] = L * (
+            steps["segment"] + steps["mixed"]
+            + C * (steps["spec_segment"] + steps["spec_mixed"]))
+        expect["chunk_attention" + sfx] = L * (
+            steps["chunk"] + steps["mixed"] + steps["spec_mixed"])
+    formula = (sched.n_prefill_rounds + sched.n_segments + sched.n_resets
+               + sched.n_swaps + sched.n_resumes + sched.n_prefix_installs
+               + sched.n_prefix_extracts)
+    violations = {
+        "requests not DONE with max_new tokens": sum(
+            res[r.rid].status is not Status.DONE
+            or len(res[r.rid].tokens) != r.max_new for r in reqs),
+        "dispatch_count off the formula": int(eng.dispatch_count
+                                              != formula),
+        "launches off the schedule": int(dict(ops.LAUNCHES) != expect),
+    }
+    return sched, res, wall, times, violations
+
+
+def _ids_differ(res, want):
+    """Requests whose ids differ from want ({rid: tokens}); the first
+    divergence of each as text."""
+    report = []
+    for rid, ids in want.items():
+        d = first_divergence(res[rid].tokens, list(ids))
+        if d is not None:
+            report.append(f"{rid} at {d}")
+    return report
+
+
+def _per_lane_ms(calls):
+    n = sum(k for _, k in calls)
+    return sum(t for t, _ in calls) / n * 1e3 if n else float("nan")
+
+
+def _stream_line(res, reqs, wall):
+    from repro_torch.serve.request import latency_percentiles
+    n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+    ttft = latency_percentiles([res[r.rid].ttft_sec for r in reqs])
+    tpot = latency_percentiles([res[r.rid].tpot_sec for r in reqs])
+    return n_tok / wall, ttft, tpot
+
+
+def _replay_ms(lanes, name, n=8):
+    """Ms of one replay of the lane program ``name`` (n replays, after
+    one replay that captures it), with every lane active: device time
+    from CUDA events on the card, the host clock on the CPU."""
+    import numpy as np
+    import torch
+    B = lanes.batch
+    prog = lanes.program(name)
+    lanes.upload_carries(np.ones(B, bool), np.zeros(B, np.int32),
+                         np.full(B, 1 << 20, np.int32),
+                         np.full(B, -1, np.int32),
+                         hist=lanes.hist.cpu().numpy())
+    prog.run()
+    lanes.upload_carries(np.ones(B, bool), np.zeros(B, np.int32),
+                         np.full(B, 1 << 20, np.int32),
+                         np.full(B, -1, np.int32),
+                         hist=lanes.hist.cpu().numpy())
+    if lanes.tok.device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(n):
+            prog.run()
+        return (time.perf_counter() - t0) * 1e3 / n
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    for _ in range(n):
+        prog.run()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]) / n
+
+
+def reuse_prefix_bf16(cfg, model, totals):
+    """The prefix cache at full width in bf16: a shared-prefix trace
+    (poisson_requests seed 0, 12 requests at 8/s, 2 pools of 1536 tokens
+    drawn Zipf(1.1) before user turns of 64-464 tokens, max_new 16-64)
+    on 4 lanes, phased and interleaved, the cache off and on (a cold
+    trie of PREFIX_TRIE_BYTES, prefix_min_tokens 512) on one engine.
+    Counts: reuse_drain's, modes without a hit, requests whose ids
+    differ on and off."""
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.scheduler import warm_up
+    eng = build_engine(cfg, model, device=model.device, budget=512,
+                       prefill_chunk=512, decode_segment=16,
+                       prefill_budget=1024, swap_preempt=False,
+                       prefix_cache_bytes=PREFIX_TRIE_BYTES,
+                       prefix_min_tokens=512)
+    reqs = poisson_requests(12, 8.0, vocab=cfg.vocab_size, prompt_lo=64,
+                            prompt_hi=464, new_lo=16, new_hi=64, seed=0,
+                            prefix_pools=2, prefix_len=1536, zipf_alpha=1.1)
+    log(f"reuse prefix bf16 {cfg.num_layers} layers: prompts "
+        f"{[r.prompt_len for r in reqs]}, pools "
+        f"{[int(r.prompt[0]) for r in reqs]} (first token), max_new "
+        f"{[r.max_new for r in reqs]}; trie {PREFIX_TRIE_BYTES} B")
+    eng.prefix_cache = None
+    for interleaved in (False, True):
+        warm_up(eng, 4, reqs, interleaved=interleaved)
+    out = {}
+    for mode, kw in (("phased", {}), ("interleaved", {"interleaved": True})):
+        runs = {}
+        for cache in ("off", "on"):
+            trie = (PrefixCache(PREFIX_TRIE_BYTES) if cache == "on"
+                    else None)
+            runs[cache] = reuse_drain(eng, reqs, trie, True, totals, **kw)
+        (s_off, r_off, w_off, _, v_off), (s_on, r_on, w_on, times,
+                                          v_on) = runs["off"], runs["on"]
+        st = s_on.stats()
+        differ = _ids_differ(r_on, {r.rid: r_off[r.rid].tokens
+                                    for r in reqs})
+        violations = {**{f"off: {k}": v for k, v in v_off.items()},
+                      **{f"on: {k}": v for k, v in v_on.items()},
+                      "no prefix hit": int(st["n_prefix_hits"] == 0),
+                      "ids differ on and off": len(differ)}
+        lines = []
+        for cache, (sched, res, wall, _, _) in runs.items():
+            tps, ttft, tpot = _stream_line(res, reqs, wall)
+            chunk_steps = sched.steps_run["chunk"] + sched.steps_run["mixed"]
+            lines.append(f"cache {cache}: {tps:.1f} output tok/s, TTFT p50 "
+                         f"{ttft['p50'] * 1e3:.1f} ms p99 "
+                         f"{ttft['p99'] * 1e3:.1f} ms, TPOT p50 "
+                         f"{tpot['p50'] * 1e3:.2f} ms, chunk steps "
+                         f"{chunk_steps}, segments {sched.n_segments}")
+            out[(mode, cache)] = {"tok_per_sec": tps, "ttft": ttft,
+                                  "tpot": tpot}
+        log(f"reuse prefix bf16 {mode}: hits {st['n_prefix_hits']}, misses "
+            f"{st['n_prefix_misses']}, reused tokens (prefill skipped) "
+            f"{st['n_prefix_reused_tokens']}, installs "
+            f"{st['n_prefix_installs']}, extracts "
+            f"{st['n_prefix_extracts']}, inserts {st['prefix_inserts']}, "
+            f"entries {st['prefix_entries']} ({st['prefix_bytes']} B); "
+            f"ms per lane: install {_per_lane_ms(times['install']):.2f} "
+            f"({len(times['install'])} calls), capture "
+            f"{_per_lane_ms(times['extract']):.2f} "
+            f"({len(times['extract'])} calls: "
+            + ", ".join(f"{t * 1e3:.2f}" for t, _ in times["extract"])
+            + " ms)")
+        log(f"reuse prefix bf16 {mode} streams: {'; '.join(lines)}; ids "
+            f"differ on vs off: {', '.join(differ) or 'none'}")
+        out[(mode, "stats")] = st
+        check_reuse(f"prefix bf16 {mode}", violations)
+    eng.prefix_cache = None
+    return out
+
+
+def reuse_spec_bf16(cfg, model, totals, stream=None):
+    """Speculative decoding at full width in bf16, spec_k SPEC_K, on the
+    stream phase's trace (poisson_requests seed 0, 12 requests, prompts
+    256-2000, max_new 16-64, 8/s) and lanes, phased and interleaved:
+    each request's ids against the stream phase's spec_k 0 ids
+    (``stream``: its readings by mode; None runs the spec_k 0 drains
+    here), exact. Prints acceptance, verify rounds, output tok/s and
+    TPOT p50 beside spec_k 0's, and the ms of one replayed verify
+    round beside a plain segment step's."""
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.scheduler import warm_up
+    kw = dict(device=model.device, budget=512, prefill_chunk=512,
+              decode_segment=16, prefill_budget=1024, swap_preempt=False)
+    reqs = poisson_requests(12, 8.0, vocab=cfg.vocab_size, prompt_lo=256,
+                            prompt_hi=2000, new_lo=16, new_hi=64, seed=0)
+    modes = (("phased", {}), ("interleaved", {"interleaved": True}))
+    if stream is None:
+        base = build_engine(cfg, model, **kw)
+        for interleaved in (False, True):
+            warm_up(base, 4, reqs, interleaved=interleaved)
+        stream = {}
+        for mode, mkw in modes:
+            _, res, wall, _, v = reuse_drain(base, reqs, None, True,
+                                             totals, **mkw)
+            check_reuse(f"spec bf16 baseline {mode}", v)
+            tps, ttft, tpot = _stream_line(res, reqs, wall)
+            stream[mode] = {"ids": {r.rid: res[r.rid].tokens for r in reqs},
+                            "tok_per_sec": tps, "tpot": tpot}
+        del base
+    eng = build_engine(cfg, model, spec_k=SPEC_K, **kw)
+    for interleaved in (False, True):
+        warm_up(eng, 4, reqs, interleaved=interleaved)
+    out = {}
+    for mode, mkw in modes:
+        sched, res, wall, _, v = reuse_drain(eng, reqs, None, True, totals,
+                                             **mkw)
+        st = sched.stats()
+        differ = _ids_differ(res, stream[mode]["ids"])
+        tps, ttft, tpot = _stream_line(res, reqs, wall)
+        base_tpot = stream[mode]["tpot"]["p50"]
+        log(f"reuse spec bf16 {mode} (spec_k {SPEC_K}): acceptance "
+            f"{st['n_spec_tokens'] / max(st['n_spec_rounds'], 1):.3f} tokens"
+            f" per live round ({st['n_spec_tokens']} / "
+            f"{st['n_spec_rounds']}), verify rounds {st['n_verify_rounds']}"
+            f", {tps:.1f} output tok/s against "
+            f"{stream[mode]['tok_per_sec']:.1f} at spec_k 0, TPOT p50 "
+            f"{tpot['p50'] * 1e3:.2f} ms against {base_tpot * 1e3:.2f}, "
+            f"TTFT p50 {ttft['p50'] * 1e3:.1f} ms; dispatches "
+            f"{eng.dispatch_count}, steps {sched.steps_run}; ids differ from"
+            f" spec_k 0: {', '.join(differ) or 'none'}")
+        check_reuse(f"spec bf16 {mode}", {
+            **v, "ids differ from spec_k 0": len(differ)})
+        out[mode] = {"tok_per_sec": tps, "tpot": tpot, "stats": st}
+    lanes = eng.lane_closures(4)
+    turns = [("segment", _replay_ms(lanes, "segment")),
+             ("spec_segment", _replay_ms(lanes, "spec_segment")),
+             ("spec_segment", _replay_ms(lanes, "spec_segment")),
+             ("segment", _replay_ms(lanes, "segment"))]
+    clock = "device" if model.device.type == "cuda" else "host"
+    log(f"reuse spec bf16: ms of one replay ({clock} clock), in turns: "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in turns)
+        + f"; a verify round ({SPEC_K + 1} positions, {cfg.num_layers} "
+        f"layers) against a plain step: "
+        f"{(turns[1][1] + turns[2][1]) / (turns[0][1] + turns[3][1]):.2f}x")
+    out["round_ms"] = (turns[1][1] + turns[2][1]) / 2
+    out["step_ms"] = (turns[0][1] + turns[3][1]) / 2
+    del eng
+    return out
+
+
+def reuse_float32(policy, totals):
+    """float32 at 2 layers (the float32 stream phase's model) under
+    ``policy``: a shared-prefix trace (poisson_requests seed 0, 6
+    requests, 2 pools of 1536 tokens, user turns 64-464, max_new 16-64),
+    phased and interleaved, the cache off, cold and warm, spec_k SPEC_K,
+    and spec_k SPEC_K on the same warm trie (its slabs came from the
+    spec_k 0 engine: the same chunks, the same state). Counts:
+    reuse_drain's, requests whose ids differ from their one-shot runs
+    (every run), warm from cold, spec + prefix from neither, a warm run
+    without a hit (a cold trie may legitimately see none: its captures
+    can land after the pool's last admission)."""
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.prefix_cache import PrefixCache
+    cfg, model = stream_model("float32", 2)
+    kw = dict(device=model.device, budget=512, prefill_chunk=512,
+              decode_segment=16, prefill_budget=1024, swap_preempt=False,
+              policy=policy, prefix_min_tokens=512)
+    base = build_engine(cfg, model, **kw)
+    spec = build_engine(cfg, model, spec_k=SPEC_K, **kw)
+    reqs = poisson_requests(6, 8.0, vocab=cfg.vocab_size, prompt_lo=64,
+                            prompt_hi=464, new_lo=16, new_hi=64, seed=0,
+                            prefix_pools=2, prefix_len=1536, zipf_alpha=1.1)
+    oneshot = {r.rid: base.generate(r.prompt[None], r.max_new,
+                                    chunked=True)["ids"][0].tolist()
+               for r in reqs}
+    for mode, mkw in (("phased", {}), ("interleaved", {"interleaved": True})):
+        trie = PrefixCache(PREFIX_TRIE_BYTES)
+        runs = {}
+        for name, eng, t in (("neither", base, None),
+                             ("prefix cold", base, trie),
+                             ("prefix warm", base, trie),
+                             ("spec", spec, None),
+                             ("spec + prefix", spec, trie)):
+            runs[name] = reuse_drain(eng, reqs, t, False, totals, **mkw)
+        violations, report = {}, []
+        for name, (sched, res, _, _, v) in runs.items():
+            violations.update({f"{name}: {k}": n for k, n in v.items()})
+            differ = _ids_differ(res, oneshot)
+            violations[f"{name}: ids differ from one-shot"] = len(differ)
+            if name in ("prefix warm", "spec + prefix"):
+                violations[f"{name}: no prefix hit"] = int(
+                    sched.n_prefix_hits == 0)
+            report.append(f"{name} {len(differ)}"
+                          + (f" ({', '.join(differ)})" if differ else "")
+                          + (f", hits {sched.n_prefix_hits}"
+                             if sched._pc is not None else "")
+                          + (f", acceptance {sched.n_spec_tokens}/"
+                             f"{sched.n_spec_rounds}" if sched.spec_k
+                             else ""))
+        ids = {name: {r.rid: run[1][r.rid].tokens for r in reqs}
+               for name, run in runs.items()}
+        violations["prefix warm: ids differ from cold"] = len(
+            _ids_differ(runs["prefix warm"][1], ids["prefix cold"]))
+        violations["spec + prefix: ids differ from neither"] = len(
+            _ids_differ(runs["spec + prefix"][1], ids["neither"]))
+        log(f"reuse float32 2 layers {policy} {mode}: requests differing "
+            f"from one-shot: {'; '.join(report)}")
+        check_reuse(f"float32 {policy} {mode}", violations)
+    base.prefix_cache = spec.prefix_cache = None
+    del base, spec, model
+
+
+def reuse_phase(stream=None):
+    """The prefix KV cache and speculative decoding on the lane
+    scheduler: bf16 at full width (reuse_prefix_bf16, reuse_spec_bf16
+    against the stream phase's readings ``stream``), then float32 at 2
+    layers under trimkv and h2o (reuse_float32). Returns (the kernel
+    launches of the phase's drains, each counted from 0, the bf16
+    readings)."""
+    import gc
+    import torch
+    from repro_torch.kernels import ops
+    totals = dict.fromkeys(ops.KERNELS, 0)
+    cfg, model = stream_model("bfloat16")
+    readings = {"prefix": reuse_prefix_bf16(cfg, model, totals),
+                "spec": reuse_spec_bf16(cfg, model, totals, stream)}
+    on_card = model.device.type == "cuda"
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    for policy in ("trimkv", "h2o"):
+        reuse_float32(policy, totals)
+        gc.collect()
+        torch.cuda.empty_cache()
+    path = ("decode_attention", "chunk_attention", "chunk_attention_f32")
+    if on_card:   # the plain versions count no launch
+        check_reuse("launches", {f"{k} never launched": int(totals[k] == 0)
+                                 for k in path})
+    log(f"reuse launches: {totals}")
+    return totals, readings
 
 
 # ------------------------------------------------------------- lifecycle
@@ -1763,7 +2181,8 @@ def _median_ms(fn, n=5):
 
 def lifecycle_times(cfg, eng):
     """Per-lane snapshot bytes; swap-out split into the device-to-host
-    copy (and, within it, the copy out of the pinned staging buffer),
+    copy (and, within it, the copy out of the pinned staging buffer into
+    new host arrays, beside the same copy into arrays touched before),
     crc32 and store.put; resume into get + verify and
     host-to-device + install; a disk write and read; the recompute a
     swap saves (a chunked prefill of a 2000-token prompt, one lane); and
@@ -1786,9 +2205,14 @@ def lifecycle_times(cfg, eng):
     nbytes = snapshot_nbytes(snap)
     d2h = _median_ms(lambda: lanes.extract([1]))
     # extract's copy out of its pinned staging buffer into ordinary host
-    # memory (part of d2h): one host copy of every leaf of a lane's row
+    # memory (part of d2h): one host copy of every leaf of a lane's row,
+    # into new arrays (as extract copies) and into arrays touched before
     leaves = [row["t"]] + [v for st in row["layers"] for v in st.values()]
     copy_out = _median_ms(lambda: [np.copy(a) for a in leaves])
+    held = [np.copy(a) for a in leaves]
+    copy_into = _median_ms(
+        lambda: [np.copyto(b, a) for a, b in zip(leaves, held)])
+    del held
     crc = _median_ms(lambda: checksum_snapshot(snap))
     store = SnapshotStore()
     put = _median_ms(lambda: store.put(0, snap))
@@ -1843,7 +2267,8 @@ def lifecycle_times(cfg, eng):
     greedy_ms = (turns[0] + turns[3]) / 2
     sampled_ms = (turns[1] + turns[2]) / 2
     times = {"snapshot_bytes": nbytes, "d2h_ms": d2h,
-             "copy_out_ms": copy_out, "crc32_ms": crc,
+             "copy_out_ms": copy_out, "copy_into_ms": copy_into,
+             "crc32_ms": crc,
              "put_ms": put, "get_verify_ms": get, "h2d_install_ms": install,
              "disk_write_ms": write, "disk_read_ms": read,
              "recompute_prefill_ms": prefill, "greedy_step_ms": greedy_ms,
@@ -1851,7 +2276,8 @@ def lifecycle_times(cfg, eng):
     log(f"lifecycle snapshot bytes per lane {cfg.dtype}: {nbytes} "
         f"({nbytes / 2**20:.1f} MiB)")
     log(f"lifecycle swap-out per lane: device-to-host {d2h:.2f} ms (its "
-        f"copy out of the pinned staging buffer {copy_out:.2f} ms), crc32 "
+        f"copy out of the pinned staging buffer {copy_out:.2f} ms, the "
+        f"same copy into arrays touched before {copy_into:.2f} ms), crc32 "
         f"{crc:.2f} ms, store.put {put:.2f} ms (its crc32 included)")
     log(f"lifecycle resume per lane: store.get + verify {get:.2f} ms, "
         f"host-to-device + install {install:.2f} ms")
@@ -2307,13 +2733,19 @@ def main() -> int:
             launches[k] += pol[k]
         # the serving paths: Engine.generate and the scheduler's stream
         with timed("stream bfloat16"):
-            stream, _ = stream_phase("bfloat16")
+            stream, stream_readings = stream_phase("bfloat16")
         for k in ("decode_attention", "chunk_attention"):
             launches[k] += stream[k]
         for policy in ("trimkv", "h2o", "rkv"):
             with timed(f"stream float32 {policy}"):
                 stream_phase("float32", num_layers=2, n_requests=6,
                              policy=policy)
+        # the prefix KV cache and speculative decoding on the scheduler
+        with timed("reuse"):
+            reuse, _ = reuse_phase(stream_readings)
+        for k in ("decode_attention", "chunk_attention",
+                  "chunk_attention_f32"):
+            launches[k] += reuse[k]
         # the lane lifecycle: sampled lanes, swaps, parks, quarantine
         with timed("lifecycle"):
             life, _ = lifecycle_phase()

@@ -2,12 +2,11 @@
 
 Copies of the JAX package's ``ModelConfig`` and ``TrainConfig`` (field
 for field, so one config describes the same model and the same
-training in both packages) and a ``ServeConfig``
-with the JAX package's serving and scheduler fields and defaults (a
-field whose subsystem is not ported yet, the prefix cache and
-speculative decoding, raises ``NotImplementedError`` where the
-scheduler would use it). The port
-imports nothing from the JAX package, so the architecture table and
+training in both packages) and a ``ServeConfig`` with the JAX package's
+serving, scheduler, snapshot, prefix-cache and speculative-decoding
+fields and defaults (without ``attn_impl``: the port routes attention
+by device, see ``kernels.ops``). The port imports nothing from the JAX
+package, so the architecture table and
 the lookup helpers live here too; an architecture the port cannot run
 yet raises ``NotImplementedError``.
 """
@@ -159,8 +158,35 @@ class ServeConfig:
     # request goes TIMED_OUT (zero dispatches) and its snapshots are
     # released from every tier.
     park_exempts_timeout: bool = True
-    prefix_cache_bytes: int = 0       # prefix KV cache (not ported)
-    spec_k: int = 0                   # speculative decoding (not ported)
+    # --- prefix KV cache (serve.prefix_cache) ---
+    # prefix_cache_bytes: byte budget of the host-side radix-trie
+    # prompt cache holding RETAINED KV slabs at chunk-boundary prompt
+    # prefixes. 0 = disabled (no trie, no probe). On an admission hit
+    # the cached slab is installed into the lane and only the novel
+    # suffix is prefilled; over budget the coldest unpinned entry is
+    # evicted (LRU).
+    prefix_cache_bytes: int = 0
+    # prefix_ttl_sec: entries untouched (no hit, no insert refresh) for
+    # longer than this are expired lazily at the next probe/insert
+    # (0 = no TTL). Entries pinned by a live lane outlive their TTL
+    # until the pin is released.
+    prefix_ttl_sec: float = 0.0
+    # prefix_min_tokens: minimum prefix length (tokens) worth caching —
+    # shorter shared boundaries are never captured. Captures happen
+    # only at prefill_chunk-aligned boundaries the traffic has actually
+    # shared (longest common prefix vs recently observed prompts), so
+    # entries stay hittable and parity-exact.
+    prefix_min_tokens: int = 0
+    # --- speculative decoding ---
+    # spec_k: drafted tokens per verify round (0 = off). Each decode
+    # segment round drafts spec_k tokens per live lane from its
+    # retained token history (n-gram self-drafting), scores all
+    # spec_k + 1 positions and commits the longest greedy-agreeing
+    # prefix — rejected positions are rolled back before they touch
+    # durable cache state, so greedy outputs stay token-identical to
+    # spec_k = 0. Greedy-only: the scheduler silently disables
+    # speculation under temperature sampling.
+    spec_k: int = 0
 
 
 ARCH_IDS = (

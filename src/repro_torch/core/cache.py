@@ -6,8 +6,9 @@ model dtype, with per-slot pos (int32, -1 = empty), beta and aux
 
 Unlike the JAX original, ``cache_insert`` updates the cache IN PLACE:
 it writes the victim slot of each (lane, kv head) and nothing else, and
-returns the same dict; so do ``reset_lanes`` and ``scrub_lanes``.
-``cache_topm_merge`` builds new tensors.
+returns the same dict; so do ``reset_lanes``, ``scrub_lanes`` and
+``cache_replay`` (speculative decoding's commit). ``cache_topm_merge``
+builds new tensors.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ NEG_INF = -1e30
 
 
 def init_cache(batch: int, n_kv_heads: int, budget: int, head_dim: int,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, *, device):
     shape = (batch, n_kv_heads, budget)
     return {
         "k": torch.zeros(shape + (head_dim,), dtype=dtype, device=device),
@@ -124,6 +125,43 @@ def cache_insert(cache, k_t, v_t, beta_t, t, keep_scores_fn,
     aux_in = (torch.zeros((B, H), dtype=torch.float32, device=dev)
               if incoming_aux is None else incoming_aux.float())
     put("aux", aux_in)
+    return cache
+
+
+def cache_replay(cache, k_c, v_c, beta_c, probs_kv_c, aux_new_c, t,
+                 n_commit, live, policy, incoming_score=None):
+    """Speculative decoding's commit (bounded rollback), in place: replay
+    the first n_commit[b] positions' decode-time cache transactions
+    (policy.decode_update, then cache_insert) from the round-entry
+    cache, in position order, with the signals the verify pass recorded.
+
+    k_c, v_c: [B, C, Hkv, Dh]; beta_c: [B, C, Hkv]; probs_kv_c
+    [B, C, Hkv, M] and aux_new_c [B, C, Hkv]: each position's attention
+    mass on the cache slots and its own incoming aux (None for a policy
+    that reads no attention, whose decode_update changes nothing);
+    t: round-entry clock ([B] or scalar); n_commit: [B] accepted-prefix
+    length (0..C); live: [B] bool.
+
+    Each position replays the transaction sequential decode runs (the
+    same scores, victim and masked write), and positions j >= n_commit
+    are masked out of the write, so the cache ends bit-identical to
+    having decoded only the accepted prefix: a rejected token never
+    reaches it. A masked lane keeps its leaves bit-identically, as the
+    JAX package's per-step select keeps them: cache_insert writes such a
+    lane's victim slot with its own values, and decode_update adds zeros
+    to its aux (never -0.0, so the sum is the old bits). Returns the
+    same dict."""
+    C = k_c.shape[1]
+    t = torch.as_tensor(t, dtype=torch.int32, device=k_c.device)
+    for j in range(C):
+        mask = live & (j < n_commit)
+        if probs_kv_c is not None:
+            policy.decode_update(cache, probs_kv_c[:, j], active=mask)
+        cache_insert(cache, k_c[:, j], v_c[:, j], beta_c[:, j], t + j,
+                     policy.keep_scores, incoming_score=incoming_score,
+                     incoming_aux=(aux_new_c[:, j] if policy.needs_attn
+                                   else None),
+                     active=mask)
     return cache
 
 

@@ -10,13 +10,17 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --lifecycle
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --reuse
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
 kernel source), LANE_FAULTS (one to the lane layer; --lanes runs the
 sound build and these alone), POLICY_FAULTS (one to the eviction
 policies' attention aux; --policies runs the sound build and these
-alone) and LIFECYCLE_FAULTS (one to the sampling, snapshot, resume or
-quarantine path; --lifecycle runs the sound build and these alone) it
+alone), LIFECYCLE_FAULTS (one to the sampling, snapshot, resume or
+quarantine path; --lifecycle runs the sound build and these alone) and
+REUSE_FAULTS (one to the prefix cache or speculative decoding; --reuse
+runs the sound build and these alone) it
 copies src/repro_torch and chip_smoke.py into a temporary directory,
 applies the change, and runs,
 in a fresh process that builds that copy's kernels, the chip_smoke
@@ -40,7 +44,9 @@ and R-KV the stream phase's readings, and the lifecycle phase
 (chip_smoke.lifecycle_phase, both dtypes, each through swap, park and
 quarantine as well) its counts of requests, leaves and
 counters that broke its rules (limit 0; inf when it raised) and its
-one-shot margin readings (against chip_smoke.SAMPLED_MARGIN_TOL); the
+one-shot margin readings (against chip_smoke.SAMPLED_MARGIN_TOL), and
+the reuse phase (chip_smoke.reuse_phase, computing its spec_k 0
+baseline itself) its counts (limit 0; inf when it raised); the
 script prints
 every reading beside its limit, the largest reading of the sound build
 per kind, and exits non-zero unless the sound build stays within every
@@ -143,9 +149,10 @@ LANE_FAULTS = [
     # one the buffer it was captured with (kept alive, so it reads the
     # first chunk's counts on every replay)
     ("graphs: the chunk program's n_valid buffer replaced, not refreshed",
-     "serve/graphs.py", "            self.cnv.copy_(nv_dev[i])\n",
-     "            self.__dict__.setdefault(\"_held\", []).append(self.cnv)\n"
-     "            self.cnv = nv_dev[i].clone()\n", ("serve", "stream")),
+     "serve/graphs.py", "                self.cnv.copy_(nv_dev[i])\n",
+     "                self.__dict__.setdefault(\"_held\", []).append("
+     "self.cnv)\n"
+     "                self.cnv = nv_dev[i].clone()\n", ("serve", "stream")),
 ]
 # faults in the policies' attention aux (file under src/repro_torch),
 # caught by the policy phase (chip_smoke.policy_phase; the dense block
@@ -204,8 +211,34 @@ LIFECYCLE_FAULTS = [
      "    return prng.categorical(sub[0], logits / temperature), new_keys",
      ("lifecycle",)),
 ]
+# faults in the prefix cache and speculative decoding (file under
+# src/repro_torch), caught by the reuse phase (chip_smoke.reuse_phase):
+# --reuse runs the sound build and these alone
+REUSE_FAULTS = [
+    ("reuse: phase A of a verify round writes the durable cache (no "
+     "scratch copy)", "models/blocks.py",
+     "    if scratch is None:\n"
+     "        scratch = {k: v.clone() for k, v in state.items()}\n"
+     "    else:\n"
+     "        for k, v in state.items():\n"
+     "            scratch[k].copy_(v)\n",
+     "    scratch = state\n", ("reuse",)),
+    ("reuse: cache_replay commits one position too many",
+     "core/cache.py", "        mask = live & (j < n_commit)\n",
+     "        mask = live & (j <= n_commit)\n", ("reuse",)),
+    ("reuse: a hit installs its slab without its clock",
+     "serve/graphs.py",
+     "        sub = {\"t\": stack([r[\"t\"] for r in rows], "
+     "self.state[\"t\"].dtype),",
+     "        sub = {\"t\": stack([r[\"t\"] * 0 for r in rows], "
+     "self.state[\"t\"].dtype),", ("reuse",)),
+    ("reuse: the capture is taken one chunk late", "serve/scheduler.py",
+     "                    caps[i] = (cap_tokens // C - d1, key)",
+     "                    caps[i] = (cap_tokens // C - d1 + 1, key)",
+     ("reuse",)),
+]
 SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
-         "serve", "policy", "stream-policies", "lifecycle")
+         "serve", "policy", "stream-policies", "lifecycle", "reuse")
 
 
 def child(phases):
@@ -346,6 +379,25 @@ def child(phases):
                 print(json.dumps(readings), flush=True)
                 os._exit(0)
         torch.cuda.empty_cache()
+    if "reuse" in phases:
+        def record_reuse(name, violations):
+            for kind, n in violations.items():
+                readings.append({"case": f"reuse {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+
+        cs.check_reuse = record_reuse
+        try:
+            with torch.no_grad():
+                cs.reuse_phase(None)
+        except (AssertionError, RuntimeError, ValueError, KeyError,
+                IndexError) as e:
+            print(f"reuse: {str(e).splitlines()[0]}")
+            readings.append({"case": "reuse phase", "kind": "raised",
+                             "reading": math.inf, "limit": 0.0})
+            if isinstance(e, RuntimeError):
+                print(json.dumps(readings), flush=True)
+                os._exit(0)
+        torch.cuda.empty_cache()
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -390,19 +442,20 @@ def run(fault, phases):
     lines = proc.stdout.strip().splitlines()
     return json.loads(lines[-1]), [x for x in lines if x.startswith(
         ("parity", "capacity:", "stream", "serve", "policy", "Table",
-         "lifecycle"))]
+         "lifecycle", "reuse"))]
 
 
 def main(only: str | None = None) -> int:
-    """only: None (every fault), "--lanes", "--policies" or
-    "--lifecycle"."""
+    """only: None (every fault), "--lanes", "--policies", "--lifecycle"
+    or "--reuse"."""
     ok = True
     faults, sound = {
-        None: (FAULTS + LANE_FAULTS + POLICY_FAULTS + LIFECYCLE_FAULTS,
-               SOUND),
+        None: (FAULTS + LANE_FAULTS + POLICY_FAULTS + LIFECYCLE_FAULTS
+               + REUSE_FAULTS, SOUND),
         "--lanes": (LANE_FAULTS, ("stream", "serve")),
         "--policies": (POLICY_FAULTS, ("policy", "stream-policies")),
         "--lifecycle": (LIFECYCLE_FAULTS, ("lifecycle",)),
+        "--reuse": (REUSE_FAULTS, ("reuse",)),
     }[only]
     for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"

@@ -20,6 +20,19 @@ then the measured run.
       --stream --requests 6 --lanes 2 --prompt-len 40 --max-new 8 \\
       --prefill-chunk 16 --decode-segment 4 [--interleaved]
 
+Prefix reuse and speculative decoding: --prefix-pools N draws each
+prompt's shared system prompt (--prefix-len tokens) from N pools with
+Zipf(--zipf-alpha) popularity, --prefix-cache-bytes turns the prefix KV
+cache on (the warm-up drain fills it, so the measured run reports a
+warm cache), and --spec-k K drafts K tokens per verify round (greedy
+only):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \\
+      --stream --requests 6 --lanes 2 --prompt-len 40 --max-new 8 \\
+      --prefill-chunk 16 --decode-segment 4 --prefix-pools 2 \\
+      --prefix-len 32 --prefix-cache-bytes 67108864 \\
+      --prefix-min-tokens 16 --spec-k 2
+
 --device defaults to cuda (the hand-written kernels and, unless
 --eager, the CUDA graphs); without a card it fails rather than fall back
 to the CPU.
@@ -41,24 +54,50 @@ from repro_torch.serve.request import (TERMINAL_STATUSES, Request,
 from repro_torch.serve.scheduler import Scheduler, warm_up
 
 
+def _zipf_probs(n: int, alpha: float) -> np.ndarray:
+    """Bounded Zipf pmf over ranks 1..n: p(k) proportional to k^-alpha,
+    the shared-prefix popularity skew (a few hot system prompts, a long
+    tail of rare ones)."""
+    p = np.arange(1, n + 1, dtype=np.float64) ** -float(alpha)
+    return p / p.sum()
+
+
 def poisson_requests(n, rate, *, vocab, prompt_lo, prompt_hi, new_lo,
                      new_hi, seed=0, eos_id=-1, priority_frac=0.0,
                      high_deadline_ms=None, low_deadline_ms=None,
-                     timeout_ms=None):
+                     timeout_ms=None, prefix_pools=0, prefix_len=0,
+                     zipf_alpha=1.1):
     """Synthetic Poisson trace (a copy of the JAX launcher's, without
-    its cross-memory and shared-prefix options): exponential
-    inter-arrival gaps at `rate` req/s, ragged prompt lengths and
-    per-request max_new drawn uniformly, one seed per request. A
-    `priority_frac` fraction of requests is the high class (priority 1,
-    deadline high_deadline_ms); the rest is priority 0 with
-    low_deadline_ms. The same seed gives the JAX launcher's trace."""
+    its cross-memory option): exponential inter-arrival gaps at `rate`
+    req/s, ragged prompt lengths and per-request max_new drawn
+    uniformly, one seed per request. A `priority_frac` fraction of
+    requests is the high class (priority 1, deadline high_deadline_ms);
+    the rest is priority 0 with low_deadline_ms.
+
+    Shared-prefix pools (prefix_pools > 0): `prefix_pools` fixed system
+    prompts of `prefix_len` tokens (default prompt_hi), from their own
+    RNG stream, are drawn per request with Zipf(zipf_alpha) popularity
+    and put before its ragged user turn. The same seed gives the JAX
+    launcher's trace."""
     rng = np.random.RandomState(seed)
     arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+    pools, pool_p = None, None
+    if prefix_pools > 0:
+        # the pools' own stream: the same pool tokens whatever n, rate
+        # and the class draws are
+        prng_pools = np.random.RandomState(seed + 104729)
+        plen = prefix_len if prefix_len > 0 else prompt_hi
+        pools = [prng_pools.randint(0, vocab, size=plen).astype(np.int32)
+                 for _ in range(prefix_pools)]
+        pool_p = _zipf_probs(prefix_pools, zipf_alpha)
     reqs = []
     for i in range(n):
         L = int(rng.randint(prompt_lo, prompt_hi + 1))
         high = bool(rng.rand() < priority_frac)
         prompt = rng.randint(0, vocab, size=L).astype(np.int32)
+        if pools is not None:
+            pid = int(rng.choice(len(pools), p=pool_p))
+            prompt = np.concatenate([pools[pid], prompt])
         reqs.append(Request(
             rid=i, prompt=prompt,
             max_new=int(rng.randint(new_lo, new_hi + 1)), seed=i,
@@ -88,13 +127,19 @@ def _run_stream(cfg, model, args):
                        temperature=args.temperature,
                        checkpoint_every=args.checkpoint_every,
                        snapshot_dir=args.snapshot_dir,
-                       snapshot_host_bytes=args.snapshot_host_bytes)
+                       snapshot_host_bytes=args.snapshot_host_bytes,
+                       prefix_cache_bytes=args.prefix_cache_bytes,
+                       prefix_ttl_sec=args.prefix_ttl_sec,
+                       prefix_min_tokens=args.prefix_min_tokens,
+                       spec_k=args.spec_k)
     reqs = poisson_requests(
         args.requests, args.rate, vocab=cfg.vocab_size,
         prompt_lo=max(args.prompt_len // 4, 4), prompt_hi=args.prompt_len,
         new_lo=max(args.max_new // 4, 1), new_hi=args.max_new,
         seed=args.seed, priority_frac=args.priority_frac,
-        high_deadline_ms=args.deadline_ms, timeout_ms=args.timeout_ms)
+        high_deadline_ms=args.deadline_ms, timeout_ms=args.timeout_ms,
+        prefix_pools=args.prefix_pools, prefix_len=args.prefix_len,
+        zipf_alpha=args.zipf_alpha)
     greedy = args.temperature == 0.0
     injector = None
     if args.inject_faults:
@@ -147,6 +192,28 @@ def _run_stream(cfg, model, args):
           f"io_errors={st['store_io_errors']} "
           f"snapshot_lost={st['n_snapshot_lost']} "
           f"recovered_sessions={st['n_recovered_sessions']}")
+    if sched._pc is not None:
+        # the trie lives on the engine, so the warm-up drain filled it:
+        # these are a warm cache's counters
+        probes = st["n_prefix_hits"] + st["n_prefix_misses"]
+        print(f"  prefix: hits={st['n_prefix_hits']} "
+              f"misses={st['n_prefix_misses']} "
+              f"hit_rate={st['n_prefix_hits'] / max(probes, 1):.2f} "
+              f"reused_tokens={st['n_prefix_reused_tokens']} "
+              f"installs={st['n_prefix_installs']} "
+              f"extracts={st['n_prefix_extracts']} "
+              f"inserts={st['prefix_inserts']} "
+              f"evictions={st['prefix_evictions']} "
+              f"entries={st['prefix_entries']} "
+              f"bytes={st['prefix_bytes']}")
+    if sched.spec_k > 0:
+        # mean acceptance: committed tokens per live verify round
+        acc = st["n_spec_tokens"] / max(st["n_spec_rounds"], 1)
+        print(f"  speculative: spec_k={sched.spec_k} "
+              f"verify_rounds={st['n_verify_rounds']} "
+              f"spec_rounds={st['n_spec_rounds']} "
+              f"spec_tokens={st['n_spec_tokens']} "
+              f"mean_acceptance={acc:.2f}")
     if injector is not None:
         n_terminal = sum(rs.status in TERMINAL_STATUSES
                          for rs in results.values())
@@ -258,6 +325,32 @@ def main(argv=None):
                     help="--inject-faults: per-step probability of "
                          "arming a snapshot-store disk fault (write "
                          "failure or silent truncation)")
+    ap.add_argument("--prefix-cache-bytes", type=int, default=0,
+                    help="--stream: byte budget of the radix-trie "
+                         "prefix KV cache (0 = off); admission reuses "
+                         "the longest cached chunk-aligned prompt "
+                         "prefix and prefills only the novel suffix")
+    ap.add_argument("--prefix-ttl-sec", type=float, default=0.0,
+                    help="--stream: expire unpinned prefix-cache "
+                         "entries untouched this long (0 = no TTL)")
+    ap.add_argument("--prefix-min-tokens", type=int, default=0,
+                    help="--stream: do not capture shared prefixes "
+                         "shorter than this many tokens")
+    ap.add_argument("--prefix-pools", type=int, default=0,
+                    help="--stream: number of shared system prompts "
+                         "(Zipf-sampled, put before each ragged user "
+                         "turn; 0 = fully random prompts)")
+    ap.add_argument("--prefix-len", type=int, default=0,
+                    help="--prefix-pools: tokens per shared system "
+                         "prompt (0 = --prompt-len)")
+    ap.add_argument("--zipf-alpha", type=float, default=1.1,
+                    help="--prefix-pools: Zipf popularity exponent of "
+                         "the pool draw (higher = hotter head)")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="--stream: drafted tokens per verify round "
+                         "(0 = off). Greedy only: n-gram self-drafting "
+                         "from each lane's token history, outputs "
+                         "token-identical to --spec-k 0")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

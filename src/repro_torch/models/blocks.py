@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from repro_torch.core import gates as gates_lib
-from repro_torch.core.cache import cache_insert, cache_topm_merge, init_cache
+from repro_torch.core.cache import (cache_insert, cache_replay,
+                                   cache_topm_merge, init_cache)
 from repro_torch.core.gates import Gate
 from repro_torch.kernels import ops
 from repro_torch.models.common import (NEG_INF, MLP, RMSNorm, apply_rope,
@@ -79,7 +80,7 @@ def init_block_state(cfg, kind: str, batch: int, budget: int, dtype,
     M = (min(budget, cfg.window) if (kind == "local" and cfg.window > 0)
          else budget)
     return init_cache(batch, cfg.num_kv_heads, M, cfg.head_dim, dtype,
-                      device)
+                      device=device)
 
 
 def _window(cfg, kind) -> int:
@@ -135,13 +136,19 @@ def _select_rows(mask, new, old):
 
 
 def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
-                       active=None):
+                       active=None, return_sig=False):
     """x_t: [B, d]; state: the block's slot cache; t: [B] per-lane
     position of this token. Attends over (cache ∪ in-flight token), then
     evicts (Alg. 1). The cache is updated in place (see
     core.cache.cache_insert); active ([B] bool, optional) leaves the
     caches of lanes marked False bit-identical. Returns (x_out [B, d],
-    cache, None)."""
+    cache, None), or with return_sig (speculative decoding's verify
+    pass) the position's commit signal in place of None: {k, v, beta,
+    pkv, auxn}, everything core.cache.cache_replay needs to rerun the
+    eviction transaction; pkv (the probs folded to kv heads) and auxn
+    (p_new folded) are None for a policy that reads no attention, whose
+    replay needs neither. The signal is made of values the step
+    computes anyway, so asking for it changes nothing else."""
     cache = state
     B = x_t.shape[0]
     normed = rmsnorm_apply(block.norm1.scale, x_t, cfg.norm_eps)
@@ -156,15 +163,15 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
                                window=_window(cfg, block.kind),
                                new_kv=(k_t, v_t),
                                return_probs=policy.needs_attn)
-    aux_new = None
+    aux_new = pkv = None
     if policy.needs_attn:
         out, probs, p_new = out
         # before the insert: its keep scores read the updated aux. The
         # serving step programs keep the caches as static buffers, so an
         # aux rebound (or a new dict returned) would be lost in a replay
         aux = cache["aux"]
-        if (policy.decode_update(cache, _probs_to_kv(probs, cfg),
-                                 active=active) is not cache
+        pkv = _probs_to_kv(probs, cfg)
+        if (policy.decode_update(cache, pkv, active=active) is not cache
                 or cache["aux"] is not aux):
             raise RuntimeError(f"policy {policy.name!r}: decode_update must "
                                f"write the cache's aux in place")
@@ -175,7 +182,75 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
                          active=active)
     x = x_t + dense_apply(block.attn.wo,
                           out.reshape(B, cfg.q_dim).to(x_t.dtype))
-    return _ffn_residual(block, cfg, x), cache, None
+    sig = ({"k": k_t, "v": v_t, "beta": beta_t, "pkv": pkv,
+            "auxn": aux_new} if return_sig else None)
+    return _ffn_residual(block, cfg, x), cache, sig
+
+
+# ============================================ block: speculative verify
+#
+# Draft/verify speculative decoding scores C = spec_k + 1 candidate
+# positions per lane in two phases, as the JAX package does:
+#
+#   * apply_block_verify (phase A): apply_block_decode itself, at the
+#     decode shape [B, d], once per candidate position, over a SCRATCH
+#     copy of the layer's cache, recording each position's eviction
+#     transaction (return_sig). Every op is the decode op at the decode
+#     shape, so the logits at every correctly fed position are
+#     bit-identical to sequential decode. The scratch is discarded; the
+#     durable cache is never written (the port's decode writes in place,
+#     hence the copy).
+#   * apply_block_verify_commit (phase B): once the accepted prefix
+#     n_commit[b] is known, replay only those positions' transactions
+#     on the durable cache (core.cache.cache_replay), in place.
+
+
+def apply_block_verify(block: DenseBlock, cfg, x, state, t, *, policy,
+                       live=None, scratch=None):
+    """Phase A of a verify round. x: [B, C, d] residual stream of the C
+    candidate positions; state: the layer's round-entry cache (not
+    written); t: round-entry per-lane clock [B]; live: [B] bool lanes in
+    the round. ``scratch`` (a cache of the same shapes, or None for a
+    new one) receives a copy of ``state`` and carries the positions'
+    evolving cache; the serving step programs pass one static scratch
+    for every layer. Returns (x_out [B, C, d], sig), sig's leaves
+    stacked on axis 1 (see apply_block_decode's return_sig)."""
+    B, C, _ = x.shape
+    if live is None:
+        live = torch.ones((B,), dtype=torch.bool, device=x.device)
+    if scratch is None:
+        scratch = {k: v.clone() for k, v in state.items()}
+    else:
+        for k, v in state.items():
+            scratch[k].copy_(v)
+    tb = torch.as_tensor(t, dtype=torch.int32, device=x.device).expand(B)
+    rows, sigs = [], []
+    for j in range(C):
+        x_o, _, sig = apply_block_decode(block, cfg, x[:, j], scratch,
+                                         tb + j, policy=policy, active=live,
+                                         return_sig=True)
+        rows.append(x_o)
+        sigs.append(sig)
+    stacked = {k: (None if sigs[0][k] is None
+                   else torch.stack([s_[k] for s_ in sigs], dim=1))
+               for k in sigs[0]}
+    return torch.stack(rows, dim=1), stacked
+
+
+def apply_block_verify_commit(cfg, kind, state, sig, t, n_commit, live,
+                              policy):
+    """Phase B of a verify round: commit the accepted prefix (bounded
+    rollback) into the layer's round-entry cache ``state``, IN PLACE.
+    sig: apply_block_verify's signals; n_commit: [B] accepted-prefix
+    length (0..C, 0 for non-live lanes); t: round-entry clock. Returns
+    the same cache, bit-identical to having decoded only the accepted
+    prefix. (The recurrent and mamba kinds select a stacked snapshot in
+    the JAX package; they come with their families.)"""
+    _require_dense(kind)
+    inc = 1.0 if policy.name == "trimkv" else None
+    return cache_replay(state, sig["k"], sig["v"], sig["beta"], sig["pkv"],
+                        sig["auxn"], t, n_commit, live, policy,
+                        incoming_score=inc)
 
 
 def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,

@@ -1,5 +1,6 @@
 """The dense stack: init, logits, decode state, single-shot and chunked
-prefill, decode, sampling, the token loops and the training forward.
+prefill, decode, sampling, speculative verify rounds, the token loops
+and the training forward.
 
 Ported from ``repro/models/transformer.py`` (dense path). The model is
 a ``Transformer`` module holding its blocks in order; the JAX package's
@@ -165,7 +166,11 @@ def prefill_chunk_loop(model: Transformer, cfg, chunks, n_valid, state,
     [n_chunks, B] for a ragged batch: mixed-length prompts on one chunk
     grid, each row with its own counts (full chunks, its tail, then
     zeros, which freeze the row). Returns (state, h_last [B, d] of each
-    row's last real token, carried across its empty chunks)."""
+    row's last real token, carried across its empty chunks).
+
+    The prefix cache's boundary snapshots (the JAX package's
+    capture_chunk) are taken by the serving layer, between the chunk
+    program's replays (serve.graphs.LanePrograms.prefill_chunks)."""
     chunks = torch.as_tensor(chunks, device=model.device)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
                               device=model.device)
@@ -328,6 +333,192 @@ def mixed_step(model: Transformer, cfg, state, tok, keys, active, n_emitted,
     return state, tok, keys, active, n_emitted, ok, emit, logits
 
 
+# ------------------------------------------------ speculative decoding
+#
+# Draft/verify/commit rounds, greedy only (the JAX package's
+# verify_round): each live lane drafts spec_k tokens from its own token
+# history, the stack scores the C = spec_k + 1 positions with the decode
+# recipe itself (blocks.apply_block_verify, at the decode shape
+# [B, d]), the longest prefix that agrees with the model's greedy tokens
+# is accepted, and only those positions' cache transactions are
+# replayed into the durable caches (blocks.apply_block_verify_commit).
+# Greedy outputs are token-identical to the plain segments.
+
+SPEC_HISTORY = 64  # per-lane token-history window the drafter sees
+
+
+def ngram_draft(hist, tok, k: int):
+    """Self-draft k tokens from the lane's token history. hist: [B, H]
+    the tokens consumed BEFORE the current carry, left-padded with -1,
+    most recent last; tok: [B] the current carry. Finds the most recent
+    earlier occurrence of the bigram (hist[-1], tok) and proposes its
+    continuation; a lane with no match (or a continuation running off
+    the known history) repeats its carry. Returns drafts [B, k] in
+    hist's dtype (always valid vocab ids)."""
+    B, H = hist.shape
+    dev = hist.device
+    ext = torch.cat([hist, tok[:, None].to(hist.dtype)], dim=1)  # [B,H+1]
+    last, prev = ext[:, -1], ext[:, -2]
+    p = torch.arange(1, H, device=dev)
+    match = ((ext[:, 1:H] == last[:, None]) & (ext[:, :H - 1] == prev[:, None])
+             & (ext[:, 1:H] >= 0) & (ext[:, :H - 1] >= 0))
+    best = torch.where(match, p[None], torch.full_like(p[None], -1)).max(
+        dim=1).values                                          # [B]
+    idx = best[:, None] + torch.arange(1, k + 1, device=dev)[None]
+    cont = torch.gather(ext, 1, idx.clamp(0, H))
+    valid = (best >= 0)[:, None] & (idx <= H) & (cont >= 0)
+    return torch.where(valid, cont, ext[:, -1:].expand(B, k))
+
+
+def _verify_forward(model: Transformer, cfg, state, fed, live, policy,
+                    scratch=None):
+    """Phase A of a verify round: score the C candidate positions (fed
+    [B, C]) through the stack WITHOUT writing ``state``: each block runs
+    the decode recipe per position over a scratch copy of its cache
+    (blocks.apply_block_verify). ``scratch`` maps a cache's pos shape to
+    a static scratch cache (None: new ones). The final norm and the
+    logits run per position at the decode shape [B, d], as decode_step
+    runs them, since a GEMM at another shape may round otherwise.
+    Returns (logits [B, C, Vp] float32, sigs: one signal dict per
+    layer)."""
+    x = _embed(model, fed)                                   # [B,C,d]
+    t = state["t"]
+    sigs = []
+    for block, st in zip(model.layers, state["layers"]):
+        sc = None if scratch is None else scratch[tuple(st["pos"].shape)]
+        x, sig = blocks.apply_block_verify(block, cfg, x, st, t,
+                                           policy=policy, live=live,
+                                           scratch=sc)
+        sigs.append(sig)
+    logits = [compute_logits(model, cfg, rmsnorm_apply(
+        model.final_norm.scale, x[:, j].contiguous(), cfg.norm_eps))
+        for j in range(x.shape[1])]
+    return torch.stack(logits, dim=1), sigs
+
+
+def _verify_commit(cfg, state, sigs, n_commit, live, policy):
+    """Phase B of a verify round: commit each lane's accepted prefix
+    (n_commit [B], 0 for lanes not live) into the round-entry caches,
+    in place (blocks.apply_block_verify_commit). Returns the state with
+    its clock advanced by n_commit (a new t tensor)."""
+    t = state["t"]
+    for kind, st, sig in zip(cfg.layer_kinds(), state["layers"], sigs):
+        blocks.apply_block_verify_commit(cfg, kind, st, sig, t, n_commit,
+                                         live, policy)
+    return {"t": t + n_commit.to(t.dtype), "layers": state["layers"]}
+
+
+def verify_round(model: Transformer, cfg, state, tok, hist, active, live,
+                 n_emitted, max_new, eos_id, spec_k: int, policy, *,
+                 draft_fn=None, scratch=None):
+    """One draft/verify/commit round over B lanes: drafts spec_k tokens
+    per lane, scores C = spec_k + 1 positions, accepts the longest
+    greedy-agreeing prefix (clipped at each lane's stop condition) and
+    commits exactly those positions.
+
+    tok [B]: carry token (emitted first); hist [B, SPEC_HISTORY]: the
+    tokens before tok, -1 padded, recent last; active / live [B] bool
+    (live = active lanes in this round); n_emitted, max_new, eos_id [B];
+    draft_fn(hist, tok, k) -> [B, k] (default ngram_draft). The caches
+    of ``state`` are committed in place.
+
+    Returns (state, tok, hist, active, n_emitted, fed [B, C], emitted
+    [B, C], ok [B], n_commit [B]): fed[l, j] is an output token iff
+    emitted[l, j]; ok is False where a lane's logits were not finite at
+    a committed position."""
+    B = tok.shape[0]
+    C = spec_k + 1
+    dev = tok.device
+    drafts = ((draft_fn or ngram_draft)(hist, tok, spec_k) if spec_k > 0
+              else tok.new_zeros((B, 0)))
+    fed = torch.cat([tok[:, None], drafts.to(tok.dtype)], dim=1)   # [B,C]
+    logits, sigs = _verify_forward(model, cfg, state, fed, live, policy,
+                                   scratch=scratch)
+    y = torch.argmax(logits, dim=-1)                         # [B,C]
+    if spec_k > 0:
+        acc = torch.cumprod((fed[:, 1:] == y[:, :-1]).long(), dim=1)
+        n_cand = 1 + acc.sum(dim=1)                          # [B] 1..C
+    else:
+        n_cand = torch.ones((B,), dtype=torch.long, device=dev)
+    # a lane's stop conditions inside the accepted candidates: emitting
+    # eos or the max_new-th token ends the request at that position
+    s_idx = torch.arange(C, device=dev)
+    stop = ((((eos_id[:, None] >= 0) & (fed == eos_id[:, None]))
+             | (n_emitted[:, None] + s_idx[None] + 1 >= max_new[:, None]))
+            & (s_idx[None] < n_cand[:, None]))
+    first_stop = torch.where(stop, s_idx[None], C).min(dim=1).values
+    n_commit = torch.where(live, torch.minimum(n_cand, first_stop + 1),
+                           torch.zeros_like(n_cand))
+    done = live & (first_stop < C)
+    # health over committed positions only (position 0 is always
+    # committed for a live lane, so a poisoned cache cannot hide)
+    finite = torch.isfinite(logits).all(dim=-1)              # [B,C]
+    ok = ((s_idx[None] >= n_commit[:, None]) | finite).all(dim=1)
+    emitted = live[:, None] & (s_idx[None] < n_commit[:, None])
+    state = _verify_commit(cfg, state, sigs, n_commit, live, policy)
+    # the carry: the model's own token after the last committed one
+    carry = torch.gather(y, 1, (n_commit - 1).clamp(min=0)[:, None])[:, 0]
+    new_tok = torch.where(live, carry, tok)
+    # the history takes the committed tokens (still not the carry)
+    H = hist.shape[1]
+    ext = torch.cat([hist, fed.to(hist.dtype)], dim=1)       # [B,H+C]
+    shifted = torch.gather(
+        ext, 1, torch.arange(H, device=dev)[None] + n_commit[:, None])
+    hist = torch.where(live[:, None], shifted, hist)
+    n_emitted = n_emitted + n_commit.to(n_emitted.dtype)
+    return (state, new_tok, hist, active & ~done, n_emitted, fed, emitted,
+            ok, n_commit)
+
+
+def spec_segment_step(model: Transformer, cfg, state, tok, hist, active,
+                      n_emitted, max_new, eos_id, ok, acc_tok, acc_rounds,
+                      spec_k: int, policy, *, scratch=None):
+    """One round of a speculative decode segment (the body of the JAX
+    package's spec_decode_segment_loop) over the lanes in ``active``:
+    verify_round, the health flags and the acceptance counters (acc_tok
+    [B] committed tokens, acc_rounds [B] live rounds). Returns (state,
+    tok, hist, active, n_emitted, ok, acc_tok, acc_rounds, fed,
+    emitted)."""
+    live = active
+    state, tok, hist, active, n_emitted, fed, emitted, r_ok, nc = \
+        verify_round(model, cfg, state, tok, hist, active, live, n_emitted,
+                     max_new, eos_id, spec_k, policy, scratch=scratch)
+    ok = ok & (~live | r_ok)
+    acc_tok = acc_tok + nc.to(acc_tok.dtype)
+    acc_rounds = acc_rounds + live.to(acc_rounds.dtype)
+    return (state, tok, hist, active, n_emitted, ok, acc_tok, acc_rounds,
+            fed, emitted)
+
+
+def spec_mixed_step(model: Transformer, cfg, state, tok, keys, hist, active,
+                    n_emitted, max_new, eos_id, ok, acc_tok, acc_rounds,
+                    ctoks, nv, fin, new_keys, spec_k: int, policy,
+                    serve_cfg, *, finishing: bool, scratch=None):
+    """One step of a speculative interleaved segment (the body of the JAX
+    package's spec_mixed_step_loop): the decode lanes run one
+    verify_round, then the chunk sub-step and the finish transition of
+    mixed_step (a finishing lane takes its prompt's greedy token as its
+    carry; its history was seeded with the prompt tail at admission).
+    Returns (state, tok, keys, hist, active, n_emitted, ok, acc_tok,
+    acc_rounds, fed, emitted)."""
+    (state, tok, hist, dec_active, n_emitted, ok, acc_tok, acc_rounds, fed,
+     emitted) = spec_segment_step(model, cfg, state, tok, hist, active,
+                                  n_emitted, max_new, eos_id, ok, acc_tok,
+                                  acc_rounds, spec_k, policy,
+                                  scratch=scratch)
+    state, h_last = _prefill_chunk_step(model, cfg, ctoks, state, policy,
+                                        serve_cfg, n_valid=nv)
+    if finishing:
+        lg = compute_logits(model, cfg, h_last)
+        ok = ok & (~fin | torch.isfinite(lg).all(dim=-1))
+        tok = torch.where(fin, torch.argmax(lg, dim=-1), tok)
+        keys = torch.where(fin[:, None], new_keys, keys)
+        n_emitted = torch.where(fin, torch.zeros_like(n_emitted), n_emitted)
+        dec_active = dec_active | fin
+    return (state, tok, keys, hist, dec_active, n_emitted, ok, acc_tok,
+            acc_rounds, fed, emitted)
+
+
 def _lane_programs(model, cfg, state, policy, serve_cfg, steps):
     """The serving layer's lane programs over ``state``, run eagerly:
     the loops below drive the same step programs that serve.scheduler
@@ -385,6 +576,55 @@ def mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
                     np.asarray(finish), np.asarray(new_keys, np.int64),
                     greedy=greedy)
     return (lanes.state, *lanes.results(n_steps))
+
+
+def spec_decode_segment_loop(model: Transformer, cfg, state, tok, keys,
+                             active, n_emitted, max_new, eos_id, hist,
+                             n_rounds: int, policy, *, spec_k: int,
+                             n_real=None, serve_cfg=None):
+    """Speculative counterpart of decode_segment_loop: n_rounds verify
+    rounds through the spec_segment program of serve.graphs.LanePrograms
+    (eager), each advancing every live lane by 1 to spec_k + 1 tokens.
+    Greedy only (keys ride through untouched). n_real (<= n_rounds):
+    only the first n_real rounds run. Returns (state, tok, keys,
+    active, n_emitted, ids [B, n_rounds * (spec_k + 1)], emitted [same],
+    ok [B], hist, acc_tok [B] committed tokens, acc_rounds [B] live
+    rounds); ids columns are round-major, position-minor, so the ids
+    where ``emitted`` is set are each lane's tokens in order (columns of
+    rounds that did not run read as not emitted)."""
+    import dataclasses
+    from repro_torch.configs import ServeConfig
+    serve_cfg = dataclasses.replace(serve_cfg or ServeConfig(),
+                                    spec_k=spec_k)
+    lanes = _lane_programs(model, cfg, state, policy, serve_cfg, n_rounds)
+    lanes.tok.copy_(torch.as_tensor(tok))
+    lanes.keys.copy_(torch.as_tensor(np.asarray(keys, np.int64)))
+    lanes.upload_carries(active, n_emitted, max_new, eos_id, hist=hist)
+    n_real = n_rounds if n_real is None else int(n_real)
+    lanes.run_segment(n_real, spec=True)
+    return (lanes.state, *lanes.results(n_rounds, n_real, spec=True))
+
+
+def spec_mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
+                         n_emitted, max_new, eos_id, hist, chunks,
+                         chunk_valid, finish, new_keys, policy, serve_cfg, *,
+                         spec_k: int):
+    """Speculative counterpart of mixed_step_loop through the spec_mixed
+    programs of serve.graphs.LanePrograms (eager): per step the decode
+    lanes run one verify round while admitting lanes consume one prompt
+    chunk. Greedy only. Returns the spec_decode_segment_loop tuple
+    (ids / emitted [B, n_steps * (spec_k + 1)])."""
+    import dataclasses
+    n_steps = int(np.shape(chunks)[0])
+    serve_cfg = dataclasses.replace(serve_cfg, spec_k=spec_k)
+    lanes = _lane_programs(model, cfg, state, policy, serve_cfg, n_steps)
+    lanes.tok.copy_(torch.as_tensor(tok))
+    lanes.keys.copy_(torch.as_tensor(np.asarray(keys, np.int64)))
+    lanes.upload_carries(active, n_emitted, max_new, eos_id, hist=hist)
+    lanes.run_mixed(np.asarray(chunks), np.asarray(chunk_valid),
+                    np.asarray(finish), np.asarray(new_keys, np.int64),
+                    spec=True)
+    return (lanes.state, *lanes.results(n_steps, spec=True))
 
 
 def reset_lanes(state, lane_mask):

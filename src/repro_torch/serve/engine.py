@@ -29,6 +29,16 @@ The engine keeps one graph memory pool (``graphs.bytes``) and, per
 batch size, the static decode state its programs run over: a fused
 call's state is that buffer and stays valid until the next fused call
 at the same batch size.
+
+With ``serve_cfg.prefix_cache_bytes`` > 0 the engine owns the prefix
+KV cache (``prefix_cache``, serve.prefix_cache), so successive
+schedulers on one engine share one warm trie. The JAX engine's
+``fresh_lane_row`` fills the rows of non-hit lanes in a lane-aligned
+admission sub-state; the port installs only the hit lanes' slabs into
+their lanes (``LanePrograms.admit`` / ``install``), as its resume moves
+only the resumed lanes, so it needs no fresh row. Speculative decoding
+(``serve_cfg.spec_k`` > 0) runs in the scheduler's lanes only, and
+there only when greedy.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from repro_torch.core.policies import make_policy
 from repro_torch.models import transformer as T
 from repro_torch.models.common import resolve_device
 from repro_torch.serve.graphs import GraphPool, LanePrograms, copy_state
+from repro_torch.serve.prefix_cache import PrefixCache
 
 
 class Engine:
@@ -69,6 +80,12 @@ class Engine:
                        if self.device.type == "cuda" else None)
         self._batch_programs = {}
         self._lane_closures = {}
+        # the prefix KV cache lives on the engine, so every scheduler on
+        # it shares one warm trie
+        self.prefix_cache = (
+            PrefixCache(serve_cfg.prefix_cache_bytes,
+                        ttl_sec=serve_cfg.prefix_ttl_sec)
+            if serve_cfg.prefix_cache_bytes > 0 else None)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -147,7 +164,7 @@ class Engine:
             progs = self._programs(B)
             progs.fresh()
             self.dispatch_count += 1
-            h_last = progs.prefill_chunks(chunks, n_valid)
+            h_last, _ = progs.prefill_chunks(chunks, n_valid)
             return progs.state, h_last.clone()
         self.dispatch_count += len(n_valid)
         return T.prefill_chunk_loop(self.model, self.cfg, chunks,

@@ -31,6 +31,17 @@ the programs over it:
   key from ``gkeys``); the host picks the variant per step from its
   finish grid, where the JAX package's lax.cond picks on the device.
 
+Speculative decoding (``serve.spec_k`` > 0, greedy only) adds three
+more, over the drafter history ``hist`` [B, SPEC_HISTORY] and ids /
+emitted buffers widened to W * (spec_k + 1) columns:
+
+- ``spec_segment``: one verify round (transformer.spec_segment_step:
+  phase A scores the spec_k + 1 positions over a static scratch cache,
+  one per cache shape, phase B replays the accepted ones into the
+  static state in place);
+- ``spec_mixed`` and ``spec_mixed_first``: one verify round plus one
+  chunk sub-step, without and with the first-token logits.
+
 Each of the segment and mixed programs has a sampled twin (the name
 with ``_sampled`` appended) that draws per lane at serve.temperature
 from the lanes' key chains ``keys`` [B, 2]; the caller picks greedy or
@@ -41,9 +52,12 @@ elementwise work and no generator state is involved.
 Lane surgery runs outside the graphs, as reset and scrub do: ``extract``
 copies chosen lanes' rows, carried tokens and keys to the host (through
 one reused pinned staging buffer on the card, one synchronize, then
-into ordinary host memory) and ``resume`` copies snapshot
-rows, tokens and keys back into chosen lanes, in place, so the captured
-programs read the installed rows on their next replay. (The JAX package
+into ordinary host memory), ``install`` copies host rows (snapshots or
+prefix-cache slabs) into chosen lanes, in place, so the captured
+programs read the installed rows on their next replay, and ``resume``
+installs rows with their tokens and keys. ``admit`` (phased admission)
+installs prefix-cache hits before its chunk replays and extracts the
+lanes it captures between them. (The JAX package
 moves all B lanes, lane-aligned, and installs the chosen ones with a
 mask, which keeps its programs shard-local under a mesh; here only the
 chosen lanes' rows move.)
@@ -76,8 +90,10 @@ from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
 
 # rows of LanePrograms.io, the per-lane carries a dispatch uploads once
-# and the segment / mixed programs update in place
-IO_ACTIVE, IO_EMITTED, IO_MAX_NEW, IO_EOS, IO_OK, IO_STEP = range(6)
+# and the segment / mixed programs update in place (the last two: the
+# speculative programs' committed tokens and live rounds)
+(IO_ACTIVE, IO_EMITTED, IO_MAX_NEW, IO_EOS, IO_OK, IO_STEP, IO_ACC_TOK,
+ IO_ACC_ROUNDS) = range(8)
 
 
 class GraphPool:
@@ -225,13 +241,24 @@ class LanePrograms:
         self.h_last = torch.zeros((B, self.cfg.d_model),
                                   dtype=self.model.embed.dtype, device=dev)
         # scheduler segments: per-lane carries, the mixed steps' chunk
-        # schedule, and the segment's emissions
-        self.io = torch.zeros((6, B), dtype=torch.int32, device=dev)
+        # schedule, and the segment's emissions (spec_k + 1 columns a
+        # step under speculative decoding)
+        self.spec_k = serve.spec_k
+        Cs = self.spec_k + 1
+        self.io = torch.zeros((8, B), dtype=torch.int32, device=dev)
         self.grid = torch.zeros((W, B, C), dtype=torch.int64, device=dev)
         self.gnv = torch.zeros((W, B), dtype=torch.int32, device=dev)
         self.gfin = torch.zeros((W, B), dtype=torch.bool, device=dev)
-        self.ids = torch.zeros((B, W), dtype=torch.int64, device=dev)
-        self.emitted = torch.zeros((B, W), dtype=torch.bool, device=dev)
+        self.ids = torch.zeros((B, W * Cs), dtype=torch.int64, device=dev)
+        self.emitted = torch.zeros((B, W * Cs), dtype=torch.bool,
+                                   device=dev)
+        # speculative decoding: the drafter history, and one scratch
+        # cache per cache shape, which phase A of every layer reuses
+        # (made at a speculative program's first run, its warm-up, so it
+        # is a static buffer of the captured graph)
+        self.hist = torch.full((B, T.SPEC_HISTORY), -1, dtype=torch.int64,
+                               device=dev)
+        self.scratch = None
         self.programs = {}
         self._staging = None      # extract's pinned host rows, made once
 
@@ -249,6 +276,9 @@ class LanePrograms:
                   "mixed_sampled": lambda: self._mixed(False, True),
                   "mixed_first": lambda: self._mixed(True, False),
                   "mixed_first_sampled": lambda: self._mixed(True, True),
+                  "spec_segment": self._spec_segment,
+                  "spec_mixed": lambda: self._spec_mixed(False),
+                  "spec_mixed_first": lambda: self._spec_mixed(True),
                   }[name]
             prog = self.programs[name] = StepProgram(name, fn, self.pool)
         return prog
@@ -279,12 +309,13 @@ class LanePrograms:
         return (io[IO_ACTIVE] != 0, io[IO_EMITTED], io[IO_MAX_NEW],
                 io[IO_EOS], io[IO_OK] != 0, io[IO_STEP, :1].long())
 
-    def _commit(self, j, emitted_tok, emit, tok, keys, active, n_emitted,
-                ok):
-        """Write one step's results into the static buffers."""
+    def _commit(self, cols, emitted_tok, emit, tok, keys, active,
+                n_emitted, ok):
+        """Write one step's results into the static buffers: its emitted
+        tokens [B, k] and flags [B, k] into the columns ``cols`` [k]."""
         io = self.io
-        self.ids.index_copy_(1, j, emitted_tok[:, None])
-        self.emitted.index_copy_(1, j, emit[:, None])
+        self.ids.index_copy_(1, cols, emitted_tok)
+        self.emitted.index_copy_(1, cols, emit)
         self.tok.copy_(tok)
         self.keys.copy_(keys)
         io[IO_ACTIVE].copy_(active)
@@ -301,8 +332,8 @@ class LanePrograms:
             temperature=self.temperature)
         self.state["t"].copy_(new["t"])
         self.logits.copy_(logits)
-        self._commit(j, tok, active, ntok, keys, active & ~done, n_emitted,
-                     ok)
+        self._commit(j, tok[:, None], active[:, None], ntok, keys,
+                     active & ~done, n_emitted, ok)
 
     def _mixed(self, finishing: bool, sampled: bool):
         active, n_emitted, max_new, eos, ok, j = self._carries()
@@ -317,7 +348,57 @@ class LanePrograms:
             greedy=not sampled, temperature=self.temperature)
         copy_state(self.state, new)
         self.logits.copy_(logits)
-        self._commit(j, tok, emit, ntok, keys, nactive, n_emitted, ok)
+        self._commit(j, tok[:, None], emit[:, None], ntok, keys, nactive,
+                     n_emitted, ok)
+
+    def _spec_cols(self, j):
+        Cs = self.spec_k + 1
+        return j * Cs + torch.arange(Cs, device=j.device)
+
+    def _scratch(self):
+        if self.scratch is None:
+            self.scratch = {}
+            for st in self.state["layers"]:
+                key = tuple(st["pos"].shape)
+                if key not in self.scratch:
+                    self.scratch[key] = {k: torch.empty_like(v)
+                                         for k, v in st.items()}
+        return self.scratch
+
+    def _spec_segment(self):
+        active, n_emitted, max_new, eos, ok, j = self._carries()
+        io = self.io
+        (new, tok, hist, nactive, n_emitted, ok, acc_tok, acc_rounds, fed,
+         emitted) = T.spec_segment_step(
+            self.model, self.cfg, self.state, self.tok, self.hist, active,
+            n_emitted, max_new, eos, ok, io[IO_ACC_TOK], io[IO_ACC_ROUNDS],
+            self.spec_k, self.policy, scratch=self._scratch())
+        self.state["t"].copy_(new["t"])
+        self.hist.copy_(hist)
+        io[IO_ACC_TOK].copy_(acc_tok)
+        io[IO_ACC_ROUNDS].copy_(acc_rounds)
+        self._commit(self._spec_cols(j), fed, emitted, tok, self.keys,
+                     nactive, n_emitted, ok)
+
+    def _spec_mixed(self, finishing: bool):
+        active, n_emitted, max_new, eos, ok, j = self._carries()
+        io = self.io
+        ctoks = self.grid.index_select(0, j)[0]
+        nv = self.gnv.index_select(0, j)[0]
+        fin = self.gfin.index_select(0, j)[0]
+        (new, tok, keys, hist, nactive, n_emitted, ok, acc_tok, acc_rounds,
+         fed, emitted) = T.spec_mixed_step(
+            self.model, self.cfg, self.state, self.tok, self.keys,
+            self.hist, active, n_emitted, max_new, eos, ok, io[IO_ACC_TOK],
+            io[IO_ACC_ROUNDS], ctoks, nv, fin, self.gkeys, self.spec_k,
+            self.policy, self.serve, finishing=finishing,
+            scratch=self._scratch())
+        copy_state(self.state, new)
+        self.hist.copy_(hist)
+        io[IO_ACC_TOK].copy_(acc_tok)
+        io[IO_ACC_ROUNDS].copy_(acc_rounds)
+        self._commit(self._spec_cols(j), fed, emitted, tok, keys, nactive,
+                     n_emitted, ok)
 
     # ------------------------------------------------------- lock-step use
 
@@ -333,27 +414,37 @@ class LanePrograms:
         self.gkeys.zero_()
         self.io.zero_()
         self.h_last.zero_()
+        self.hist.fill_(-1)
 
-    def prefill_chunks(self, chunks, n_valid):
+    def prefill_chunks(self, chunks, n_valid, capture=None):
         """Run the chunk program over chunks [n, B, C] with real counts
         n_valid [n, B] (numpy): one replay per chunk, from a zero carried
         hidden state. Chunks in which no lane has a token are skipped
-        (they change nothing). Returns the carried last hidden state
-        [B, d] (a view of the static buffer)."""
+        (they change nothing). capture ([B] ints, numpy, or None): the
+        prefix cache's boundary snapshots, lane l's rows extracted right
+        after its capture[l]-th chunk (0 = none). Returns (the carried
+        last hidden state [B, d], a view of the static buffer; {lane:
+        its snapshot row, as extract gives it})."""
         prog = self.program("chunk")
         chunks = torch.as_tensor(chunks, device=self.ctok.device)
         nv_dev = torch.as_tensor(n_valid, dtype=torch.int32,
                                  device=self.cnv.device)
         self.h_last.zero_()
+        snaps = {}
         for i in range(chunks.shape[0]):
-            if not n_valid[i].any():
-                continue
-            self.ctok.copy_(chunks[i])
-            self.cnv.copy_(nv_dev[i])
-            prog.run()
-        return self.h_last
+            if n_valid[i].any():
+                self.ctok.copy_(chunks[i])
+                self.cnv.copy_(nv_dev[i])
+                prog.run()
+            if capture is not None:
+                lanes = [int(l) for l in np.flatnonzero(capture == i + 1)]
+                if lanes:
+                    snaps.update((lane, row) for lane, (row, _, _) in
+                                 zip(lanes, self.extract(lanes)))
+        return self.h_last, snaps
 
-    def admit(self, chunks, n_valid, lane_mask, new_keys=None):
+    def admit(self, chunks, n_valid, lane_mask, new_keys=None, hits=None,
+              capture=None):
         """Phased admission: prefill the ragged chunk grid (chunks
         [n, B, C], n_valid [n, B], numpy; lanes not admitted ride as
         all-zero rows and stay frozen) straight into the lanes of
@@ -362,8 +453,19 @@ class LanePrograms:
         and their key chain to new_keys ([B, 2], numpy; None keeps the
         keys). The JAX package prefills a fresh sub-state and installs
         its rows; into a reset lane that gives the same tokens and slot
-        positions (a reset slot's stale K/V bytes are never read)."""
-        h_last = self.prefill_chunks(chunks, n_valid)
+        positions (a reset slot's stale K/V bytes are never read).
+
+        Prefix cache: ``hits`` ({lane: slab row}) are installed into
+        their lanes first, each slab's clock at its prefix boundary, so
+        the grid's rows for those lanes hold only the suffix chunks;
+        ``capture`` ([B] ints) takes the lanes' boundary snapshots
+        between chunk replays (prefill_chunks). The JAX package's fresh
+        rows for the lanes without a hit are the reset lanes here, so
+        only the hit lanes' rows move. Returns the captured rows
+        ({lane: row})."""
+        if hits:
+            self.install(list(hits), list(hits.values()))
+        h_last, snaps = self.prefill_chunks(chunks, n_valid, capture)
         first = torch.argmax(T.compute_logits(self.model, self.cfg, h_last),
                              dim=-1)
         mask = torch.as_tensor(lane_mask, device=self.tok.device)
@@ -372,6 +474,7 @@ class LanePrograms:
             keys = torch.as_tensor(np.asarray(new_keys, np.int64),
                                    device=self.keys.device)
             self.keys.copy_(torch.where(mask[:, None], keys, self.keys))
+        return snaps
 
     def decode(self, tok, sampled: bool = False):
         """One lock-step decode step feeding tok [B] (device). Returns
@@ -432,13 +535,13 @@ class LanePrograms:
                         keys[lane].numpy().astype(np.uint32)))
         return out
 
-    def resume(self, lanes, rows, toks, keys):
-        """Install snapshots into lanes ``lanes`` (host ints): rows[i] (a
-        batch-1 state with numpy leaves, as extract gives) replaces every
-        leaf's row of lanes[i] IN PLACE (transformer.insert_lanes), and
-        the lane's carried token and key become toks[i] and keys[i]
-        ([2] uint32). One synchronize at the end, so the host buffers may
-        be freed."""
+    def install(self, lanes, rows, sync: bool = True):
+        """Install host rows into lanes ``lanes`` (host ints): rows[i] (a
+        batch-1 state with numpy leaves, as extract gives: a snapshot or
+        a prefix-cache slab, its clock included) replaces every leaf's
+        row of lanes[i] IN PLACE (transformer.insert_lanes). Carried
+        tokens and keys are left alone. With ``sync``, one synchronize at
+        the end, so the host buffers may be freed."""
         dev = self.tok.device
         nb = dev.type == "cuda"
 
@@ -451,67 +554,96 @@ class LanePrograms:
                                     v.dtype) for k, v in st.items()}
                           for i, st in enumerate(self.state["layers"])]}
         T.insert_lanes(self.state, sub, lanes)
+        if nb and sync:
+            torch.cuda.current_stream(dev).synchronize()
+
+    def resume(self, lanes, rows, toks, keys):
+        """Install snapshots into lanes ``lanes`` (host ints): their rows
+        (install), and the lanes' carried tokens and keys become toks[i]
+        and keys[i] ([2] uint32). One synchronize at the end, so the host
+        buffers may be freed."""
+        dev = self.tok.device
+        self.install(lanes, rows, sync=False)
         idx = torch.as_tensor(lanes, dtype=torch.long, device=dev)
         self.tok.index_copy_(0, idx, torch.as_tensor(
             np.asarray(toks, np.int64), device=dev))
         self.keys.index_copy_(0, idx, torch.as_tensor(
             np.asarray(keys, np.int64).reshape(-1, 2), device=dev))
-        if nb:
+        if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
 
-    def upload_carries(self, active, n_emitted, max_new, eos):
+    def upload_carries(self, active, n_emitted, max_new, eos, hist=None):
         """Refresh the per-lane carries before a dispatch (one host copy):
-        the host's active / n_emitted / max_new / eos, ok all True and
-        the step counter at 0."""
+        the host's active / n_emitted / max_new / eos, ok all True, the
+        step counter and the acceptance counters at 0, and (speculative
+        dispatches) the drafter history hist [B, SPEC_HISTORY]."""
         B = self.batch
-        host = torch.zeros((6, B), dtype=torch.int32)
+        host = torch.zeros((8, B), dtype=torch.int32)
         for row, v in ((IO_ACTIVE, active), (IO_EMITTED, n_emitted),
                        (IO_MAX_NEW, max_new), (IO_EOS, eos)):
             host[row] = torch.as_tensor(v).to(torch.int32)
         host[IO_OK] = 1
         self.io.copy_(host)
+        if hist is not None:
+            self.hist.copy_(torch.as_tensor(np.asarray(hist, np.int64)))
 
-    def results(self, n_steps: int, n_run: int | None = None):
+    def results(self, n_steps: int, n_run: int | None = None,
+                spec: bool = False):
         """A dispatch's results as new tensors on the device: (tok, keys
-        [B, 2], active [B] bool, n_emitted [B], ids [B, n_steps], emitted
-        [B, n_steps] bool, ok [B] bool). Only the first n_run (default
-        n_steps) steps ran; the rest read as the identity steps of a
-        masked bucket tail: no emission, the final carried token."""
+        [B, 2], active [B] bool, n_emitted [B], ids [B, n], emitted
+        [B, n] bool, ok [B] bool) with n = n_steps, or with ``spec``
+        n = n_steps * (spec_k + 1) and (hist, acc_tok [B], acc_rounds
+        [B]) appended. Only the first n_run (default n_steps) steps ran;
+        the rest read as the identity steps of a masked bucket tail: no
+        emission, the final carried token."""
         n_run = n_steps if n_run is None else n_run
+        cols = self.spec_k + 1 if spec else 1
         io = self.io
-        ids = self.ids[:, :n_steps].clone()
-        emitted = self.emitted[:, :n_steps].clone()
-        ids[:, n_run:] = self.tok[:, None]
-        emitted[:, n_run:] = False
-        return (self.tok.clone(), self.keys.clone(), io[IO_ACTIVE] != 0,
-                io[IO_EMITTED].clone(), ids, emitted, io[IO_OK] != 0)
+        ids = self.ids[:, :n_steps * cols].clone()
+        emitted = self.emitted[:, :n_steps * cols].clone()
+        ids[:, n_run * cols:] = self.tok[:, None]
+        emitted[:, n_run * cols:] = False
+        out = (self.tok.clone(), self.keys.clone(), io[IO_ACTIVE] != 0,
+               io[IO_EMITTED].clone(), ids, emitted, io[IO_OK] != 0)
+        if spec:
+            out += (self.hist.clone(), io[IO_ACC_TOK].clone(),
+                    io[IO_ACC_ROUNDS].clone())
+        return out
 
-    def download(self, n_steps: int):
+    def download(self, n_steps: int, spec: bool = False):
         """The dispatch's results on the host: (active [B] bool,
-        n_emitted [B], ok [B] bool, ids [B, n_steps], emitted
-        [B, n_steps]) as numpy arrays (one sync)."""
-        _, _, active, n_emitted, ids, emitted, ok = (
-            x.cpu().numpy() for x in self.results(n_steps))
-        return active, n_emitted, ok, ids, emitted
+        n_emitted [B], ok [B] bool, ids [B, n], emitted [B, n]) as numpy
+        arrays (one sync); with ``spec`` (n = n_steps * (spec_k + 1))
+        also hist, acc_tok and acc_rounds."""
+        out = [x.cpu().numpy() for x in self.results(n_steps, spec=spec)]
+        return (out[2], out[3], out[6], out[4], out[5], *out[7:])
 
-    def _suffix(self, greedy: bool) -> str:
-        return "" if greedy or self.temperature == 0.0 else "_sampled"
+    def _variant(self, base: str, greedy: bool, spec: bool) -> str:
+        """The program of ``base`` ("segment", "mixed" or "mixed_first")
+        that a dispatch runs: its speculative twin with ``spec`` (greedy
+        only), else its sampled twin unless ``greedy``, else itself."""
+        if spec:
+            return "spec_" + base
+        return base + ("" if greedy or self.temperature == 0.0
+                       else "_sampled")
 
-    def run_segment(self, n_real: int, greedy: bool = True):
-        """n_real replays of the segment program (its sampled twin unless
-        ``greedy``); the carries must have been uploaded."""
-        prog = self.program("segment" + self._suffix(greedy))
+    def run_segment(self, n_real: int, greedy: bool = True,
+                    spec: bool = False):
+        """n_real replays of the segment program (see _variant: with
+        ``spec`` one verify round a replay); the carries (and, with
+        ``spec``, hist) must have been uploaded."""
+        prog = self.program(self._variant("segment", greedy, spec))
         for _ in range(n_real):
             prog.run()
 
     def run_mixed(self, chunks, nv, finish, new_keys=None,
-                  greedy: bool = True):
-        """The mixed programs (their sampled twins unless ``greedy``) over
-        a schedule of d steps: chunks [d, B, C], nv [d, B], finish
-        [d, B] (numpy, d <= decode_segment) and the keys of the lanes
-        finishing their prompt in it, new_keys [B, 2] (numpy; None:
-        zeros); one replay per step, the variant with first-token logits
-        where some lane finishes."""
+                  greedy: bool = True, spec: bool = False):
+        """The mixed programs (see _variant) over a schedule of d steps:
+        chunks [d, B, C], nv [d, B], finish [d, B] (numpy,
+        d <= decode_segment) and the keys of the lanes finishing their
+        prompt in it, new_keys [B, 2] (numpy; None: zeros); one replay
+        per step, the variant with first-token logits where some lane
+        finishes."""
         d = chunks.shape[0]
         self.grid[:d].copy_(torch.as_tensor(chunks))
         self.gnv[:d].copy_(torch.as_tensor(nv))
@@ -521,7 +653,7 @@ class LanePrograms:
         else:
             self.gkeys.copy_(torch.as_tensor(np.asarray(new_keys,
                                                         np.int64)))
-        suffix = self._suffix(greedy)
         for j in range(d):
-            self.program(("mixed_first" if finish[j].any() else "mixed")
-                         + suffix).run()
+            self.program(self._variant(
+                "mixed_first" if finish[j].any() else "mixed", greedy,
+                spec)).run()

@@ -54,12 +54,41 @@ Each lane holds at most one in-flight request; the scheduler
 
 Dispatch accounting: every dispatch bumps the Engine's
 `dispatch_count`, and the total is n_prefill_rounds + n_segments +
-n_resets + n_swaps + n_resumes (+ n_faults_injected under injection),
-the JAX scheduler's formula without its prefix-cache terms. Interleaved
-mode keeps n_prefill_rounds at 0. `steps_run` counts the step programs
-run by kind (replays on the card), from which the kernel launches of a
-run follow: per layer one decode launch per segment step, one chunk
-launch per chunk step, both per mixed step.
+n_resets + n_swaps + n_resumes + n_prefix_installs + n_prefix_extracts
+(+ n_faults_injected under injection), the JAX scheduler's formula.
+Interleaved mode keeps n_prefill_rounds at 0; the two prefix terms move
+only there (phased hits and captures ride the admission dispatch).
+`steps_run` counts the step programs run by kind (replays on the card),
+from which the kernel launches of a run follow: per layer one decode
+launch per segment step, one chunk launch per chunk step, both per
+mixed step; spec_k + 1 decode launches per verify round
+(spec_segment), plus one chunk launch per spec_mixed step.
+
+Prefix KV cache (serve.prefix_cache, ServeConfig.prefix_cache_bytes >
+0; the trie lives on the Engine): admission walks the trie for the
+longest cached chunk-aligned prefix of each fresh prompt, strictly
+below its last chunk. A HIT installs the cached retained slab into the
+lane (its clock at the prefix boundary) and prefills only the novel
+suffix: phased, inside the admission dispatch; interleaved, one
+n_prefix_installs dispatch per admission round with hits, then the
+suffix chunks stream through the mixed segments. CAPTURE is
+traffic-aware: the trie's observe() window picks the deepest chunk
+boundary the prompt shares with recent traffic, and the lane's state
+after exactly that many chunks is inserted (phased: extracted between
+the admission's chunk replays; interleaved: the schedule holds the
+lane at the boundary and one n_prefix_extracts dispatch extracts it at
+the segment's end). A hit pins its entry until the request leaves its
+lane, on every path that clears one (retire, preempt, timeout,
+quarantine, park).
+
+Speculative decoding (ServeConfig.spec_k > 0, greedy only; a sampled
+scheduler runs spec_k 0): decode segments run in verify ROUNDS
+(transformer.verify_round, the spec_segment / spec_mixed programs),
+each committing 1 to spec_k + 1 tokens per live lane under the same
+power-of-two drain buckets; the drafter history `hist` is seeded on
+the host at every lane entry (fresh admission and resume) from the
+request's prompt and tokens. n_verify_rounds, n_spec_rounds and
+n_spec_tokens count the rounds and the acceptance.
 
 Correctness contract: each request's output is token-identical to a
 one-shot `Engine.generate(prompt[None], max_new, chunked=True,
@@ -75,9 +104,8 @@ near tie.
 `continuous=False` degrades the same machinery to static batching
 (admission waits until every lane is free).
 
-Not ported yet; each raises NotImplementedError naming its ROADMAP
-queue 1 item: the prefix cache, speculative decoding and cross-memory
-families.
+Not ported yet: cross-memory families (NotImplementedError naming
+their ROADMAP queue 1 item).
 """
 from __future__ import annotations
 
@@ -89,6 +117,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng
+from repro_torch.models.transformer import SPEC_HISTORY
 from repro_torch.serve.engine import Engine
 from repro_torch.serve.graphs import host_row_template
 from repro_torch.serve.request import (LaneSnapshot, Request, RequestState,
@@ -130,10 +159,17 @@ def _prng_keys(seeds) -> np.ndarray:
 class _LanePrefill:
     """Host-side progress of one interleaved admission prefill: the
     request's prompt chunked as one-shot chunked prefill chunks it, fed
-    one chunk per segment step until done."""
+    one chunk per segment step until done. On a prefix-cache hit the
+    grid holds only the novel suffix chunks (the cached slab was
+    installed before the first segment). While capture_key is set,
+    chunks at or after capture_at stay off the schedule until the
+    boundary slab has been extracted into the trie, so the captured
+    state is exactly the prefix state."""
     chunks: np.ndarray                 # [n_chunks, C] int32
     n_valid: np.ndarray                # [n_chunks] int32 (C ... tail)
     next_chunk: int = 0
+    capture_at: int = 0                # grid-relative capture boundary
+    capture_key: Optional[np.ndarray] = None   # prompt[:cap_tokens]
 
     @property
     def n_chunks(self) -> int:
@@ -168,13 +204,12 @@ class Scheduler:
         if self.cfg.family in ("vlm", "encdec"):
             raise _not_ported("a cross-memory family",
                               "ROADMAP queue 1, cross-memory families")
-        if self.serve.prefix_cache_bytes > 0:
-            raise _not_ported("the prefix cache",
-                              "ROADMAP queue 1, prefix cache")
-        if self.serve.spec_k > 0:
-            raise _not_ported("speculative decoding",
-                              "ROADMAP queue 1, speculative decoding")
         self.greedy = greedy or self.serve.temperature == 0.0
+        # speculative decoding is greedy only: under temperature sampling
+        # spec_k degrades to 0 (the plain segments)
+        self.spec_k = self.serve.spec_k if self.greedy else 0
+        # the prefix KV cache lives on the engine (None when off)
+        self._pc = engine.prefix_cache
         # chaos adversary (serve.faults.FaultInjector), None in
         # production: step() gives it first crack at the scheduler
         self.injector = injector
@@ -190,6 +225,11 @@ class Scheduler:
         self.eos = np.full(n_lanes, -1, np.int32)
         self.lane_req: List[Optional[RequestState]] = [None] * n_lanes
         self.lane_prefill: List[Optional[_LanePrefill]] = [None] * n_lanes
+        # per-lane drafter history (speculative decoding): the tokens
+        # the model consumed before the lane's carry (prompt + emitted),
+        # -1 padded left, most recent last; seeded at every lane entry
+        # (_seed_hist) and carried through the spec dispatches
+        self.hist = np.full((n_lanes, SPEC_HISTORY), -1, np.int32)
         self.queue: List[RequestState] = []
         self._submit_seq = 0
         self.results: Dict[int, RequestState] = {}
@@ -208,6 +248,18 @@ class Scheduler:
         self.n_snapshot_lost = 0
         self.n_recovered_sessions = 0
         self.n_segment_splits = 0
+        # prefix-cache counters: admission-time trie traffic, and the two
+        # interleaved-only dispatch kinds (slab installs, boundary
+        # extracts)
+        self.n_prefix_hits = 0
+        self.n_prefix_misses = 0
+        self.n_prefix_reused_tokens = 0
+        self.n_prefix_installs = 0
+        self.n_prefix_extracts = 0
+        # speculative counters: verify rounds dispatched (with spec on,
+        # decode_segment * (n_segments - n_segment_splits)) and the
+        # acceptance totals (n_spec_tokens / n_spec_rounds = mean
+        # acceptance length)
         self.n_verify_rounds = 0
         self.n_spec_tokens = 0
         self.n_spec_rounds = 0
@@ -215,7 +267,8 @@ class Scheduler:
         self.prefill_bucket_lengths = set()
         # step programs run, by kind, and the host's time issuing the
         # segment dispatches (until the last step is enqueued)
-        self.steps_run = {"chunk": 0, "segment": 0, "mixed": 0}
+        self.steps_run = {"chunk": 0, "segment": 0, "mixed": 0,
+                          "spec_segment": 0, "spec_mixed": 0}
         self.enqueue_sec = 0.0
         self._steps_done = 0
         self._t0 = time.monotonic()
@@ -342,6 +395,21 @@ class Scheduler:
             self.store.put(rs.rid, snap, request_meta=rs.request.to_meta(),
                            tokens=rs.tokens, kind=kind)
 
+    def _seed_hist(self, lane: int, rs: RequestState) -> None:
+        """Seed the lane's drafter history: every token the model has
+        consumed before its current carry (prompt + emitted tokens),
+        truncated to the SPEC_HISTORY window, left-padded with -1.
+        Called at every lane entry (fresh admission, phased and
+        interleaved, and resume, after the host stream was rolled back
+        to the snapshot point), so the history never rides snapshots."""
+        toks = list(rs.request.prompt) + list(rs.tokens)
+        H = self.hist.shape[1]
+        row = np.full((H,), -1, np.int32)
+        tail = toks[-H:]
+        if tail:
+            row[H - len(tail):] = tail
+        self.hist[lane] = row
+
     def _resume_lanes(
             self,
             batch: List[Tuple[RequestState, LaneSnapshot, int]]) -> None:
@@ -369,6 +437,8 @@ class Scheduler:
             self.n_emitted[lane] = snap.n_emitted
             self.max_new[lane] = rs.request.max_new
             self.eos[lane] = rs.request.eos_id
+            if self.spec_k:
+                self._seed_hist(lane, rs)
 
     def park(self, rid: int) -> RequestState:
         """Swap a RUNNING (decoding) request out on purpose: its lane is
@@ -385,6 +455,7 @@ class Scheduler:
         self._swap_out([lane], kind="park")
         self._reset_lanes([lane])
         rs.status, rs.lane = Status.PARKED, -1
+        self._release_prefix(rs.rid)
         self.lane_req[lane] = None
         self.active[lane] = False
         return rs
@@ -463,6 +534,7 @@ class Scheduler:
                 rs.tokens.clear()
             rs.n_preempts += 1
             self.n_preempted += 1
+            self._release_prefix(rs.rid)
             self.lane_req[lane] = None
             self.lane_prefill[lane] = None
             self.active[lane] = False
@@ -509,6 +581,7 @@ class Scheduler:
             rs.reason = (f"exceeded timeout_ms={rs.request.timeout_ms} "
                          f"while running")
             self.store.drop(rs.rid)
+            self._release_prefix(rs.rid)
             self.n_timeouts += 1
             self.lane_req[lane] = None
             self.lane_prefill[lane] = None
@@ -516,16 +589,22 @@ class Scheduler:
 
     # --------------------------------------------------------- admission
 
-    def _pack_prompts(self, slots: List[Tuple[int, RequestState]]):
+    def _pack_prompts(self, slots: List[Tuple[int, RequestState]],
+                      skip_chunks: Optional[Dict[int, int]] = None):
         """Pack ragged prompts into one padded, lane-aligned chunk grid:
         chunks [n_chunks, B, C] and the valid matrix [n_chunks, B] (full
         chunks, then each request's tail, then zeros, which freeze the
-        row). The chunk axis is rounded up to a power of two, as the JAX
-        package rounds it; chunks where no lane has a token are not run
+        row). Per-lane `skip_chunks` drops each request's cached prefix
+        chunks (a prefix-cache hit prefills only its suffix). The chunk
+        axis is rounded up to a power of two, as the JAX package rounds
+        it; chunks where no lane has a token are not run
         (LanePrograms.prefill_chunks)."""
         C = self.serve.prefill_chunk
-        per = {lane: _chunk_prompt(rs.request.prompt, C)
-               for lane, rs in slots}
+        per = {}
+        for lane, rs in slots:
+            ch, nv = _chunk_prompt(rs.request.prompt, C)
+            d = skip_chunks.get(lane, 0) if skip_chunks else 0
+            per[lane] = (ch[d:], nv[d:])
         n_chunks = max(ch.shape[0] for ch, _ in per.values())
         n_chunks = 1 << (n_chunks - 1).bit_length()
         self.prefill_bucket_lengths.add(n_chunks)
@@ -535,6 +614,86 @@ class Scheduler:
             chunks[: ch.shape[0], lane] = ch
             n_valid[: nv.shape[0], lane] = nv
         return chunks, n_valid
+
+    # ------------------------------------------------------ prefix cache
+
+    def _probe_prefix(self, batch: List[RequestState]):
+        """Per fresh admission batch: walk the trie for each prompt's
+        longest cached chunk-aligned prefix and decide what to capture.
+        Returns (hits, caps), both keyed by batch row: hits[i] = the
+        PrefixEntry whose slab seeds row i (pinned for the rid until the
+        request leaves its lane); caps[i] = (cap_rel, key): snapshot row
+        i after its cap_rel-th GRID chunk (the grid is the suffix when
+        row i also hit) and insert it under key.
+
+        Hit rule: lookup is limited to the last chunk boundary strictly
+        below the prompt, so at least one suffix chunk remains. Capture
+        rule: the deepest chunk multiple of the prompt's longest common
+        prefix with the trie's recent-prompt window (observe()), under
+        the same limit; gated on serve.prefix_min_tokens, on being
+        deeper than the hit, and deduped against the trie and the keys
+        chosen this round."""
+        C = self.serve.prefill_chunk
+        hits: Dict[int, object] = {}
+        caps: Dict[int, Tuple[int, np.ndarray]] = {}
+        chosen = set()
+        for i, rs in enumerate(batch):
+            prompt = np.asarray(rs.request.prompt, np.int32)
+            n_chunks = -(-prompt.size // C)
+            limit = (n_chunks - 1) * C
+            entry = (self._pc.lookup(prompt, limit=limit, pin=rs.rid)
+                     if limit > 0 else None)
+            d1 = 0
+            if entry is not None:
+                d1 = entry.n_tokens // C
+                hits[i] = entry
+                self.n_prefix_hits += 1
+                self.n_prefix_reused_tokens += entry.n_tokens
+            else:
+                self.n_prefix_misses += 1
+            lcp = self._pc.observe(prompt)
+            cap_tokens = min(lcp // C * C, limit)
+            if (cap_tokens >= max(self.serve.prefix_min_tokens, C)
+                    and cap_tokens // C > d1):
+                key = prompt[:cap_tokens]
+                kb = key.tobytes()
+                if kb not in chosen and not self._pc.contains(key):
+                    chosen.add(kb)
+                    caps[i] = (cap_tokens // C - d1, key)
+        return hits, caps
+
+    def _install_prefix(self, batch: List[Tuple[object, int]]) -> None:
+        """Interleaved hit path: ONE install dispatch copies the k cached
+        slabs into their freshly assigned lanes, in place, before the
+        mixed segments stream each request's suffix chunks (phased hits
+        ride the admission dispatch instead). The carried token and key
+        are set by the mixed step that finishes the lane's prompt."""
+        self.eng.dispatch_count += 1
+        self.n_prefix_installs += 1
+        self.lanes.install([lane for _, lane in batch],
+                           [entry.state for entry, _ in batch])
+
+    def _capture_lanes(self, lanes: List[int]) -> None:
+        """Interleaved capture path: the schedule held these lanes at
+        their capture boundary (next_chunk == capture_at), so their
+        state IS the boundary prefix state. ONE extract dispatch copies
+        them out, each row goes into the trie under its chunk-aligned
+        key, and clearing capture_key lets the rest of the suffix onto
+        the next segment's schedule."""
+        self.eng.dispatch_count += 1
+        self.n_prefix_extracts += 1
+        for lane, (row, _, _) in zip(lanes, self.lanes.extract(lanes)):
+            pf = self.lane_prefill[lane]
+            self._pc.insert(pf.capture_key, row)
+            pf.capture_key = None
+
+    def _release_prefix(self, rid: int) -> None:
+        """Unpin rid's prefix-cache entry (idempotent; nothing when the
+        cache is off or rid holds no pin). Called on every path that
+        clears a lane (retire, preempt, timeout, quarantine, park), so a
+        slab becomes evictable once no lane is built from it."""
+        if self._pc is not None:
+            self._pc.release(rid)
 
     def _claim_lanes(self) -> List[int]:
         """Which free lanes can be filled now (static batching waits for
@@ -602,28 +761,53 @@ class Scheduler:
         self.n_emitted[lane] = 0
         self.max_new[lane] = rs.request.max_new
         self.eos[lane] = rs.request.eos_id
+        if self.spec_k:
+            # the first carry is the prefill's greedy token, so the
+            # history at activation is the prompt's tail
+            self._seed_hist(lane, rs)
 
     def _admit(self) -> int:
         """Phased admission: fill free lanes from the queue. The whole
         admission batch (ragged prefill, first tokens and key chains) is
         ONE dispatch however many requests it packs; decode lanes sit
         idle while it runs. Snapshot-holding requests are restored by
-        one resume dispatch instead."""
+        one resume dispatch instead. Prefix-cache rounds stay one
+        dispatch: hit lanes start from their cached slab and prefill
+        only their suffix chunks, and capture lanes are extracted
+        between the chunk replays and inserted into the trie."""
         resume, fresh = self._take_admissions()
         if resume:
             self._resume_lanes(resume)
         if not fresh:
             return len(resume)
-        chunks, n_valid = self._pack_prompts([(l, rs) for rs, l in fresh])
+        hits, caps = {}, {}
+        if self._pc is not None:
+            hits_b, caps_b = self._probe_prefix([rs for rs, _ in fresh])
+            # _probe_prefix keys by batch row; the grid is lane-aligned
+            hits = {fresh[i][1]: e for i, e in hits_b.items()}
+            caps = {fresh[i][1]: c for i, c in caps_b.items()}
+        C = self.serve.prefill_chunk
+        skip = {l: e.n_tokens // C for l, e in hits.items()} or None
+        chunks, n_valid = self._pack_prompts([(l, rs) for rs, l in fresh],
+                                             skip_chunks=skip)
         mask = np.zeros(self.n_lanes, bool)
         mask[[lane for _, lane in fresh]] = True
         seeds = [0] * self.n_lanes
         for rs, lane in fresh:
             seeds[lane] = rs.request.seed
+        capture = None
+        if caps:
+            capture = np.zeros(self.n_lanes, np.int32)
+            for lane, (cap_rel, _) in caps.items():
+                capture[lane] = cap_rel
         self.eng.dispatch_count += 1
         self.n_prefill_rounds += 1
         self.steps_run["chunk"] += int(n_valid.any(axis=1).sum())
-        self.lanes.admit(chunks, n_valid, mask, _prng_keys(seeds))
+        snaps = self.lanes.admit(chunks, n_valid, mask, _prng_keys(seeds),
+                                 hits={l: e.state for l, e in hits.items()},
+                                 capture=capture)
+        for lane, (_, key) in caps.items():
+            self._pc.insert(key, snaps[lane])
         for rs, lane in fresh:
             self._start(rs, lane, active=True)
         return len(resume) + len(fresh)
@@ -639,12 +823,26 @@ class Scheduler:
         resume, fresh = self._take_admissions()
         if resume:
             self._resume_lanes(resume)
+        hits, caps = {}, {}
+        if self._pc is not None and fresh:
+            hits, caps = self._probe_prefix([rs for rs, _ in fresh])
         C = self.serve.prefill_chunk
-        for rs, lane in fresh:
-            self.lane_prefill[lane] = _LanePrefill(
-                *_chunk_prompt(rs.request.prompt, C))
+        install: List[Tuple[object, int]] = []
+        for i, (rs, lane) in enumerate(fresh):
+            ch, nv = _chunk_prompt(rs.request.prompt, C)
+            d1 = hits[i].n_tokens // C if i in hits else 0
+            pf = _LanePrefill(ch[d1:], nv[d1:])
+            if i in caps:
+                pf.capture_at, pf.capture_key = caps[i]
+            self.lane_prefill[lane] = pf
+            if i in hits:
+                install.append((hits[i], lane))
             self._start(rs, lane, active=False)   # activates in the step
             #                                      that takes its last chunk
+        if install:
+            # one dispatch seeds every hit lane with its cached slab; the
+            # mixed segments then stream only the novel suffixes
+            self._install_prefix(install)
         return len(resume) + len(fresh)
 
     # ---------------------------------------------------------- decoding
@@ -675,6 +873,10 @@ class Scheduler:
                 i = progress[lane]
                 if i >= pf.n_chunks:
                     continue
+                if pf.capture_key is not None and i >= pf.capture_at:
+                    # hold at the capture boundary until the slab is
+                    # extracted at this segment's end
+                    continue
                 tok_count = int(pf.n_valid[i])
                 if budget > 0 and spent > 0 and spent + tok_count > budget:
                     continue
@@ -693,11 +895,37 @@ class Scheduler:
 
     def _harvest(self, n_steps: int):
         """Read a dispatch's results back (the one sync of a dispatch)
-        and take its carries into the host bookkeeping. Returns
-        (ids, emitted, ok)."""
-        active, n_emitted, ok, ids, emitted = self.lanes.download(n_steps)
+        and take its carries into the host bookkeeping (with speculative
+        decoding also the drafter history and the acceptance counters).
+        Returns (ids, emitted, ok); ids and emitted have spec_k + 1
+        columns a step under speculative decoding."""
+        if self.spec_k:
+            (active, n_emitted, ok, ids, emitted, hist, acc_tok,
+             acc_rounds) = self.lanes.download(n_steps, spec=True)
+            self.hist = hist.astype(np.int32)
+            self._account_spec(acc_tok, acc_rounds)
+        else:
+            active, n_emitted, ok, ids, emitted = self.lanes.download(
+                n_steps)
         self.active, self.n_emitted = active, n_emitted
         return ids, emitted, ok
+
+    def _upload(self):
+        self.lanes.upload_carries(self.active, self.n_emitted, self.max_new,
+                                  self.eos,
+                                  hist=self.hist if self.spec_k else None)
+
+    def _account_spec(self, acc_tok: np.ndarray, acc_rounds: np.ndarray):
+        """Fold one spec dispatch's per-lane acceptance counters
+        (committed tokens, live rounds) into the totals and each lane's
+        RequestState."""
+        self.n_spec_tokens += int(acc_tok.sum())
+        self.n_spec_rounds += int(acc_rounds.sum())
+        for lane in range(self.n_lanes):
+            rs = self.lane_req[lane]
+            if rs is not None and acc_rounds[lane]:
+                rs.spec_rounds += int(acc_rounds[lane])
+                rs.spec_tokens += int(acc_tok[lane])
 
     def _dispatch_mixed(self, chunks, nv, finish, new_keys, scheduled):
         """One mixed prefill/decode dispatch running the prebuilt
@@ -705,12 +933,14 @@ class Scheduler:
         the host-side chunk progress. Returns (ids, emitted, ok)."""
         self.eng.dispatch_count += 1
         self.n_segments += 1
-        self.steps_run["mixed"] += int(chunks.shape[0])
         t0 = time.perf_counter()
-        self.lanes.upload_carries(self.active, self.n_emitted, self.max_new,
-                                  self.eos)
+        self._upload()
+        if self.spec_k:
+            self.n_verify_rounds += int(chunks.shape[0])
+        self.steps_run["spec_mixed" if self.spec_k else "mixed"] += int(
+            chunks.shape[0])
         self.lanes.run_mixed(chunks, nv, finish, new_keys,
-                             greedy=self.greedy)
+                             greedy=self.greedy, spec=bool(self.spec_k))
         self.enqueue_sec += time.perf_counter() - t0
         for lane, n in scheduled.items():
             pf = self.lane_prefill[lane]
@@ -723,7 +953,9 @@ class Scheduler:
         """One pure-decode dispatch of n_steps steps (a full segment, or
         the drained remainder of a split interleaved segment). The
         remainder's bucket is the JAX package's power of two; its masked
-        tail is the identity and is not replayed."""
+        tail is the identity and is not replayed. Under speculative
+        decoding the steps are verify rounds (the same buckets, in round
+        units), and the results carry spec_k + 1 columns a round."""
         seg = self.serve.decode_segment
         if n_steps >= seg:
             bucket = n_steps
@@ -732,11 +964,14 @@ class Scheduler:
         self.decode_bucket_lengths.add(bucket)
         self.eng.dispatch_count += 1
         self.n_segments += 1
-        self.steps_run["segment"] += n_steps
         t0 = time.perf_counter()
-        self.lanes.upload_carries(self.active, self.n_emitted, self.max_new,
-                                  self.eos)
-        self.lanes.run_segment(n_steps, greedy=self.greedy)
+        self._upload()
+        if self.spec_k:
+            self.n_verify_rounds += n_steps
+        self.steps_run["spec_segment" if self.spec_k else "segment"] += \
+            n_steps
+        self.lanes.run_segment(n_steps, greedy=self.greedy,
+                               spec=bool(self.spec_k))
         self.enqueue_sec += time.perf_counter() - t0
         return self._harvest(n_steps)
 
@@ -758,6 +993,7 @@ class Scheduler:
             self.lane_req[lane] = None
             self.lane_prefill[lane] = None
             self.active[lane] = False
+            self._release_prefix(rs.rid)
             rs.lane = -1
             rs.n_retries += 1
             if rs.n_retries > self.serve.max_retries:
@@ -815,6 +1051,9 @@ class Scheduler:
                 continue                 # bad lanes: emissions suspect
             new_toks = ids[lane][emitted[lane]]
             if new_toks.size and not rs.tokens:
+                # the first emission's column (spec_k + 1 columns a
+                # verify round), its wall time interpolated over the
+                # segment
                 j0 = int(np.argmax(emitted[lane]))
                 rs.first_emit_step = self._steps_done + j0
                 rs.first_token_sec = t_seg0 + (now - t_seg0) * \
@@ -824,11 +1063,20 @@ class Scheduler:
                 rs.status, rs.finish_sec, rs.lane = Status.DONE, now, -1
                 self.lane_req[lane] = None
                 self.store.drop(rs.rid)  # release snapshots, every tier
+                self._release_prefix(rs.rid)
                 finished.append(rs)
                 retired_lanes.append(lane)
         self._steps_done += ids.shape[1]
         if bad:
             self._quarantine(bad)
+        if self._pc is not None:
+            ready = [l for l in range(self.n_lanes)
+                     if self.lane_prefill[l] is not None
+                     and self.lane_prefill[l].capture_key is not None
+                     and self.lane_prefill[l].next_chunk
+                     >= self.lane_prefill[l].capture_at]
+            if ready:
+                self._capture_lanes(ready)
         if retired_lanes:
             self._reset_lanes(retired_lanes)
         every = self.serve.checkpoint_every
@@ -866,7 +1114,8 @@ class Scheduler:
 
     def stats(self) -> Dict[str, int]:
         """The JAX scheduler's counters, the snapshot store's prefixed
-        store_ (without its prefix-cache entries: not ported)."""
+        store_ and, with the prefix cache on, the admission's prefix
+        counters and the trie's own (prefixed prefix_)."""
         out = {
             "n_prefill_rounds": self.n_prefill_rounds,
             "n_segments": self.n_segments,
@@ -888,6 +1137,16 @@ class Scheduler:
             "n_spec_tokens": self.n_spec_tokens,
         }
         out.update({f"store_{k}": v for k, v in self.store.stats().items()})
+        if self._pc is not None:
+            out.update({
+                "n_prefix_hits": self.n_prefix_hits,
+                "n_prefix_misses": self.n_prefix_misses,
+                "n_prefix_reused_tokens": self.n_prefix_reused_tokens,
+                "n_prefix_installs": self.n_prefix_installs,
+                "n_prefix_extracts": self.n_prefix_extracts,
+            })
+            out.update({f"prefix_{k}": v
+                        for k, v in self._pc.stats().items()})
         return out
 
     def run(self, requests: Iterable[Request] = (),

@@ -10,10 +10,13 @@ CPU.
 
 Also: on the smoke config of tests/test_torch_model.py every request's
 ids equal the port's own one-shot Engine.generate(prompt[None],
-chunked=True), graphs' eager twin against the reference loops; and the
-parts of the JAX scheduler the port has not reached raise
-NotImplementedError, while those it has run.
+chunked=True), graphs' eager twin against the reference loops; every
+subsystem of the JAX scheduler the port has (the prefix cache and
+speculative decoding among them) runs a short trace to DONE, while a
+cross-memory family raises NotImplementedError; and init_cache has no
+default device.
 """
+import copy
 import dataclasses
 import functools
 
@@ -165,18 +168,29 @@ def test_scheduler_matches_port_oneshot(interleaved):
             np.testing.assert_array_equal(res[r.rid].ids, want)
 
 
-def test_unported_parts_raise():
-    """The prefix cache, speculative decoding and cross-memory families
-    raise; the parts this module ported since (sampled lanes, park and
-    revive, an injector, checkpoints and a snapshot directory, and swap
-    preemption, the default) run."""
+def test_ported_subsystems_run():
+    """Every subsystem ported so far runs a short trace to DONE: the
+    prefix cache, speculative decoding, both together, checkpoints, a
+    snapshot budget, an injector, sampled lanes, park and revive, and
+    swap preemption (the default); a cross-memory family raises
+    NotImplementedError naming its ROADMAP item."""
     _, _, _, cfg, model = _models()
     eng = build_engine(cfg, model, device="cpu", **SERVE)
-    for kw in (dict(prefix_cache_bytes=1 << 20), dict(spec_k=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Scheduler(build_engine(cfg, model, device="cpu", **SERVE, **kw),
-                      n_lanes=2)
     reqs = _trace(Request)
+    for kw in (dict(prefix_cache_bytes=1 << 20), dict(spec_k=2),
+               dict(prefix_cache_bytes=1 << 20, spec_k=2)):
+        for interleaved in (False, True):
+            sched = Scheduler(build_engine(cfg, model, device="cpu",
+                                           **SERVE, **kw), n_lanes=2,
+                              interleaved=interleaved)
+            res = sched.run(reqs)
+            assert all(res[r.rid].status is Status.DONE
+                       and len(res[r.rid].tokens) == r.max_new for r in reqs)
+            assert (sched.stats()["n_verify_rounds"] > 0) == ("spec_k" in kw)
+    cross = copy.copy(eng)
+    cross.cfg = dataclasses.replace(cfg, family="encdec")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Scheduler(cross, n_lanes=2)
     for kw in (dict(checkpoint_every=2), dict(snapshot_host_bytes=1 << 30)):
         sched = Scheduler(build_engine(cfg, model, device="cpu", **SERVE,
                                        **kw), n_lanes=2)
@@ -205,3 +219,13 @@ def test_unported_parts_raise():
     res = _drive(swap, [reqs[0], reqs[3]], preempt=True)
     assert swap.n_swaps >= 1 and swap.n_resumes >= 1
     assert res[0].status is res[3].status is Status.DONE
+
+
+def test_init_cache_needs_a_device():
+    """init_cache has no default device: the port's functions run on the
+    card unless the caller names the CPU."""
+    from repro_torch.core.cache import init_cache
+    with pytest.raises(TypeError):
+        init_cache(1, 2, 4, 8)
+    cache = init_cache(1, 2, 4, 8, device="cpu")
+    assert cache["k"].device.type == "cpu"
