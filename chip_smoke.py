@@ -5,9 +5,9 @@
 
 Builds every kernel from src/repro_torch/kernels/csrc with nvcc — the
 decode kernel, the bf16 tensor-core retention and chunk kernels
-(wgmma + TMA), the float32 CUDA-core retention and chunk kernels and
-the capacity-loss kernels (a forward with its sum pass, a backward) —
-then:
+(wgmma + TMA, head dim 64 and 128), the float32 CUDA-core retention
+and chunk kernels and the capacity-loss kernels (a forward with its sum
+pass, a backward) — then:
 
 1. kernels — each CUDA kernel against its plain PyTorch version on the
    card at the main-path shapes (Hq 32, Hkv 8, D 128, B 4, M 512,
@@ -30,6 +30,18 @@ then:
    the decode kernel with probs and p_new out and at M 2048, both chunk
    kernels with the cache probabilities out, the bf16 one at M 2048,
    each beside its bound (the probabilities' bytes added);
+1a. cross kernels — the kernels at the cross families' shapes, each
+   against its plain version and timed beside its bound and one SDPA
+   call (cross_kernel_phase): the bf16 tensor-core retention and chunk
+   kernels at head dim 64 with G 1 (seamless-m4t-large-v2: Hq 16 = Hkv
+   16, B 4, T / C 512 and 1024, M 512) over their tile edges (Tq 1, Tk
+   129, a ragged q tile, window 96, n_valid 1 / 64 / 65, probs out, an
+   empty cache, M 500) and at head dim 128 with G 8
+   (llama-3.2-vision-90b: Hq 64, Hkv 8); the decode kernel over memory
+   slabs (no in-flight token, the per-lane mem_len in place of pos,
+   held against the plain version at pos = memory_pos) at S 4096, G 1,
+   D 64 and S 1601, G 8, D 128 with ragged mem_len including 0 (that lane
+   reads exactly 0), bf16 and float32;
 2. serve — trimkv-paper-4b at full width (36 layers, bfloat16, random
    weights from a seed, perturbed gate biases) through Engine.generate,
    batch 4, prompt 2000, budget 512, 32 new tokens, single-shot and
@@ -92,8 +104,8 @@ then:
    (36 layers, budget 512, chunks of 512, segments of 16, 4 lanes),
    sampled at temperature 0.8 on threefry key chains (core.prng):
    split keys and bits identical on the card and the CPU, gumbel floats
-   within 1e-6 of max(1, |value|); in float32 and in bf16 a 12-request trace (seed 1,
-   prompts 64-2000, max_new 17-48), phased and interleaved, each
+   within 1e-6 of max(1, |value|); in float32 and in bf16 a 12-request
+   trace (seed 1, prompts 64-2000, max_new 17-48), phased and interleaved, each
    request's ids against its one-shot sampled Engine.generate up to the
    first near tie of the perturbed scores (SAMPLED_MARGIN_TOL; in
    float32 no divergence at all), exact launch counts, and the sampled
@@ -110,6 +122,37 @@ then:
    host-to-device + install), a disk write and read, the chunked
    prefill of 2000 tokens a swap saves, and a replayed sampled decode
    step against a greedy one;
+2e. qwen2.5-14b — full width (GQA group 5, qkv biases drawn non-zero)
+   cut to 4 layers, bf16: Engine.generate at batch 4, prompt 1024, 32
+   new tokens, single-shot and chunked, fused and eager (exact launches,
+   graphs against eager);
+2f. cross — the cross-memory families (cross_phase), with seeded
+   weights, gate biases ~ U(2, 8) and every cross layer's xgate ~
+   U(0.5, 1.5) (0 at init, where the memory changes nothing):
+   seamless-m4t-large-v2 at full width and depth (24 + 24 layers) and
+   llama-3.2-vision-90b at full width cut to 10 layers (2 cross;
+   VISION_LAYERS), bf16, through Engine.generate at batch 4, prompt
+   1024, budget 512, 32 new tokens with ragged memories (2048-4096
+   frames, 801-1601 image tokens), single-shot and chunked (512), fused
+   and eager: exact launches (a decode step launches the decode kernel
+   once per layer and once per cross layer over its memory: 48 for
+   seamless), graphs against eager; teacher-forced logits under two
+   memories differ by more than MEMORY_GAP_MIN of their scale; where a
+   chunked admission's device time goes (the encoder or projection, the
+   plain prefill cross-attention, the chunk kernels); then streams (4
+   lanes, 8 poisson_requests, seed 0, prompts 256-1024, max_new 16-48,
+   8 requests/s, each with its own ragged memory; seamless phased and
+   interleaved, vision phased): every request DONE, dispatch_count on
+   the formula, the launches the steps imply, ids against one-shot runs
+   up to CROSS_MARGIN_STEPS, output tok/s, TTFT, TPOT, the lane row
+   bytes, and
+   one seamless lane's swap-out and resume ms; then float32 at 2 layers
+   (one cross) for both families: card (kernels) against CPU (plain)
+   teacher-forced logits within 1e-3 and identical slot positions under
+   trimkv and h2o; the lane scheduler with swap preemption (one-shot
+   ids, spec_k 2 = spec_k 0, reset lanes hold mem_len 0 and read zero
+   memory, extract -> resume bit-exact on every leaf, a scrubbed slab
+   all zero, its neighbour bit-identical), check_cross counts 0;
 3. parity — the same config cut to 2 layers, one set of weights on the
    card (kernels) and on the CPU (plain versions), after single-shot
    and after chunked prefill, with exact launch counts: in float32
@@ -154,14 +197,17 @@ Prints the card's name and power limit and a {"kernels": [...]} line
 (each kernel's launches are those of the main paths that run it, each
 counted from 0 just before its run: the decode and bf16 chunk kernels
 over the serve and policy phases' generate calls, the bf16 stream's
-phased run, the reuse phase's drains and the lifecycle phase, the bf16
-retention kernel over the serve and policy phases, the float32 chunk
-kernel over the float32 parity runs, the reuse phase's float32 drains
-and the lifecycle phase, the float32 retention kernel over
-the float32 parity runs, the capacity kernels over the train phase) and each phase's
-seconds, then, as the last line, {"ok": true, "device": {...}}. Any failure
-raises: the script exits non-zero and prints no result line. It exits
-non-zero at once when no CUDA card is visible.
+phased run, the reuse phase's drains, the lifecycle phase, the
+qwen2.5-14b calls and the cross phase's one-shot calls and phased
+streams, the bf16 retention kernel over the serve, policy, qwen2.5-14b
+and cross one-shot phases, the float32 chunk kernel over the float32
+parity runs, the reuse phase's float32 drains, the lifecycle phase and
+the cross float32 parity runs, the float32 retention kernel over the
+float32 parity runs (the cross ones included), the capacity kernels
+over the train phase) and each phase's seconds, then, as the last line,
+{"ok": true, "device": {...}}. Any failure raises: the script exits
+non-zero and prints no result line. It exits non-zero at once when no
+CUDA card is visible.
 """
 from __future__ import annotations
 
@@ -959,33 +1005,40 @@ def check_aux(name, violations):
         raise AssertionError(f"{name}: {violations}")
 
 
-def generate_pairs(eng, cfg, tokens, label):
+def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
+                   shape=SERVE_SHAPE):
     """Engine.generate per mode (single-shot, chunked), fused then eager,
-    on the same inputs: each call's launches against the exact count,
-    finite logits, valid ids, the policy's aux (aux_violations); then
-    graphs against eager (check_graphs):
+    on the same inputs (extra_inputs: a cross family's memory): each
+    call's launches against the exact count (a decode step launches the
+    decode kernel once per layer and once more per cross layer, over its
+    memory), finite logits, valid ids, the policy's aux
+    (aux_violations); then graphs against eager (check_graphs):
     identical ids and slot positions in every layer, logits and every
     layer's aux within GRAPH_LOGIT_TOL of their largest magnitude.
     Returns the outputs by mode ("chunked fused", ...)."""
     import torch
     from repro_torch.kernels import ops
 
-    B, N = tokens.shape[0], SERVE_SHAPE["N"]
-    L, n_chunks = cfg.num_layers, -(-tokens.shape[1] // SERVE_SHAPE["chunk"])
+    B, N = tokens.shape[0], shape["N"]
+    L, n_chunks = cfg.num_layers, -(-tokens.shape[1] // shape["chunk"])
+    n_dec = L + cfg.layer_kinds().count("cross")
     sfx = "" if cfg.dtype == "bfloat16" else "_f32"
     none = dict.fromkeys(ops.KERNELS, 0)        # serving trains nothing
     expect = {
         False: {**none, "retention_attention" + sfx: L,
-                "decode_attention": L * N},
+                "decode_attention": n_dec * N},
         True: {**none, "chunk_attention" + sfx: L * n_chunks,
-               "decode_attention": L * N},
+               "decode_attention": n_dec * N},
     }
+    if eng.device.type == "cpu":          # the plain versions count none
+        expect = {False: none, True: none}
     results = {}
     before = dict(ops.LAUNCHES)
     for chunked in (False, True):
         for fused in (True, False):
-            replays = eng.graphs.replays
-            out = eng.generate(tokens, N, chunked=chunked, fused=fused)
+            replays = eng.graphs.replays if eng.graphs else 0
+            out = eng.generate(tokens, N, chunked=chunked, fused=fused,
+                               extra_inputs=extra_inputs)
             now = dict(ops.LAUNCHES)
             got = {k: now[k] - before[k] for k in now}
             before = now
@@ -1004,7 +1057,8 @@ def generate_pairs(eng, cfg, tokens, label):
                     ids.max() >= cfg.vocab_size:
                 raise AssertionError(f"{label}: bad ids {ids.shape}")
             log(f"{label} {mode}: launches {got}; graph replays "
-                f"{eng.graphs.replays - replays}; prefill "
+                f"{(eng.graphs.replays if eng.graphs else 0) - replays}; "
+                f"prefill "
                 f"{out['prefill_sec']:.3f} s = "
                 f"{out['prefill_tok_per_sec']:.1f} tok/s; decode "
                 f"{out['decode_sec']:.3f} s = {out['tok_per_sec']:.1f} "
@@ -2538,6 +2592,764 @@ def parity_phase(dtype="float32", policy="trimkv"):
     return launches, readings
 
 
+# ------------------------------------------------ cross-memory families
+
+# the cross phase's one-shot shape: batch 4, prompt 1024, 32 new tokens,
+# chunks of 512; llama-3.2-vision-90b is cut to 10 layers (2 units of
+# its pattern, 2 cross layers: ~22 GB in bf16, where 100 layers take
+# ~181 GB)
+CROSS_SHAPE = dict(B=4, P=1024, N=32, chunk=512)
+VISION_LAYERS = 10
+# memory lengths of the one-shot batch: ragged, 2048-4096 frames and
+# 801-1601 image tokens
+CROSS_LENS = {"seamless-m4t-large-v2": [4096, 2048, 3001, 2500],
+              "llama-3.2-vision-90b": [1601, 801, 1200, 1000]}
+# teacher-forced logits under two memories must differ by more than
+# this share of their largest magnitude: the cross path is live
+MEMORY_GAP_MIN = 1e-2
+# the cross streams hold each request's ids against its one-shot run up
+# to the first step whose one-shot top-two margin is at most this many
+# bf16 rounding steps of the largest logit (see MARGIN_TOL: a lane batch
+# of 4 and a batch of 1 run other splits and cuBLAS kernels; the logits
+# reach 4-8, where one step is 2**-5 and MARGIN_TOL's 0.02 admits exact
+# ties only). On the H100 the 31 first divergences of eight sound
+# streams (seven seamless, one vision) sat at 0 steps (21) or 1 step
+# (10), never more; 2 leaves one step of room.
+# This comparison catches little; what catches a wrong lane is
+# cross_lanes_float32's exact check of the scheduler against one-shot
+# runs in float32
+CROSS_MARGIN_STEPS = 2
+
+
+def check_cross(name, violations):
+    """Raise unless every count of the cross phase is 0."""
+    bad = {k: v for k, v in violations.items() if v}
+    if bad:
+        raise AssertionError(f"cross {name}: {bad}")
+
+
+def cross_model(arch, dtype="bfloat16", num_layers=None, seed=20,
+                device="cuda"):
+    """A cross family at full width (num_layers cuts the decoder, and a
+    2-layer cut keeps one cross layer: the vision pattern becomes
+    (global, cross), the encoder 2 layers), seeded weights, gates and
+    gate biases ~ U(2, 8), and every cross layer's xgate ~ U(0.5, 1.5)
+    (0 at init, where the memory would change nothing). The phases
+    that use it serve on the model's device (a CPU model rehearses them,
+    counting no launch). Returns (cfg, model)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if num_layers is not None:
+        cut = {"num_layers": num_layers}
+        if num_layers == 2:
+            cut.update(attn_pattern=("global", "cross")
+                       if cfg.family == "vlm" else cfg.attn_pattern,
+                       encoder_layers=min(cfg.encoder_layers, 2))
+        cfg = dataclasses.replace(cfg, **cut)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=seed, device=device)
+    T.init_gate_params(model, cfg, seed=seed + 1)
+    perturb_gates(model, seed=seed + 2)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 3)
+    for block in model.layers:
+        if block.kind == "cross":
+            block.xgate.copy_(0.5 + torch.rand((), generator=g,
+                                               device=device))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"cross: {cfg.name} {cfg.num_layers} decoder layers "
+        f"({cfg.layer_kinds().count('cross')} cross), "
+        f"{cfg.encoder_layers} encoder layers, {cfg.dtype}, "
+        f"{n_params / 1e9:.3f} B parameters, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def cross_memory(eng, B, seed, lens):
+    """extra_inputs of B random memories (numpy, unit scale, as a vision
+    tower's or speech encoder's embeddings run; the launcher's streams
+    draw 0.1) padded to the family's S, with mem_len lens."""
+    import numpy as np
+    S, feat = eng.mem_shape
+    rng = np.random.RandomState(seed)
+    return {eng.mem_key: rng.randn(B, S, feat).astype(np.float32),
+            "mem_len": np.asarray(lens, np.int32)}
+
+
+def _device_ms(fn, n=3):
+    """Median device time of fn() over n calls after a warm one (CUDA
+    events on the current stream)."""
+    import statistics
+    import torch
+    fn()
+    ts = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ts.append(start.elapsed_time(end))
+    return statistics.median(ts)
+
+
+def cross_admission_ms(eng, cfg, extra, tokens):
+    """Where a chunked cross admission's device time goes (CUDA events,
+    medians of 3, on the programs the one-shot calls captured): the
+    whole chunked fused prefill (the packed memory's upload, the memory
+    program, a chunk program replay a chunk), the memory program alone
+    (the front end, encoder or vision projection, then every cross
+    layer's memory K/V and its install), one chunk replay, and, timed
+    alone at a chunk's shape, one cross layer's plain prefill
+    cross-attention and one layer's chunk kernel."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks
+    from repro_torch.models import transformer as T
+    model = eng.model
+    if model.device.type == "cpu":
+        return {}
+    B, C = tokens.shape[0], CROSS_SHAPE["chunk"]
+    n_chunks = -(-tokens.shape[1] // C)
+    n_cross = cfg.layer_kinds().count("cross")
+    launches = dict(ops.LAUNCHES)
+    state = eng.prefill(tokens, chunked=True, extra_inputs=extra)[0]
+    progs = eng._programs(B, eng.mem_shape[0])
+    cache = {k: state["layers"][0][k].clone() for k in ("k", "v", "pos")}
+    memory, mem_len = T.memory_from_inputs(model, cfg, extra)
+    blk = next(b for b in model.layers if b.kind == "cross")
+    xk, xv = blocks.make_memory_kv(blk.xattn, cfg, memory)
+    x = torch.randn((B, C, cfg.d_model), device="cuda").to(memory.dtype)
+    q = torch.randn((B, C, cfg.num_heads, cfg.head_dim),
+                    device="cuda").to(memory.dtype)
+    kc = torch.randn((B, C, cfg.num_kv_heads, cfg.head_dim),
+                     device="cuda").to(memory.dtype)
+    # a chunk after the prompt, over the prefill's full cache
+    cpos = (tokens.shape[1] + torch.arange(C, device="cuda",
+                                           dtype=torch.int32))[None].expand(
+        B, C).contiguous()
+    ms = {
+        "prefill": _device_ms(lambda: eng.prefill(
+            tokens, chunked=True, extra_inputs=extra)),
+        "memory program": _device_ms(lambda: progs.program("memory").run()),
+        "chunk program": _device_ms(lambda: progs.program("chunk").run()),
+        "cross attention a layer": _device_ms(
+            lambda: blocks.cross_attn_apply(blk.xattn, cfg, x, xk, xv,
+                                            mem_len)),
+        "chunk kernel a layer": _device_ms(lambda: ops.chunk_attention(
+            q, kc, kc, cache, cpos, need_probs=False)),
+    }
+    ops.LAUNCHES.update(launches)        # timing is not the main path
+    pre, chunk = ms["prefill"], ms["chunk program"]
+    log(f"cross {cfg.name} admission (chunked fused prefill, batch {B}, "
+        f"prompt {tokens.shape[1]}, memory lengths {extra['mem_len']}): "
+        f"{pre:.2f} ms = memory program {ms['memory program']:.2f} ms "
+        f"({ms['memory program'] / pre * 100:.1f} %) + {n_chunks} chunk "
+        f"replays of {chunk:.2f} ms ({n_chunks * chunk / pre * 100:.1f} %) "
+        f"+ the packed memory's upload and the rest; a chunk replay holds "
+        f"{n_cross} cross attentions of "
+        f"{ms['cross attention a layer']:.2f} ms "
+        f"({n_cross * ms['cross attention a layer'] / chunk * 100:.1f} % of "
+        f"it) and {cfg.num_layers} chunk kernels of "
+        f"{ms['chunk kernel a layer']:.3f} ms "
+        f"({cfg.num_layers * ms['chunk kernel a layer'] / chunk * 100:.1f} "
+        f"%), timed alone")
+    return ms
+
+
+def cross_oneshot(arch, num_layers=None):
+    """A cross family in bf16 at full width through Engine.generate
+    (generate_pairs: single-shot and chunked, fused and eager, exact
+    launch counts, graphs against eager), then the memory is shown live:
+    the teacher-forced next-token logits of the same prompt under two
+    memories differ by more than MEMORY_GAP_MIN of their scale. Returns
+    (launch counts from 0 before the first call, the admission ms)."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import build_engine
+
+    sh = CROSS_SHAPE
+    cfg, model = cross_model(arch, num_layers=num_layers)
+    eng = build_engine(cfg, model, device=model.device, budget=512,
+                       prefill_chunk=sh["chunk"])
+    tokens, _, _ = make_batch("copy", 0, sh["B"], sh["P"], cfg.vocab_size)
+    extra = cross_memory(eng, sh["B"], 0, CROSS_LENS[arch])
+    label = f"cross {cfg.name}"
+    ops.reset_launches()
+    results = generate_pairs(eng, cfg, tokens, label, extra_inputs=extra,
+                             shape=sh)
+    launches = dict(ops.LAUNCHES)
+    other = cross_memory(eng, sh["B"], 1, CROSS_LENS[arch])
+    logits = [T.compute_logits(model, cfg, eng.prefill(
+        tokens, chunked=True, extra_inputs=e)[1]) for e in (extra, other)]
+    gap = ((logits[0] - logits[1])[:, :cfg.vocab_size].abs().max()
+           / logits[0][:, :cfg.vocab_size].abs().max()).item()
+    log(f"{label}: teacher-forced logits under two memories differ by "
+        f"{gap:.3e} of their largest magnitude (must exceed "
+        f"{MEMORY_GAP_MIN}); graph pool "
+        f"{(eng.graphs.bytes if eng.graphs else 0) / 2**20:.1f} MiB; "
+        f"static decode state "
+        f"{results['chunked fused']['state bytes'] / 2**20:.1f} MiB per "
+        f"batch of {sh['B']}")
+    check_cross(f"{cfg.name} memory", {
+        "memory does not move the logits": int(not gap > MEMORY_GAP_MIN)})
+    ms = cross_admission_ms(eng, cfg, extra, tokens)
+    del eng, model, results, logits
+    torch.cuda.empty_cache()
+    return launches, ms
+
+
+def cross_stream(arch, num_layers=None, modes=("phased", "interleaved"),
+                 swap_times=False):
+    """Continuous batching of a cross family in bf16 at full width: 4
+    lanes, budget 512, chunks 512, segments 16, 8 requests from
+    poisson_requests (seed 0, prompts 256-1024, max_new 16-48, 8
+    requests/s, each with its own ragged memory), per mode: every
+    request DONE with its max_new tokens, dispatch_count equal to the
+    formula, the launches the steps imply (the decode kernel once per
+    layer and cross layer a decode step, the chunk kernel once per layer
+    a chunk), ids against each request's one-shot run (its memory padded
+    to the family's S) up to CROSS_MARGIN_STEPS; prints output tok/s,
+    TTFT p50 / p99 and TPOT p50. With swap_times,
+    one lane is swapped out and resumed, timed. Returns the phased run's
+    launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.graphs import host_row_template
+    from repro_torch.serve.prefix_cache import state_row_bytes
+    from repro_torch.serve.request import Status, latency_percentiles
+    from repro_torch.serve.scheduler import Scheduler, warm_up
+
+    cfg, model = cross_model(arch, num_layers=num_layers, seed=30)
+    L, lanes = cfg.num_layers, 4
+    n_dec = L + cfg.layer_kinds().count("cross")
+    eng = build_engine(cfg, model, device=model.device, budget=512,
+                       prefill_chunk=512, decode_segment=16,
+                       prefill_budget=1024, swap_preempt=False)
+    reqs = poisson_requests(8, 8.0, vocab=cfg.vocab_size, prompt_lo=256,
+                            prompt_hi=1024, new_lo=16, new_hi=48, seed=0,
+                            mem_key=eng.mem_key, mem_shape=eng.mem_shape)
+    name = f"{cfg.name} {L} layers"
+    row = state_row_bytes(host_row_template(cfg, 512))
+    log(f"cross stream {name}: {len(reqs)} requests, prompts "
+        f"{[r.prompt_len for r in reqs]}, memories "
+        f"{[r.extra_inputs[eng.mem_key].shape[0] for r in reqs]}, max_new "
+        f"{[r.max_new for r in reqs]}; a bf16 lane row {row:,} B")
+    # the one-shot references take the memory padded to the lanes' S
+    # (mem_len marks it), so the decode kernel reads a slab of the lanes'
+    # shape; a B = 1 batch and a lane batch of 4 still run other splits
+    S, feat = eng.mem_shape
+    oneshot = {}
+    for r in reqs:
+        m = r.extra_inputs[eng.mem_key]
+        mem = np.zeros((1, S, feat), np.float32)
+        mem[0, :m.shape[0]] = m
+        oneshot[r.rid] = eng.generate(
+            r.prompt[None], r.max_new, chunked=True,
+            extra_inputs={eng.mem_key: mem,
+                          "mem_len": np.array([m.shape[0]], np.int32)})
+    # the margin limit: CROSS_MARGIN_STEPS bf16 rounding steps at the
+    # largest |logit| of the one-shot runs (MARGIN_TOL admits one at
+    # trimkv-paper-4b's logits below 4; these logits reach the next
+    # binade, where one step is 2**-5)
+    top = max(o["logits"][0, :cfg.vocab_size].abs().max().item()
+              for o in oneshot.values())
+    step = 2.0 ** (math.floor(math.log2(top)) - 7)
+    tol = math.nextafter(CROSS_MARGIN_STEPS * step, math.inf)
+    log(f"  one-shot largest |logit| {top:.3f}: one bf16 rounding step "
+        f"{step:g}; margin limit {CROSS_MARGIN_STEPS} steps")
+    for mode in modes:
+        warm_up(eng, lanes, reqs, interleaved=mode == "interleaved")
+    launches_phased = None
+    for mode in modes:
+        ops.reset_launches()
+        eng.dispatch_count = 0
+        sched = Scheduler(eng, n_lanes=lanes,
+                          interleaved=mode == "interleaved")
+        t0 = time.perf_counter()
+        res = sched.run(reqs, respect_arrivals=True)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        if mode == "phased":
+            launches_phased = launches
+        steps = sched.steps_run
+        expect = dict.fromkeys(ops.KERNELS, 0)
+        if eng.device.type == "cuda":      # the plain versions count none
+            expect["decode_attention"] = n_dec * (steps["segment"]
+                                                  + steps["mixed"])
+            expect["chunk_attention"] = L * (steps["chunk"] + steps["mixed"])
+        formula = sched.n_prefill_rounds + sched.n_segments + sched.n_resets
+        margin, report = 0.0, []
+        for r in reqs:
+            ref = oneshot[r.rid]
+            got = res[r.rid].tokens
+            diff = first_divergence(got, ref["ids"][0].tolist())
+            if diff is not None:
+                m = float(ref["margins"][0][:diff + 1].min())
+                margin = max(margin, m)
+                report.append(f"{r.rid}: at {diff} of {len(got)} (smallest "
+                              f"margin up to it {m:.3e})")
+        violations = {
+            "requests not DONE with max_new tokens": sum(
+                res[r.rid].status is not Status.DONE
+                or len(res[r.rid].tokens) != r.max_new for r in reqs),
+            "dispatch_count off the formula": int(
+                eng.dispatch_count != formula),
+            "launches off the schedule": int(launches != expect),
+            "lanes holding memory after the drain": sum(
+                int((st["mem_len"] != 0).sum())
+                for st in sched.lanes.state["layers"] if "mem_len" in st),
+        }
+        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+        ttft = latency_percentiles([res[r.rid].ttft_sec for r in reqs])
+        tpot = latency_percentiles([res[r.rid].tpot_sec for r in reqs])
+        log(f"cross stream {name} {mode}: {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} output tok/s; TTFT p50 "
+            f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms; "
+            f"TPOT p50 {tpot['p50'] * 1e3:.2f} ms; segments "
+            f"{sched.n_segments}, prefill rounds {sched.n_prefill_rounds}, "
+            f"dispatches {eng.dispatch_count} (formula {formula}); steps "
+            f"{steps}; launches {launches}")
+        log(f"  one-shot comparison: {len(report)} of {len(reqs)} requests "
+            f"differ; margin reading {margin:.3e} (limit {tol}): "
+            + ("; ".join(report) if report else "none"))
+        check_stream(f"cross {name} {mode}", violations, margin, tol)
+    if swap_times:
+        sched = Scheduler(eng, n_lanes=lanes)
+        r = reqs[0]
+        sched.submit(dataclasses.replace(r, max_new=64))
+        sched.step()
+        lane = sched.results[r.rid].lane
+        _sync(eng.device)
+        t0 = time.perf_counter()
+        sched._swap_out([lane])
+        t1 = time.perf_counter()
+        snap = sched.store.get(r.rid)
+        sched.lanes.resume([lane], [snap.state], [snap.tok], [snap.key])
+        _sync(eng.device)
+        t2 = time.perf_counter()
+        m = r.extra_inputs[eng.mem_key]
+        mem = np.zeros((1, S, feat), np.float32)
+        mem[0, :m.shape[0]] = m
+        recompute = _median_ms(lambda: (eng.prefill(
+            r.prompt[None], chunked=True, extra_inputs={
+                eng.mem_key: mem,
+                "mem_len": np.array([m.shape[0]], np.int32)}),
+            _sync(eng.device)), 3)
+        log(f"cross {name}: one lane's swap-out (extract, crc32, put) "
+            f"{(t1 - t0) * 1e3:.2f} ms and resume (get + verify, install) "
+            f"{(t2 - t1) * 1e3:.2f} ms for {row:,} B; a recompute (its "
+            f"chunked prefill at batch 1, warm: the front end and "
+            f"{r.prompt_len} prompt tokens) {recompute:.2f} ms")
+        sched.close()
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches_phased
+
+
+def cross_parity(cfg, gpu, cpu, policy):
+    """float32 at 2 layers (one cross), one set of weights on the card
+    (gpu: kernels) and on the CPU (cpu: plain versions), ragged
+    memories, batch 2, prompt 96 over budget 64 (chunks of 64, the
+    second ragged): after single-shot and after chunked prefill, 12
+    teacher-forced decode steps under ``policy``: logits within 1e-3 and
+    identical slot positions in every layer, exact launch counts.
+    Returns the card's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import build_engine
+
+    B, P, L, budget, chunk = 2, 96, 12, 64, 64
+    rng = __import__("numpy").random.RandomState(3)
+    tokens = rng.randint(0, cfg.vocab_size, (B, P + L))
+    nl = cfg.num_layers
+    n_dec = nl + cfg.layer_kinds().count("cross")
+    expect = dict.fromkeys(ops.KERNELS, 0)
+    if gpu.device.type == "cuda":          # the plain versions count none
+        expect.update({"retention_attention_f32": nl,
+                       "chunk_attention_f32": nl * -(-P // chunk),
+                       "decode_attention": 2 * n_dec * L})
+
+    def run(chunked, model, device):
+        steps = []
+        eng = build_engine(cfg, model, device=device, budget=budget,
+                           prefill_chunk=chunk, policy=policy)
+        S = eng.mem_shape[0]
+        extra = cross_memory(eng, B, 4, [S, S // 2 + 1])
+        state = eng.prefill(tokens[:, :P], chunked=chunked,
+                            extra_inputs=extra)[0]
+        for i in range(L):
+            state, logits = T.decode_step(model, cfg, state,
+                                          torch.as_tensor(tokens[:, P + i]),
+                                          eng.policy)
+            steps.append(logits.cpu())
+        return torch.stack(steps), state
+
+    ops.reset_launches()
+    for chunked in (False, True):
+        with torch.no_grad():
+            card, s_card = run(chunked, gpu, gpu.device)
+            host, s_host = run(chunked, cpu, "cpu")
+        err = (card - host).abs().max().item()
+        flips = sum(int((a["pos"].cpu() != b["pos"]).sum())
+                    for a, b in zip(s_card["layers"], s_host["layers"]))
+        label = (f"cross parity {cfg.name} float32 {policy} "
+                 f"{'chunked' if chunked else 'single-shot'}")
+        log(f"{label}: {L} teacher-forced steps, max |logit diff| {err:.3e} "
+            f"(tol 1e-3), {flips} slot positions differ")
+        check_cross(label, {"logits beyond 1e-3": int(not err <= 1e-3),
+                            "slot positions that differ": flips})
+    launches = dict(ops.LAUNCHES)
+    log(f"cross parity {cfg.name} float32 {policy}: launches {launches}")
+    check_cross(f"parity {cfg.name} launches",
+                {"launches off the count": int(launches != expect)})
+    return launches
+
+
+def cross_lanes_float32(cfg, model):
+    """float32 at 2 layers on the card, the lane scheduler (priority, 2
+    lanes, budget 64, chunks 64, segments 4): a trace whose third,
+    better-ranked request swaps a decoding lane out, phased and
+    interleaved: every request's ids equal its one-shot run, swaps and
+    resumes happen, every lane reset after the drain holds mem_len 0 and
+    reads zero memory; extract -> scrub -> resume bit-exact on every
+    leaf (xk, xv and mem_len included); a scrubbed lane's slab all zero
+    with its neighbour bit-identical; spec_k 2 ids equal to spec_k 0's.
+    Counts must be 0 (check_cross). cfg, model: a cross family in
+    float32 at 2 layers (cross_float32_model)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.blocks import _cross_attn_decode
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.request import Request
+    from repro_torch.serve.scheduler import Scheduler
+
+    dev = model.device
+    serve = dict(device=dev, budget=64, prefill_chunk=64,
+                 decode_segment=4, sched_policy="priority")
+    eng = build_engine(cfg, model, **serve)
+    S, feat = eng.mem_shape
+    rng = np.random.RandomState(5)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, n),
+                    max_new=m, seed=i, priority=pr,
+                    extra_inputs={eng.mem_key: rng.randn(s, feat).astype(
+                        np.float32) * 0.1})
+            for i, (n, m, pr, s) in enumerate([(150, 24, 0, S),
+                                               (90, 20, 0, S // 2 + 3),
+                                               (130, 8, 3, S - 7)])]
+    oneshot = {r.rid: eng.generate(
+        r.prompt[None], r.max_new, chunked=True,
+        extra_inputs={eng.mem_key: r.extra_inputs[eng.mem_key][None]}
+    )["ids"][0].tolist() for r in reqs}
+
+    def drive(sched):
+        sched.submit(reqs[0])
+        sched.submit(reqs[1])
+        sched.step()
+        sched.submit(reqs[2])
+        return {rid: rs.tokens for rid, rs in sched.run().items()}
+
+    blk = next(b for b in model.layers if b.kind == "cross")
+    violations = {}
+    for interleaved in (False, True):
+        mode = "interleaved" if interleaved else "phased"
+        sched = Scheduler(eng, n_lanes=2, interleaved=interleaved)
+        ids = drive(sched)
+        cross = [st for st in sched.lanes.state["layers"] if "xk" in st]
+        read = _cross_attn_decode(blk.xattn, cfg, torch.randn(
+            (2, cfg.d_model), device=dev), cross[0],
+            sched.lanes.state["t"])
+        violations.update({
+            f"{mode}: requests apart from their one-shot run": sum(
+                ids[rid] != want for rid, want in oneshot.items()),
+            f"{mode}: no swap": int(sched.n_swaps < 1
+                                    or sched.n_resumes < 1),
+            f"{mode}: reset lanes holding memory": sum(
+                int((st["mem_len"] != 0).sum()) for st in cross),
+            f"{mode}: reset lanes reading memory": int((read != 0).sum()),
+        })
+        spec = Scheduler(build_engine(cfg, model, spec_k=2, **serve),
+                         n_lanes=2, interleaved=interleaved)
+        violations[f"{mode}: spec_k 2 ids apart from spec_k 0"] = sum(
+            a != ids[rid] for rid, a in drive(spec).items())
+    # a lane mid-decode: extract / scrub / resume, then scrub one lane
+    sched = Scheduler(eng, n_lanes=2)
+    sched.submit(reqs[0])
+    sched.submit(reqs[1])
+    sched.step()
+    lanes = sched.lanes
+    violations["extract -> resume leaves apart"] = extract_resume_exact(lanes)
+    before = [{k: v.clone() for k, v in st.items()}
+              for st in lanes.state["layers"]]
+    lanes.scrub(torch.tensor([True, False], device=dev))
+    violations["scrubbed slab bytes not zero"] = sum(
+        int(st[k][0].count_nonzero()) for st in lanes.state["layers"]
+        for k in ("xk", "xv") if k in st)
+    violations["neighbour leaves changed by the scrub"] = sum(
+        int(not torch.equal(st[k][1], b[k][1]))
+        for st, b in zip(lanes.state["layers"], before) for k in st)
+    log(f"cross lanes {cfg.name} float32: {violations}")
+    check_cross(f"lanes {cfg.name} float32", violations)
+    del eng, sched, lanes
+    torch.cuda.empty_cache()
+
+
+def cross_float32_model(arch):
+    """A cross family in float32 at 2 layers (one cross) on the card,
+    for the parity runs and the lane checks: (cfg, model)."""
+    return cross_model(arch, "float32", num_layers=2, seed=40)
+
+
+def cross_phase():
+    """The cross-memory families on the card: one-shot and streams in
+    bf16 at full width (seamless-m4t-large-v2 at full depth,
+    llama-3.2-vision-90b at VISION_LAYERS), then float32 at 2 layers
+    (card vs CPU under trimkv and h2o, the lane scheduler). Returns the
+    bf16 launch counts of its main paths (one-shot calls and phased
+    streams) and the float32 ones of its parity runs."""
+    import torch
+    total = None
+
+    def add(launches):
+        nonlocal total
+        total = dict(launches) if total is None else {
+            k: total[k] + launches[k] for k in total}
+
+    seamless, vision = "seamless-m4t-large-v2", "llama-3.2-vision-90b"
+    with timed("cross seamless one-shot"):
+        launches, _ = cross_oneshot(seamless)
+        add(launches)
+    with timed("cross seamless stream"):
+        add(cross_stream(seamless, swap_times=True))
+    with timed("cross vision one-shot"):
+        launches, _ = cross_oneshot(vision, num_layers=VISION_LAYERS)
+        add(launches)
+    with timed("cross vision stream"):
+        add(cross_stream(vision, num_layers=VISION_LAYERS,
+                         modes=("phased",)))
+    with timed("cross float32"):
+        for arch in (seamless, vision):
+            cfg, gpu = cross_float32_model(arch)
+            cpu = copy.deepcopy(gpu).to("cpu")
+            for policy in ("trimkv", "h2o"):
+                add(cross_parity(cfg, gpu, cpu, policy))
+            del cpu
+            cross_lanes_float32(cfg, gpu)
+            del gpu
+            torch.cuda.empty_cache()
+    return total
+
+
+def dense_config_phase():
+    """qwen2.5-14b at full width (GQA group 5, qkv biases drawn from
+    N(0, 0.5): its init leaves them 0) cut to 4 layers, bf16, through
+    Engine.generate (generate_pairs at CROSS_SHAPE: exact launches,
+    graphs against eager). Returns its launch counts."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import build_engine
+
+    cfg = dataclasses.replace(get_config("qwen2.5-14b"), num_layers=4)
+    model = T.init_params(cfg, seed=60, device="cuda")
+    T.init_gate_params(model, cfg, seed=61)
+    perturb_gates(model, seed=62)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(63)
+    for block in model.layers:
+        for lin in (block.attn.wq, block.attn.wk, block.attn.wv):
+            lin.bias.copy_(0.5 * torch.randn(lin.bias.shape, generator=g,
+                                             device="cuda"))
+    sh = CROSS_SHAPE
+    eng = build_engine(cfg, model, device="cuda", budget=512,
+                       prefill_chunk=sh["chunk"])
+    tokens, _, _ = make_batch("copy", 0, sh["B"], sh["P"], cfg.vocab_size)
+    ops.reset_launches()
+    generate_pairs(eng, cfg, tokens, f"{cfg.name} 4 layers", shape=sh)
+    launches = dict(ops.LAUNCHES)
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cross_kernel_phase(g):
+    """The kernels at the cross families' shapes, each against its plain
+    version and timed (CUDA events; the decode kernel in a CUDA graph)
+    beside its bound and one scaled_dot_product_attention call: the bf16
+    tensor-core retention and chunk kernels at head dim 64 with G 1
+    (seamless-m4t-large-v2: Hq 16 = Hkv 16, B 4, T / C 512 and 1024, M
+    512) over the tile edges (Tq 1, Tk 129, a ragged q tile, window 96,
+    n_valid 1 / 64 / 65, the cache probabilities out, an empty cache),
+    and at head dim 128 with G 8 (llama-3.2-vision-90b: Hq 64, Hkv 8);
+    the decode kernel over memory slabs (the per-lane mem_len in place
+    of pos, against the plain version at pos = memory_pos(mem_len, S),
+    no in-flight token) at both families' S, G and D, with ragged
+    mem_len including 0 (that lane reads exactly 0), in bf16 (row by
+    row, ROW_TOL) and float32 (TOL). Returns {case: (ms, bound ms,
+    bound by, plain ms, library ms)} of the timed cases."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.cache import memory_pos
+    from repro_torch.kernels.chunk_attention import (chunk_attention_cuda,
+                                                     chunk_attention_torch)
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_torch)
+    from repro_torch.kernels.retention_attention import (
+        retention_attention_cuda, retention_attention_torch)
+
+    bf = torch.bfloat16
+    out = {}
+    shapes = {"D 64, G 1": (16, 16, 64), "D 128, G 8": (64, 8, 128)}
+    # retention (single-shot prefill of the decoder's self-attention)
+    B = 4
+    for shape, (Hq, Hkv, D) in shapes.items():
+        for name, Tq, Tk, off, window, use_beta in (
+                ("T 1024, causal", 1024, 1024, 0, 0, False),
+                ("T 512, log_beta + window 96", 512, 512, 0, 96, True),
+                ("Tq 1 at q_offset 1023", 1, 1024, 1023, 0, False),
+                ("Tk 129", 129, 129, 0, 0, True),
+                ("Tq 1023 at q_offset 1 (ragged q tile)", 1023, 1024, 1, 0,
+                 False)):
+            q = rnd(g, (B, Tq, Hq, D), bf)
+            k, v = rnd(g, (B, Tk, Hkv, D), bf), rnd(g, (B, Tk, Hkv, D), bf)
+            lb = (-torch.rand((B, Tk, Hkv), generator=g, device="cuda")
+                  * 0.01 if use_beta else None)
+            kw = dict(window=window, q_offset=off)
+            check_case(f"retention bfloat16 {shape} {name}",
+                       (retention_attention_cuda(q, k, v, lb, **kw),),
+                       (retention_attention_torch(q, k, v, lb, **kw),),
+                       "bfloat16")
+        T = 1024
+        q = rnd(g, (B, T, Hq, D), bf)
+        k, v = rnd(g, (B, T, Hkv, D), bf), rnd(g, (B, T, Hkv, D), bf)
+        G = Hq // Hkv
+        qh, kh, vh = (q.transpose(1, 2).contiguous(),
+                      k.transpose(1, 2).repeat_interleave(G, 1).contiguous(),
+                      v.transpose(1, 2).repeat_interleave(G, 1).contiguous())
+        n_flops = 4 * B * Hq * D * (T * (T + 1) // 2)
+        b = bound_ms(2 * B * T * Hq * D * 2 + 2 * B * T * Hkv * D * 2,
+                     n_flops)
+        out[f"retention bf16 {shape}, B 4, T 1024"] = (
+            time_ms(lambda i=0: retention_attention_cuda(q, k, v), 20), *b,
+            time_ms(lambda i=0: retention_attention_torch(q, k, v), 3),
+            time_ms(lambda i=0: F.scaled_dot_product_attention(
+                qh, kh, vh, is_causal=True), 20))
+        del q, k, v, qh, kh, vh
+    # chunk (chunked prefill of the decoder's self-attention)
+    M, t0 = 512, 1024
+    for shape, (Hq, Hkv, D) in shapes.items():
+        G = Hq // Hkv
+        for C in (512, 1024):
+            idx = torch.arange(C, device="cuda", dtype=torch.int32)
+
+            def inputs(n_valid, empty, first=False, Mc=M):
+                q = rnd(g, (B, C, Hq, D), bf)
+                kc, vc = rnd(g, (B, C, Hkv, D), bf), rnd(g, (B, C, Hkv, D), bf)
+                ck, cv = (rnd(g, (B, Hkv, Mc, D), bf),
+                          rnd(g, (B, Hkv, Mc, D), bf))
+                cpos = torch.randint(0, t0, (B, Hkv, Mc), generator=g,
+                                     device="cuda", dtype=torch.int32)
+                drop = torch.rand((B, Hkv, Mc), generator=g,
+                                  device="cuda") < empty
+                if first:
+                    drop[:] = True
+                cpos = torch.where(drop, torch.full_like(cpos, -1), cpos)
+                nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+                cp = torch.where(idx[None] < nv[:, None], t0 + idx[None],
+                                 torch.full_like(idx[None], -1))
+                return q, kc, vc, ck, cv, cpos, cp.contiguous()
+
+            for name, nv, probs, empty, first, Mc in (
+                    ("full cache", [C] * B, False, 0.0, False, M),
+                    ("n_valid [1, 64, 65, C] + probs", [1, 64, 65, C], True,
+                     0.2, False, M),
+                    ("first chunk (empty cache) + probs", [C, 300, C, 17],
+                     True, 0.0, True, M),
+                    ("M 500 (ragged tile) + probs", [C] * B, True, 0.2,
+                     False, 500)):
+                args = inputs(nv, empty, first, Mc)
+                n = 2 if probs else 1
+                check_case(f"chunk bfloat16 {shape} C {C} {name}",
+                           chunk_attention_cuda(*args, need_probs=probs)[:n],
+                           chunk_attention_torch(*args, need_probs=probs)[:n],
+                           "bfloat16")
+            args = inputs([C] * B, 0.0)
+            q, kc, vc, ck, cv, cpos, cp = args
+            keys = torch.cat([ck, kc.transpose(1, 2)], 2).repeat_interleave(
+                G, 1)
+            vals = torch.cat([cv, vc.transpose(1, 2)], 2).repeat_interleave(
+                G, 1)
+            kpos = torch.cat([cpos, cp[:, None].expand(B, Hkv, C)], 2)
+            vis = (kpos[:, :, None, :] >= 0) & (
+                cp[:, None, :, None] - kpos[:, :, None, :] >= 0)
+            mask = vis.repeat_interleave(G, 1)
+            qh = q.transpose(1, 2).contiguous()
+            n_bytes = (2 * B * C * Hq * D * 2 + 2 * B * C * Hkv * D * 2
+                       + 2 * B * Hkv * M * D * 2 + B * Hkv * M * 4 + B * C * 4)
+            b = bound_ms(n_bytes, 4 * D * G * int(vis.sum().item()))
+            out[f"chunk bf16 {shape}, B 4, C {C}, M 512"] = (
+                time_ms(lambda i=0: chunk_attention_cuda(
+                    *args, need_probs=False), 20), *b,
+                time_ms(lambda i=0: chunk_attention_torch(
+                    *args, need_probs=False), 3),
+                time_ms(lambda i=0: F.scaled_dot_product_attention(
+                    qh, keys, vals, attn_mask=mask), 10))
+            del args, keys, vals, mask, qh, vis
+    # the decode kernel over memory slabs
+    for shape, (Hq, Hkv, D), S, lens in (
+            ("seamless", shapes["D 64, G 1"], 4096, [4096, 2048, 3001, 0]),
+            ("vision", shapes["D 128, G 8"], 1601, [1601, 801, 1200, 0])):
+        G = Hq // Hkv
+        ml = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        pos = memory_pos(ml, S).expand(B, Hkv, S).contiguous()
+        t = torch.zeros((B,), dtype=torch.int32, device="cuda")
+        for dt in (bf, torch.float32):
+            dn = str(dt).split(".")[1]
+            q, xk, xv = (rnd(g, (B, Hq, D), dt), rnd(g, (B, Hkv, S, D), dt),
+                         rnd(g, (B, Hkv, S, D), dt))
+            got = decode_attention_cuda(q, xk, xv, None, t, mem_len=ml)
+            check_case(f"decode {dn} memory slab {shape} (S {S}, mem_len "
+                       f"{lens})", (got,),
+                       (decode_attention_torch(q, xk, xv, pos, t),), dn)
+            if got[3].count_nonzero():
+                raise AssertionError(f"memory decode {shape}: the lane with "
+                                     f"mem_len 0 reads memory")
+        sets = [(rnd(g, (B, Hq, D), bf), rnd(g, (B, Hkv, S, D), bf),
+                 rnd(g, (B, Hkv, S, D), bf)) for _ in range(4)]
+        n_valid = int(sum(lens))
+        n_bytes = (2 * B * Hq * D * 2 + 2 * Hkv * n_valid * D * 2
+                   + 2 * B * 4)
+        b = bound_ms(n_bytes, 4 * Hq * D * n_valid)
+        mask = (pos >= 0).repeat_interleave(G, 1)[:, :, None]
+        lib_in = [(q[:, :, None], xk.repeat_interleave(G, 1),
+                   xv.repeat_interleave(G, 1)) for q, xk, xv in sets]
+        out[f"decode memory slab {shape} (S {S}, Hq {Hq}, Hkv {Hkv}, "
+            f"D {D}, mem_len {lens})"] = (
+            time_graph_ms(lambda i=0: decode_attention_cuda(
+                *sets[i % 4], None, t, mem_len=ml), 100), *b,
+            time_ms(lambda i=0: decode_attention_torch(*sets[i % 4], pos, t),
+                    10),
+            time_graph_ms(lambda i=0: F.scaled_dot_product_attention(
+                *lib_in[i % 4], attn_mask=mask), 100))
+        del sets, lib_in
+    torch.cuda.empty_cache()
+    for case, (ms, b_ms, b_by, plain, lib) in out.items():
+        log(f"  {case} timing: {ms:.4f} ms; bound {b_ms:.5f} ms ({b_by}); "
+            f"plain {plain:.4f} ms; library {lib:.4f} ms")
+    return out
+
+
 # -------------------------------------------------------------- train
 
 
@@ -2717,6 +3529,9 @@ def main() -> int:
         log("kernels (kernel vs plain version on the card):")
         kernels = [decode_phase(g), *chunk_phase(g), *retention_phase(g)]
         torch.cuda.empty_cache()
+        log("kernels at the cross families' shapes:")
+        cross_kernel_phase(g)
+        torch.cuda.empty_cache()
     with timed("capacity"):
         kernels += capacity_phase(g)
     torch.cuda.empty_cache()
@@ -2752,6 +3567,18 @@ def main() -> int:
         for k in ("decode_attention", "chunk_attention",
                   "chunk_attention_f32"):
             launches[k] += life[k]
+        # a dense config of another width and GQA group, with qkv biases
+        with timed("qwen2.5-14b"):
+            dense = dense_config_phase()
+        for k in ("decode_attention", "chunk_attention",
+                  "retention_attention"):
+            launches[k] += dense[k]
+        # the cross-memory families (vlm, encdec)
+        cross = cross_phase()
+        for k in ("decode_attention", "chunk_attention",
+                  "retention_attention", "chunk_attention_f32",
+                  "retention_attention_f32"):
+            launches[k] += cross[k]
     # the float32 attention kernels' path is the float32 parity runs
     for policy, _ in POLICY_BUDGETS:
         with timed(f"parity float32 {policy}"):

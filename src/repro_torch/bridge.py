@@ -6,7 +6,12 @@ The JAX pytrees arrive as numpy arrays (the caller runs
 ``layers`` leaves carry a leading repeat axis R over a tuple of the U
 kinds of ``cfg.attn_pattern`` (layer r * U + u), and the ``tail`` tuple
 holds the num_layers % U layers after them. Dense weights are
-[in, out] there and [out, in] in ``nn.Linear``.
+[in, out] there and [out, in] in ``nn.Linear``. The cross families add
+``vis_proj`` (vlm) or ``encoder`` ({"layers": a 1-tuple of global
+blocks stacked over encoder_layers, "final_norm"}, encdec), and a cross
+block's ``normx``, ``xattn`` and ``xgate``. A cross layer's memory slab
+is [B, S, Hkv, D] in the JAX decode state and [B, Hkv, S, D] in the
+port's.
 """
 from __future__ import annotations
 
@@ -66,13 +71,29 @@ def params_from_jax(np_tree, cfg, *, device="cuda") -> Transformer:
     _copy(model.final_norm.scale, np_tree["final_norm"]["scale"])
     _copy_dense(model.unembed, np_tree["unembed"])
     for block, p in zip(model.layers, _per_layer(np_tree, cfg)):
-        _copy(block.norm1.scale, p["norm1"]["scale"])
-        _copy(block.norm2.scale, p["norm2"]["scale"])
-        for name in ("wq", "wk", "wv", "wo"):
-            _copy_dense(getattr(block.attn, name), p["attn"][name])
-        for name in ("gate", "up", "down"):
-            _copy_dense(getattr(block.ffn, name), p["ffn"][name])
+        _copy_block(block, p)
+    if model.vis_proj is not None:
+        _copy_dense(model.vis_proj, np_tree["vis_proj"])
+    if model.encoder is not None:
+        enc = np_tree["encoder"]
+        for i, block in enumerate(model.encoder):
+            _copy_block(block, _tree_map(lambda a: a[i], enc["layers"][0]))
+        _copy(model.encoder_norm.scale, enc["final_norm"]["scale"])
     return model.requires_grad_(False)
+
+
+def _copy_block(block, p):
+    _copy(block.norm1.scale, p["norm1"]["scale"])
+    _copy(block.norm2.scale, p["norm2"]["scale"])
+    for name in ("wq", "wk", "wv", "wo"):
+        _copy_dense(getattr(block.attn, name), p["attn"][name])
+    for name in ("gate", "up", "down"):
+        _copy_dense(getattr(block.ffn, name), p["ffn"][name])
+    if block.kind == "cross":
+        _copy(block.normx.scale, p["normx"]["scale"])
+        for name in ("wq", "wk", "wv", "wo"):
+            _copy_dense(getattr(block.xattn, name), p["xattn"][name])
+        _copy(block.xgate, p["xgate"])
 
 
 @torch.no_grad()
@@ -140,13 +161,22 @@ def gates_to_jax(model: Transformer, cfg):
 def state_to_numpy(state, cfg):
     """The port's decode state in the JAX package's layout: ``t`` [B],
     ``layers`` a tuple of U dicts with leaves [R, B, ...] (None when
-    R = 0), ``tail`` a tuple of per-layer dicts. bfloat16 leaves come
-    back as float32 (numpy has no bfloat16)."""
+    R = 0), ``tail`` a tuple of per-layer dicts; a cross layer is
+    {"cache": its slot cache, "xk", "xv": [B, S, Hkv, D], "mem_len"}.
+    bfloat16 leaves come back as float32 (numpy has no bfloat16)."""
 
     def host_leaf(v):
         v = v.detach().cpu()
         return (v.float() if v.dtype == torch.bfloat16 else v).numpy()
 
-    host = [{k: host_leaf(v) for k, v in st.items()}
-            for st in state["layers"]]
+    def host_layer(st):
+        out = {k: host_leaf(v) for k, v in st.items()}
+        if "xk" not in out:
+            return out
+        mem = {k: out.pop(k) for k in ("xk", "xv", "mem_len")}
+        return {"cache": out, "xk": mem["xk"].transpose(0, 2, 1, 3),
+                "xv": mem["xv"].transpose(0, 2, 1, 3),
+                "mem_len": mem["mem_len"]}
+
+    host = [host_layer(st) for st in state["layers"]]
     return {"t": state["t"].cpu().numpy(), **_stack_layers(host, cfg)}

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ops
+
 NEG_INF = -1e30
 
 
@@ -57,27 +59,70 @@ def _first_argmin(scores):
     return idx, low
 
 
+# the leaves a quarantine zeroes besides the reset's metadata: the bulk
+# K/V bytes of the slot cache and of a cross layer's memory slab (the
+# JAX package's LANE_PAYLOAD_LEAVES)
+PAYLOAD_LEAVES = ("k", "v", "xk", "xv")
+
+
 def reset_lanes(cache, lane_mask):
     """Clear the masked lanes' slots in place: pos := -1, beta := 1,
-    aux := 0. K/V bytes stay: a slot with pos < 0 is invisible to every
-    attention read and scores -1e30 in eviction. lane_mask: [B] bool.
-    Other lanes are untouched. Returns the same dict."""
+    aux := 0, and a cross layer's memory length mem_len := 0 (its slab
+    becomes unreadable). K/V and memory bytes stay: a slot with pos < 0
+    is invisible to every attention read and scores -1e30 in eviction.
+    lane_mask: [B] bool. Other lanes are untouched. Returns the same
+    dict."""
     m = lane_mask[:, None, None]
     cache["pos"].masked_fill_(m, -1)
     cache["beta"].masked_fill_(m, 1.0)
     cache["aux"].masked_fill_(m, 0.0)
+    if "mem_len" in cache:
+        cache["mem_len"].masked_fill_(lane_mask, 0)
     return cache
 
 
 def scrub_lanes(cache, lane_mask):
-    """reset_lanes plus zeroed K/V in the masked lanes (the quarantine
-    primitive: a NaN payload byte would survive the metadata reset,
-    since 0 x NaN = NaN in the p @ v product). In place."""
+    """reset_lanes plus zeroed K/V (and memory slab) in the masked lanes
+    (the quarantine primitive: a NaN payload byte would survive the
+    metadata reset, since 0 x NaN = NaN in the p @ v product). In
+    place."""
     reset_lanes(cache, lane_mask)
     m = lane_mask[:, None, None, None]
-    cache["k"].masked_fill_(m, 0)
-    cache["v"].masked_fill_(m, 0)
+    for name in PAYLOAD_LEAVES:
+        if name in cache:
+            cache[name].masked_fill_(m, 0)
     return cache
+
+
+def memory_pos(mem_len, S: int):
+    """Pseudo slot positions of a cross-attention memory slab: 0 for
+    the first mem_len slots of each lane, -1 beyond (the cache's
+    convention: pos < 0 is invisible to every attention read). mem_len:
+    int or [B] int32 (0 = no memory, e.g. a reset lane). Returns
+    [B, 1, S] int32 (or [1, 1, S] for an int), broadcastable against
+    [B, Hkv, S]."""
+    ml = torch.as_tensor(mem_len, dtype=torch.int32)
+    ml = ml.reshape(-1, 1, 1)
+    iota = torch.arange(S, dtype=torch.int32, device=ml.device)[None, None]
+    return torch.where(iota < ml, 0, -1).to(torch.int32)
+
+
+def memory_attend(q_t, xk, xv, mem_len, t=0):
+    """Decode-time cross-attention of one query per (lane, q head) over
+    the lane's memory slab, masked by mem_len: the decode attention
+    (``kernels.ops``: the CUDA kernel on the card, its plain version on
+    the CPU) over the memory as a slot cache at memory_pos(mem_len, S),
+    which the kernel derives from mem_len itself, without an in-flight
+    token, so a lane with mem_len 0 reads exactly zero. q_t: [B, Hq, D]
+    (no RoPE: memory is position-free); xk, xv: [B, Hkv, S, D] (the
+    port's slab layout; the JAX package keeps [B, S, Hkv, D]); mem_len:
+    int or [B] int32; t: the lanes' clock, which no window reads (pass
+    a tensor inside a captured graph).
+    Returns [B, Hq, D] in q_t's dtype."""
+    B = xk.shape[0]
+    ml = torch.as_tensor(mem_len, dtype=torch.int32, device=q_t.device)
+    return ops.decode_attention(q_t, xk, xv, None, t,
+                                mem_len=ml.expand(B).contiguous())
 
 
 def cache_insert(cache, k_t, v_t, beta_t, t, keep_scores_fn,

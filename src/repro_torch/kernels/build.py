@@ -28,17 +28,17 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# head dim of the tensor-core (bfloat16) attention kernels
-TC_HEAD_DIM = 128
+# head dims of the tensor-core (bfloat16) attention kernels
+TC_HEAD_DIMS = (64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; each returns cudaError_t
 SIGNATURES = {
-    "decode_attention_launch": [_I] + [_P] * 10 + [_I] * 8 + [_P],
+    "decode_attention_launch": [_I] + [_P] * 11 + [_I] * 8 + [_P],
     "chunk_attention_launch": [_P] * 10 + [_I] * 8 + [_P],
     "retention_attention_launch": [_P] * 5 + [_I] * 9 + [_P],
-    "chunk_attention_tc_launch": [_P] * 9 + [_I] * 6 + [_P],
-    "retention_attention_tc_launch": [_P] * 5 + [_I] * 8 + [_P],
+    "chunk_attention_tc_launch": [_P] * 9 + [_I] * 7 + [_P],
+    "retention_attention_tc_launch": [_P] * 5 + [_I] * 9 + [_P],
     "capacity_loss_fwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
 }
@@ -159,11 +159,11 @@ def check_aligned(**tensors):
 
 def check_tc(D, **tensors):
     """Raise unless the tensor-core kernels take these (contiguous,
-    already checked) tensors: head dim TC_HEAD_DIM, and base pointers
-    16-byte aligned, as TMA needs."""
-    if D != TC_HEAD_DIM:
+    already checked) tensors: a head dim of TC_HEAD_DIMS, and base
+    pointers 16-byte aligned, as TMA needs."""
+    if D not in TC_HEAD_DIMS:
         raise ValueError(f"the bfloat16 kernels take head dim "
-                         f"{TC_HEAD_DIM}, got {D}")
+                         f"{' or '.join(map(str, TC_HEAD_DIMS))}, got {D}")
     check_aligned(**tensors)
 
 

@@ -4,7 +4,7 @@ wrapper and its plain PyTorch version.
 Replaces the Pallas kernel ``chunk_attention_pallas``
 (``repro/kernels/chunk_attention.py``) with two CUDA kernels, one per
 dtype: bfloat16 runs ``csrc/chunk_attention_tc.cu`` (wgmma and TMA on
-the tensor cores, head dim 128), float32 runs
+the tensor cores, head dim 64 or 128), float32 runs
 ``csrc/chunk_attention.cu`` (full float32 FMAs on the CUDA cores,
 register-blocked like an SGEMM on the tile step of the float32
 retention kernel; one CTA serves the q heads of a kv head together;
@@ -81,7 +81,7 @@ def chunk_attention_torch(q, k_c, v_c, cache_k, cache_v, cache_pos,
 def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
                          chunk_pos, *, window=0, need_probs=True):
     """Launch the kernel of q's dtype: bfloat16
-    ``csrc/chunk_attention_tc.cu`` (head dim 128, 16-byte-aligned
+    ``csrc/chunk_attention_tc.cu`` (head dim 64 or 128, 16-byte-aligned
     tensors, as TMA reads them; M + C up to ~8,000 keys, the positions
     it keeps in shared memory), float32 ``csrc/chunk_attention.cu``
     (head dim at most 128 and a multiple of 4, 16-byte-aligned tensors,
@@ -116,7 +116,7 @@ def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
     if dt == torch.bfloat16:
         build.check_tc(D, **tensors)
         err = build.library().chunk_attention_tc_launch(
-            *ptrs, B, C, Hq, Hkv, M, int(window), stream)
+            *ptrs, B, C, Hq, Hkv, M, D, int(window), stream)
     else:
         if D > 128 or D % 4 or Hq // Hkv > F32_ROWS:
             raise ValueError(f"the float32 chunk kernel takes head dim "

@@ -1,5 +1,5 @@
 // Flash chunk-query attention over (slot cache ∪ chunk) on Hopper's
-// tensor cores (sm_90a), bf16, D = 128.
+// tensor cores (sm_90a), bf16, head dim D = 64 or 128.
 //
 // Replaces the Pallas TPU kernel `chunk_attention_pallas`
 // (src/repro/kernels/chunk_attention.py, body `_chunk_kernel`) on the
@@ -16,7 +16,8 @@
 // Design (hopper_flash.cuh): one CTA per (lane, q head, 128-row q
 // tile), two consumer warpgroups of 64 rows on wgmma, taking turns at
 // the tensor cores, one producer thread feeding 128-key tiles by TMA
-// through a 2-stage mbarrier ring —
+// through a 2-stage mbarrier ring (4 stages at D = 64, in the same
+// room) —
 // first the cache tiles (4-D map over [B, Hkv, M, D]), then the chunk
 // tiles (4-D map over [B, C, Hkv, D]). Before the roles split, the CTA
 // loads every tile's key positions and its own query positions into
@@ -29,8 +30,8 @@
 // written with m_tile kept in shared memory, and after the last tile
 // the same threads rescale what they wrote by exp(m_tile - m_final) / l.
 //
-// Bound on the H100: operations. At the main-path shape (B 4, C 512,
-// Hq 32, Hkv 8, M 512, D 128, full cache, causal chunk) the visible
+// Bound on the H100: operations. At the dense main-path shape (B 4,
+// C 512, Hq 32, Hkv 8, M 512, D 128, full cache, causal chunk) the visible
 // pairs need 4 * B * Hq * D * C * (M + (C + 1) / 2) ~ 25.8 GFLOP, 26 us
 // at 989 TF/s bf16; the ~38 MB it must move take 11 us. What it
 // leaves: each CTA is short (at most 8 tiles), so its set-up (positions,
@@ -40,9 +41,10 @@
 
 using namespace hf;
 
-// a 2-stage ring: a third would leave no room for the positions
-constexpr int STAGES = 2;
-using KVRing = Ring<STAGES>;
+// a 2-stage ring at D = 128: a third would leave no room for the
+// positions; at D = 64 a stage takes half, and 4 fit the same room
+template <int D> constexpr int STAGES = D == 64 ? 4 : 2;
+template <int D> using KVRing = Ring<STAGES<D>, D>;
 
 namespace {
 
@@ -146,6 +148,7 @@ struct ChunkTiles {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kc_map,
@@ -158,7 +161,9 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 int B, int C, int Hq, int Hkv, int M, int window,
                 float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
-  const KVRing ring = KVRing::carve(smem_raw);
+  using R = KVRing<D>;
+  constexpr int S = STAGES<D>;
+  const R ring = R::carve(smem_raw);
   const int n_qt = (C + BM - 1) / BM;
   const int n_mt = (M + BN - 1) / BN, n_ct = (C + BN - 1) / BN;
   const int n_tiles = n_mt + n_ct;
@@ -240,19 +245,19 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   if (wg == 2) {
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(ring.qbar, Q_BYTES);
-      tma_tile(ring.q, Q_BOX, &qmap, ring.qbar, h, c0, b);
+      mbar_expect_tx(ring.qbar, R::Q_BYTES);
+      tma_tile<D>(ring.q, Q_BOX, &qmap, ring.qbar, h, c0, b);
       for (int it = 0; it < n_load; ++it) {
-        const int t = list[it], s = it % STAGES;
-        mbar_wait(&ring.empty[s], ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&ring.full[s], 2 * KV_BYTES);
+        const int t = list[it], s = it % S;
+        mbar_wait(&ring.empty[s], ((it / S) & 1) ^ 1);
+        mbar_expect_tx(&ring.full[s], 2 * R::KV_BYTES);
         if (t < n_mt) {
-          tma_tile(ring.k(s), KV_BOX, &ck_map, &ring.full[s], t * BN, kvh, b);
-          tma_tile(ring.v(s), KV_BOX, &cv_map, &ring.full[s], t * BN, kvh, b);
+          tma_tile<D>(ring.k(s), KV_BOX, &ck_map, &ring.full[s], t * BN, kvh, b);
+          tma_tile<D>(ring.v(s), KV_BOX, &cv_map, &ring.full[s], t * BN, kvh, b);
         } else {
           const int j0 = (t - n_mt) * BN;
-          tma_tile(ring.k(s), KV_BOX, &kc_map, &ring.full[s], kvh, j0, b);
-          tma_tile(ring.v(s), KV_BOX, &vc_map, &ring.full[s], kvh, j0, b);
+          tma_tile<D>(ring.k(s), KV_BOX, &kc_map, &ring.full[s], kvh, j0, b);
+          tma_tile<D>(ring.v(s), KV_BOX, &vc_map, &ring.full[s], kvh, j0, b);
         }
       }
     }
@@ -260,9 +265,9 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     setmaxnreg_inc<CONSUMER_REGS>();
     const Span qs = wgs[wg];
     const int *qpos_wg = qpos + 64 * wg;
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     Rows st;
     st.init();
     // this thread's two rows: their probs rows (null past C) and m_tile slots
@@ -316,43 +321,62 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+template <int D>
 size_t chunk_smem(int C, int M, bool probs) {
   const int n_mt = (M + BN - 1) / BN, n_ct = (C + BN - 1) / BN;
   const int n_tiles = n_mt + n_ct;
-  return KVRing::bytes() + BM * 4 + (size_t)n_tiles * BN * 4 +
+  return KVRing<D>::bytes() + BM * 4 + (size_t)n_tiles * BN * 4 +
          (size_t)(n_tiles + 2) * sizeof(Span) + (2 * n_tiles + 1) * 4 +
          (probs ? (size_t)BM * n_mt * 4 : 0);
 }
 
+template <int D>
+cudaError_t launch(const void *q, const void *k_c, const void *v_c,
+                   const void *cache_k, const void *cache_v,
+                   const void *cache_pos, const void *chunk_pos, void *out,
+                   void *probs, int B, int C, int Hq, int Hkv, int M,
+                   int window, cudaStream_t stream) {
+  CUtensorMap qmap, kc_map, vc_map, ck_map, cv_map;
+  cudaError_t err;
+  if ((err = map_bthd(&qmap, q, B, C, Hq, D, BM)) != cudaSuccess) return err;
+  if ((err = map_bthd(&kc_map, k_c, B, C, Hkv, D, BN)) != cudaSuccess) return err;
+  if ((err = map_bthd(&vc_map, v_c, B, C, Hkv, D, BN)) != cudaSuccess) return err;
+  if ((err = map_bhmd(&ck_map, cache_k, B, Hkv, M, D, BN)) != cudaSuccess) return err;
+  if ((err = map_bhmd(&cv_map, cache_v, B, Hkv, M, D, BN)) != cudaSuccess) return err;
+  const size_t smem = chunk_smem<D>(C, M, probs != nullptr);
+  if ((err = allow_smem((const void *)chunk_tc_kernel<D>, smem)) != cudaSuccess)
+    return err;
+  const int n_qt = (C + BM - 1) / BM;
+  const float scale_log2 = LOG2E / sqrtf((float)D);
+  chunk_tc_kernel<D><<<B * Hq * n_qt, NTHREADS, smem, stream>>>(
+      qmap, kc_map, vc_map, ck_map, cv_map, (const int *)cache_pos,
+      (const int *)chunk_pos, (__nv_bfloat16 *)out, (float *)probs, B, C, Hq,
+      Hkv, M, window, scale_log2);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, k_c, v_c bf16 [B, C, H*, 128]; cache_k, cache_v bf16
-// [B, Hkv, M, 128]; all contiguous and 16-byte aligned; cache_pos int32
+// q, k_c, v_c bf16 [B, C, H*, D]; cache_k, cache_v bf16 [B, Hkv, M, D]
+// with D 64 or 128; all contiguous and 16-byte aligned; cache_pos int32
 // [B, Hkv, M]; chunk_pos int32 [B, C]; probs float32 [B, Hq, C, M] or
 // null. Returns a cudaError_t (cudaErrorInvalidValue when M + C needs
 // more shared memory than a block has).
 extern "C" int chunk_attention_tc_launch(
     const void *q, const void *k_c, const void *v_c, const void *cache_k,
     const void *cache_v, const void *cache_pos, const void *chunk_pos,
-    void *out, void *probs, int B, int C, int Hq, int Hkv, int M, int window,
-    void *stream) {
+    void *out, void *probs, int B, int C, int Hq, int Hkv, int M, int D,
+    int window, void *stream) {
   if (Hq % Hkv != 0 || B <= 0 || C <= 0 || M <= 0)
     return (int)cudaErrorInvalidValue;
-  CUtensorMap qmap, kc_map, vc_map, ck_map, cv_map;
-  cudaError_t err;
-  if ((err = map_bthd(&qmap, q, B, C, Hq, BM)) != cudaSuccess) return (int)err;
-  if ((err = map_bthd(&kc_map, k_c, B, C, Hkv, BN)) != cudaSuccess) return (int)err;
-  if ((err = map_bthd(&vc_map, v_c, B, C, Hkv, BN)) != cudaSuccess) return (int)err;
-  if ((err = map_bhmd(&ck_map, cache_k, B, Hkv, M, BN)) != cudaSuccess) return (int)err;
-  if ((err = map_bhmd(&cv_map, cache_v, B, Hkv, M, BN)) != cudaSuccess) return (int)err;
-  const size_t smem = chunk_smem(C, M, probs != nullptr);
-  if ((err = allow_smem((const void *)chunk_tc_kernel, smem)) != cudaSuccess)
-    return (int)err;
-  const int n_qt = (C + BM - 1) / BM;
-  const float scale_log2 = LOG2E / sqrtf((float)D);
-  chunk_tc_kernel<<<B * Hq * n_qt, NTHREADS, smem, (cudaStream_t)stream>>>(
-      qmap, kc_map, vc_map, ck_map, cv_map, (const int *)cache_pos,
-      (const int *)chunk_pos, (__nv_bfloat16 *)out, (float *)probs, B, C, Hq,
-      Hkv, M, window, scale_log2);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D == 128)
+    return (int)launch<128>(q, k_c, v_c, cache_k, cache_v, cache_pos,
+                            chunk_pos, out, probs, B, C, Hq, Hkv, M, window,
+                            st);
+  if (D == 64)
+    return (int)launch<64>(q, k_c, v_c, cache_k, cache_v, cache_pos,
+                           chunk_pos, out, probs, B, C, Hq, Hkv, M, window,
+                           st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -10,6 +10,11 @@
 // under a window — and optional normalized slot probabilities
 // [B, Hq, M] and in-flight mass p_new [B, Hq].
 //
+// A cross-attention memory slab is read as a cache without positions:
+// given mem_len [B] instead of pos, slot j of lane b is at position 0
+// when j < mem_len[b] and empty (-1) otherwise (core.cache.memory_pos),
+// so the caller builds no position array per step.
+//
 // Bound on the H100: bytes. At the main-path shape (B=4, Hkv=8, M=512,
 // D=128, bf16) the cache holds 8.4 MB of K/V, about 2.5 us at
 // 3.35 TB/s; the arithmetic (4 * B * Hq * M * D = 33.5 MFLOP) is far
@@ -161,6 +166,7 @@ template <typename T>
 __global__ void __launch_bounds__(NTH)
 decode_split_kernel(const T *__restrict__ q, const T *__restrict__ kc,
                     const T *__restrict__ vc, const int *__restrict__ pos,
+                    const int *__restrict__ mem_len,
                     const int *__restrict__ t_lane,
                     const T *__restrict__ k_new, const T *__restrict__ v_new,
                     T *__restrict__ out, float *__restrict__ probs,
@@ -185,7 +191,12 @@ decode_split_kernel(const T *__restrict__ q, const T *__restrict__ kc,
 
   const T *k_base = kc + bh * M * D;
   const T *v_base = vc + bh * M * D;
-  const int *pos_base = pos + bh * M;
+  const int *pos_base = pos != nullptr ? pos + bh * M : nullptr;
+  const int n_mem = mem_len != nullptr ? mem_len[b] : 0;
+  // slot j's position: pos, or 0 / -1 inside / past a memory's length
+  auto slot_pos = [&](int j) {
+    return pos_base != nullptr ? pos_base[j] : (j < n_mem ? 0 : -1);
+  };
   const long row0 = (long)b * Hq + h0;   // first q head of the group
   float *probs_base = want_probs ? probs + row0 * M : nullptr;
   const int t = t_lane[b];
@@ -215,7 +226,7 @@ decode_split_kernel(const T *__restrict__ q, const T *__restrict__ kc,
   };
   if (s_begin < s_end) load_tile(s_begin);
   // the first tile's positions, in flight with its K/V and q
-  int kp0 = tid < TS && s_begin + tid < s_end ? pos_base[s_begin + tid] : -1;
+  int kp0 = tid < TS && s_begin + tid < s_end ? slot_pos(s_begin + tid) : -1;
 
   // q rows of the group and the in-flight key, as float32
   for (int e = tid; e < G * NC; e += NTH) {
@@ -263,7 +274,7 @@ decode_split_kernel(const T *__restrict__ q, const T *__restrict__ kc,
     int kp = kp0;
     if (tile > 0) {
       load_tile(j0);
-      kp = tid < valid ? pos_base[j0 + tid] : -1;
+      kp = tid < valid ? slot_pos(j0 + tid) : -1;
     }
     int ok = 0;
     if (tid < TS) {
@@ -454,8 +465,9 @@ decode_split_kernel(const T *__restrict__ q, const T *__restrict__ kc,
 
 template <typename T>
 cudaError_t launch(const void *q, const void *k_cache, const void *v_cache,
-                   const void *pos, const void *t, const void *k_new,
-                   const void *v_new, void *out, void *probs, void *p_new,
+                   const void *pos, const void *mem_len, const void *t,
+                   const void *k_new, const void *v_new, void *out,
+                   void *probs, void *p_new,
                    int B, int Hq, int Hkv, int M, int D, int window,
                    int n_split, int split_len, cudaStream_t st) {
   const int G = Hq / Hkv;
@@ -479,8 +491,9 @@ cudaError_t launch(const void *q, const void *k_cache, const void *v_cache,
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(
       &cfg, kernel, (const T *)q, (const T *)k_cache, (const T *)v_cache,
-      (const int *)pos, (const int *)t, (const T *)k_new, (const T *)v_new,
-      (T *)out, (float *)probs, (float *)p_new, Hq, Hkv, M, D, window,
+      (const int *)pos, (const int *)mem_len, (const int *)t,
+      (const T *)k_new, (const T *)v_new, (T *)out, (float *)probs,
+      (float *)p_new, Hq, Hkv, M, D, window,
       1.0f / sqrtf((float)D), n_split, split_len);
 }
 
@@ -488,23 +501,26 @@ cudaError_t launch(const void *q, const void *k_cache, const void *v_cache,
 
 extern "C" int decode_attention_launch(
     int is_bf16, const void *q, const void *k_cache, const void *v_cache,
-    const void *pos, const void *t, const void *k_new, const void *v_new,
-    void *out, void *probs, void *p_new, int B, int Hq, int Hkv, int M,
-    int D, int window, int n_split, int split_len, void *stream) {
+    const void *pos, const void *mem_len, const void *t, const void *k_new,
+    const void *v_new, void *out, void *probs, void *p_new, int B, int Hq,
+    int Hkv, int M, int D, int window, int n_split, int split_len,
+    void *stream) {
   const int chunk = is_bf16 ? 8 : 4;
   if (D > MAX_DIM || D % chunk != 0 || Hq % Hkv != 0 || Hq / Hkv > MAX_G ||
       n_split < 1 || n_split > MAX_SPLIT || split_len < TS ||
       split_len % TS != 0 || (long)n_split * split_len < M ||
-      (long)(n_split - 1) * split_len >= (M > 0 ? M : 1))
+      (long)(n_split - 1) * split_len >= (M > 0 ? M : 1) ||
+      (pos == nullptr) == (mem_len == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k_cache, v_cache, pos, t, k_new,
-                                      v_new, out, probs, p_new, B, Hq, Hkv, M,
-                                      D, window, n_split, split_len, st)
-              : launch<float>(q, k_cache, v_cache, pos, t, k_new, v_new, out,
-                              probs, p_new, B, Hq, Hkv, M, D, window, n_split,
-                              split_len, st);
+      is_bf16 ? launch<__nv_bfloat16>(q, k_cache, v_cache, pos, mem_len, t,
+                                      k_new, v_new, out, probs, p_new, B, Hq,
+                                      Hkv, M, D, window, n_split, split_len,
+                                      st)
+              : launch<float>(q, k_cache, v_cache, pos, mem_len, t, k_new,
+                              v_new, out, probs, p_new, B, Hq, Hkv, M, D,
+                              window, n_split, split_len, st);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,9 @@
 // Shared machinery of the two tensor-core flash-attention kernels
 // (retention_attention_tc.cu, chunk_attention_tc.cu), for Hopper
-// (sm_90a), bf16 only.
+// (sm_90a), bf16 only, head dim D = 64 or 128 (a template parameter).
 //
 // A CTA owns BM = 128 query rows of one (lane, q head) and walks its
-// key tiles of BN = 128 keys x D = 128. Three warpgroups:
+// key tiles of BN = 128 keys x D. Three warpgroups:
 //
 //   * warpgroups 0 and 1 consume: each owns 64 query rows, computes
 //     S = Q.K^T with wgmma (Q and K from shared memory, float32
@@ -20,12 +20,15 @@
 //     consumers (232). (A lone producer warp, 288 threads, hung on the
 //     card: setmaxnreg is a warpgroup instruction.)
 //
-// Shared memory: Q 32 KB + S x (K 32 KB + V 32 KB), in
+// Shared memory at D = 128: Q 32 KB + S x (K 32 KB + V 32 KB), in
 // 128-byte-swizzled tiles: 224 KB of the 227 KB at S = 3 (retention),
-// 160 KB at S = 2 (chunk, which keeps positions beside the ring). The 128-byte swizzle caps a TMA box at 64
-// bf16 columns, so each tile is two boxes [rows][64] one after the
-// other; the wgmma descriptors step across them (see desc_kmajor /
-// desc_mnmajor).
+// 160 KB at S = 2 (chunk, which keeps positions beside the ring). The
+// 128-byte swizzle caps a TMA box at 64 bf16 columns, so a D = 128 tile
+// is two boxes [rows][64] one after the other; the wgmma descriptors
+// step across them (see desc_kmajor / desc_mnmajor). At D = 64 a tile
+// is one box, half the bytes: Q.K^T is 4 k16 steps, P.V an N = 64
+// product (32 accumulator registers a thread), and a stage takes 32 KB,
+// so the kernels keep 4 stages in the room of 2 (Dims<D>::BOXES).
 //
 // Every masked logit is set to -inf before the max, so its probability
 // is exactly 0 even while the row's running max is still NEG_INF (the
@@ -43,14 +46,20 @@ namespace hf {
 
 constexpr int BM = 128;          // query rows per CTA
 constexpr int BN = 128;          // keys per tile
-constexpr int D = 128;           // head dim (the only one these kernels take)
 constexpr int NCONS = 256;       // consumer threads (two warpgroups)
 constexpr int NTHREADS = 384;    // + one producer warpgroup
 constexpr int BOX_COLS = 64;     // bf16 columns per 128-byte-swizzled box
 constexpr uint32_t Q_BOX = BM * BOX_COLS * 2;      // bytes of one Q box
 constexpr uint32_t KV_BOX = BN * BOX_COLS * 2;     // bytes of one K/V box
-constexpr uint32_t Q_BYTES = 2 * Q_BOX;            // 32 KB
-constexpr uint32_t KV_BYTES = 2 * KV_BOX;          // one K or V tile, 32 KB
+
+// The sizes that follow from the head dim D (64 or 128): boxes per
+// tile, the Q tile and one K or V tile in bytes.
+template <int D> struct Dims {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int BOXES = D / BOX_COLS;
+  static constexpr uint32_t Q_BYTES = BOXES * Q_BOX;
+  static constexpr uint32_t KV_BYTES = BOXES * KV_BOX;
+};
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 128 x 40 + 256 x 232 <= 64 K
 constexpr float NEG_INF_F = -1e30f;
 #define HF_MINUS_INF __int_as_float(0xff800000)
@@ -108,7 +117,7 @@ inline cudaError_t encode_map(CUtensorMap *map, const void *ptr,
 // The map of a [B, T, H, D] tensor (q, or keys/values laid out by
 // token), boxes of `rows` tokens of one head: coordinates (d, h, t, b).
 inline cudaError_t map_bthd(CUtensorMap *map, const void *ptr, int B, int T,
-                            int H, uint32_t rows) {
+                            int H, int D, uint32_t rows) {
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)T, (uint64_t)B};
   const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)H * D * 2,
                                (uint64_t)T * H * D * 2};
@@ -119,7 +128,7 @@ inline cudaError_t map_bthd(CUtensorMap *map, const void *ptr, int B, int T,
 // The map of a [B, H, M, D] tensor (the slot cache), boxes of `rows`
 // slots of one head: coordinates (d, m, h, b).
 inline cudaError_t map_bhmd(CUtensorMap *map, const void *ptr, int B, int H,
-                            int M, uint32_t rows) {
+                            int M, int D, uint32_t rows) {
   const uint64_t dims[4] = {(uint64_t)D, (uint64_t)M, (uint64_t)H, (uint64_t)B};
   const uint64_t strides[3] = {(uint64_t)D * 2, (uint64_t)M * D * 2,
                                (uint64_t)H * M * D * 2};
@@ -165,10 +174,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t *bar, uint32_t parity) {
 
 // ---------------------------------------------------------- shared memory
 
-// The ring of S stages in dynamic shared memory, aligned to 1024 bytes
-// (the period of the 128-byte swizzle). q, k(s), v(s) are shared-space
-// addresses.
-template <int S> struct Ring {
+// The ring of S stages of head dim D in dynamic shared memory, aligned
+// to 1024 bytes (the period of the 128-byte swizzle). q, k(s), v(s) are
+// shared-space addresses.
+template <int S, int D> struct Ring {
+  static constexpr uint32_t Q_BYTES = Dims<D>::Q_BYTES;
+  static constexpr uint32_t KV_BYTES = Dims<D>::KV_BYTES;
   uint32_t q;
   uint64_t *full, *empty, *qbar;
   uint8_t *extra;  // kernel-specific arrays after the ring
@@ -212,13 +223,16 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap *map,
       "r"(c2), "r"(c3)
       : "memory");
 }
-// A whole D = 128 tile: two 64-column boxes, the second `box_bytes` after
-// the first. c1..c3 are the map's other coordinates.
+// A whole tile of head dim D: D / 64 boxes of 64 columns, each
+// `box_bytes` after the one before. c1..c3 are the map's other
+// coordinates.
+template <int D>
 __device__ __forceinline__ void tma_tile(uint32_t dst, uint32_t box_bytes,
                                          const CUtensorMap *map, uint64_t *bar,
                                          int c1, int c2, int c3) {
-  tma_load(dst, map, bar, 0, c1, c2, c3);
-  tma_load(dst + box_bytes, map, bar, BOX_COLS, c1, c2, c3);
+#pragma unroll
+  for (int i = 0; i < Dims<D>::BOXES; ++i)
+    tma_load(dst + i * box_bytes, map, bar, i * BOX_COLS, c1, c2, c3);
 }
 
 template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
@@ -255,9 +269,10 @@ __device__ __forceinline__ void wgmma_commit() {
 // Keep the compiler from moving accumulator reads or writes across an
 // asynchronous wgmma: used before a group is issued and after it is
 // waited for, never in between (ptxas then serializes the wgmma).
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d (+)= A * B, A and B bf16 in shared memory (K-major, 128-byte
@@ -295,6 +310,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A * B as wgmma_rs at N = 64 (head dim 64): 64 x 64 float32
+// accumulator, 32 registers a thread
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -348,7 +378,9 @@ __device__ __forceinline__ void fence_frag(uint32_t (&pa)[BN / 16][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(pa[kk][j])::"memory");
 }
 
-// Issue S = Q_wg K^T (8 wgmma of k16 over D = 128) as one wgmma group.
+// Issue S = Q_wg K^T (D / 16 wgmma of k16 over the head dim: 8 at
+// D = 128, 4 at D = 64) as one wgmma group.
+template <int D>
 __device__ __forceinline__ void qk_issue(uint32_t q_wg, uint32_t k_s,
                                          float (&s)[64]) {
   fence_regs(s);
@@ -363,8 +395,10 @@ __device__ __forceinline__ void qk_issue(uint32_t q_wg, uint32_t k_s,
   fence_regs(s);
 }
 
-// Issue O += P V (8 wgmma of k16 over the BN keys) as one wgmma group.
-__device__ __forceinline__ void pv_issue(float (&o)[64],
+// Issue O += P V (8 wgmma of k16 over the BN keys, N = D) as one wgmma
+// group.
+template <int N>
+__device__ __forceinline__ void pv_issue(float (&o)[N],
                                          uint32_t (&pa)[BN / 16][4],
                                          uint32_t v_s) {
   fence_frag(pa);
@@ -467,10 +501,10 @@ __device__ __forceinline__ void turn_pass(int wg) {
 // around a wgmma (ptxas serializes wgmma it cannot follow). Each
 // warpgroup takes n + 1 turns; warpgroup 1 does not pass its last one,
 // so that no arrival is left on a barrier.
-template <int S, class Tiles>
-__device__ __forceinline__ void consume(const Ring<S> &ring, uint32_t q_wg,
+template <int S, int D, class Tiles>
+__device__ __forceinline__ void consume(const Ring<S, D> &ring, uint32_t q_wg,
                                         int wg, const Tiles &tiles,
-                                        float (&o)[64], Rows &st) {
+                                        float (&o)[D / 2], Rows &st) {
   const int n = tiles.count();
   if (n == 0) return;
   if (wg == 1) turn_pass(1);  // warpgroup 0 first
@@ -479,7 +513,7 @@ __device__ __forceinline__ void consume(const Ring<S> &ring, uint32_t q_wg,
   float alpha[2];
   mbar_wait(&ring.full[0], 0);
   turn_wait(wg);
-  qk_issue(q_wg, ring.k(0), s);
+  qk_issue<D>(q_wg, ring.k(0), s);
   turn_pass(wg);
   wgmma_wait<0>();
   fence_regs(s);
@@ -489,7 +523,7 @@ __device__ __forceinline__ void consume(const Ring<S> &ring, uint32_t q_wg,
     const int stage = it % S, s1 = (it + 1) % S;
     mbar_wait(&ring.full[s1], ((it + 1) / S) & 1);
     turn_wait(wg);
-    qk_issue(q_wg, ring.k(s1), s);
+    qk_issue<D>(q_wg, ring.k(s1), s);
     pv_issue(o, pa, ring.v(stage));
     turn_pass(wg);
     wgmma_wait<1>();  // S of tile it + 1 has landed; P.V runs on
@@ -499,7 +533,7 @@ __device__ __forceinline__ void consume(const Ring<S> &ring, uint32_t q_wg,
     fence_regs(o);
     release(&ring.empty[stage]);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
     to_frag(s, pa);
   }
   turn_wait(wg);
@@ -516,10 +550,11 @@ __device__ __forceinline__ void finish_rows(Rows &st) {
   st.l[1] = quad_sum(st.l[1]);
 }
 
-// Write the warpgroup's output rows: row r (of 64) goes to out_row(r),
-// or nowhere when it returns null; out = o / max(l, 1e-30) in bf16.
-template <class OutRow>
-__device__ __forceinline__ void store_out(const float (&o)[64], const Rows &st,
+// Write the warpgroup's output rows (N = D columns): row r (of 64) goes
+// to out_row(r), or nowhere when it returns null; out = o / max(l,
+// 1e-30) in bf16.
+template <int N, class OutRow>
+__device__ __forceinline__ void store_out(const float (&o)[N], const Rows &st,
                                           const OutRow &out_row) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -527,7 +562,7 @@ __device__ __forceinline__ void store_out(const float (&o)[64], const Rows &st,
     if (dst == nullptr) continue;
     const float inv = 1.f / fmaxf(st.l[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       *reinterpret_cast<__nv_bfloat162 *>(dst + 8 * j + frag_col0()) =
           __floats2bfloat162_rn(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     }

@@ -1,5 +1,5 @@
 // Retention-gated causal flash attention on Hopper's tensor cores
-// (sm_90a), bf16, D = 128.
+// (sm_90a), bf16, head dim D = 64 or 128.
 //
 // Replaces the Pallas TPU kernel `retention_attention_pallas`
 // (src/repro/kernels/retention_attention.py, body `_flash_kernel`) on
@@ -13,7 +13,8 @@
 // Design (hopper_flash.cuh): one CTA per (lane, q head, 128-row q
 // tile), two consumer warpgroups of 64 rows on wgmma, taking turns at
 // the tensor cores, one producer thread feeding K/V tiles of 128 keys
-// by TMA through a 3-stage mbarrier ring; each warpgroup runs the
+// by TMA through a 3-stage mbarrier ring (4 stages at D = 64, in less
+// room); each warpgroup runs the
 // softmax of one tile while the P.V of the one before is in flight.
 // The CTA walks only the key tiles its rows can see under the causal
 // mask and the window; a warpgroup masks and biases only on tiles that
@@ -22,8 +23,8 @@
 // contiguous run of keys). q tiles launch heaviest (latest) first, so
 // the causal triangle's long CTAs start early on the 132 SMs.
 //
-// Bound on the H100: operations. At the main-path shape (B 4, T 2000,
-// Hq 32, Hkv 8, D 128, causal) the visible pairs need
+// Bound on the H100: operations. At the dense main-path shape (B 4,
+// T 2000, Hq 32, Hkv 8, D 128, causal) the visible pairs need
 // 4 * B * Hq * D * T (T + 1) / 2 ~ 131 GFLOP, 0.133 ms at 989 TF/s
 // bf16; the 66 MB of q, k, v and out take 0.02 ms at 3.35 TB/s.
 // What it leaves: each q tile of a GQA group re-reads K/V from L2, each
@@ -33,9 +34,10 @@
 
 using namespace hf;
 
-// a 3-stage ring: 224 KB of shared memory with Q
-constexpr int STAGES = 3;
-using KVRing = Ring<STAGES>;
+// a 3-stage ring at D = 128: 224 KB of shared memory with Q; at D = 64
+// a stage takes half, and 4 stages take 144 KB
+template <int D> constexpr int STAGES = D == 64 ? 4 : 3;
+template <int D> using KVRing = Ring<STAGES<D>, D>;
 
 namespace {
 
@@ -114,6 +116,7 @@ struct RetentionTiles {
   }
 };
 
+template <int D>
 __global__ void __launch_bounds__(NTHREADS, 1)
 retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
@@ -123,7 +126,9 @@ retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     int Hq, int Hkv, int causal, int window, int q_offset,
                     float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
-  const KVRing ring = KVRing::carve(smem_raw);
+  using R = KVRing<D>;
+  constexpr int S = STAGES<D>;
+  const R ring = R::carve(smem_raw);
   const int n_qt = (Tq + BM - 1) / BM;
   const int bh = blockIdx.x % (B * Hq);
   const int qt = n_qt - 1 - blockIdx.x / (B * Hq);  // heaviest first
@@ -145,15 +150,15 @@ retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     // producer: Q once, then the ring
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x == 256) {
-      mbar_expect_tx(ring.qbar, Q_BYTES);
-      tma_tile(ring.q, Q_BOX, &qmap, ring.qbar, h, r0, b);
+      mbar_expect_tx(ring.qbar, R::Q_BYTES);
+      tma_tile<D>(ring.q, Q_BOX, &qmap, ring.qbar, h, r0, b);
       for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % STAGES;
-        mbar_wait(&ring.empty[s], ((it / STAGES) & 1) ^ 1);
-        mbar_expect_tx(&ring.full[s], 2 * KV_BYTES);
+        const int s = it % S;
+        mbar_wait(&ring.empty[s], ((it / S) & 1) ^ 1);
+        mbar_expect_tx(&ring.full[s], 2 * R::KV_BYTES);
         const int j0 = (t_begin + it) * BN;
-        tma_tile(ring.k(s), KV_BOX, &kmap, &ring.full[s], kvh, j0, b);
-        tma_tile(ring.v(s), KV_BOX, &vmap, &ring.full[s], kvh, j0, b);
+        tma_tile<D>(ring.k(s), KV_BOX, &kmap, &ring.full[s], kvh, j0, b);
+        tma_tile<D>(ring.v(s), KV_BOX, &vmap, &ring.full[s], kvh, j0, b);
       }
     }
   } else {
@@ -164,9 +169,9 @@ retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const RetentionTiles tiles{n_tiles, t_begin, row0, min(64, Tq - row0),
                                Tq, Tk, causal, window, q_offset, Hkv, lb,
                                scale_log2};
-    float o[64];
+    float o[D / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     Rows st;
     st.init();
     mbar_wait(ring.qbar, 0);
@@ -179,28 +184,44 @@ retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-}  // namespace
-
-// q, k, v bf16 [B, T*, H*, 128], contiguous, 16-byte aligned; log_beta
-// float32 [B, Tk, Hkv] or null. Returns a cudaError_t.
-extern "C" int retention_attention_tc_launch(
-    const void *q, const void *k, const void *v, const void *log_beta,
-    void *out, int B, int Tq, int Tk, int Hq, int Hkv, int causal, int window,
-    int q_offset, void *stream) {
-  if (Hq % Hkv != 0 || B <= 0 || Tq <= 0 || Tk <= 0)
-    return (int)cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch(const void *q, const void *k, const void *v,
+                   const void *log_beta, void *out, int B, int Tq, int Tk,
+                   int Hq, int Hkv, int causal, int window, int q_offset,
+                   cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
   cudaError_t err;
-  if ((err = map_bthd(&qmap, q, B, Tq, Hq, BM)) != cudaSuccess) return (int)err;
-  if ((err = map_bthd(&kmap, k, B, Tk, Hkv, BN)) != cudaSuccess) return (int)err;
-  if ((err = map_bthd(&vmap, v, B, Tk, Hkv, BN)) != cudaSuccess) return (int)err;
-  const size_t smem = KVRing::bytes();
-  if ((err = allow_smem((const void *)retention_tc_kernel, smem)) != cudaSuccess)
-    return (int)err;
+  if ((err = map_bthd(&qmap, q, B, Tq, Hq, D, BM)) != cudaSuccess) return err;
+  if ((err = map_bthd(&kmap, k, B, Tk, Hkv, D, BN)) != cudaSuccess) return err;
+  if ((err = map_bthd(&vmap, v, B, Tk, Hkv, D, BN)) != cudaSuccess) return err;
+  const size_t smem = KVRing<D>::bytes();
+  if ((err = allow_smem((const void *)retention_tc_kernel<D>, smem)) !=
+      cudaSuccess)
+    return err;
   const int n_qt = (Tq + BM - 1) / BM;
   const float scale_log2 = LOG2E / sqrtf((float)D);
-  retention_tc_kernel<<<B * Hq * n_qt, NTHREADS, smem, (cudaStream_t)stream>>>(
+  retention_tc_kernel<D><<<B * Hq * n_qt, NTHREADS, smem, stream>>>(
       qmap, kmap, vmap, (const float *)log_beta, (__nv_bfloat16 *)out, B, Tq,
       Tk, Hq, Hkv, causal, window, q_offset, scale_log2);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v bf16 [B, T*, H*, D] with D 64 or 128, contiguous, 16-byte
+// aligned; log_beta float32 [B, Tk, Hkv] or null. Returns a cudaError_t.
+extern "C" int retention_attention_tc_launch(
+    const void *q, const void *k, const void *v, const void *log_beta,
+    void *out, int B, int Tq, int Tk, int Hq, int Hkv, int D, int causal,
+    int window, int q_offset, void *stream) {
+  if (Hq % Hkv != 0 || B <= 0 || Tq <= 0 || Tk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D == 128)
+    return (int)launch<128>(q, k, v, log_beta, out, B, Tq, Tk, Hq, Hkv,
+                            causal, window, q_offset, st);
+  if (D == 64)
+    return (int)launch<64>(q, k, v, log_beta, out, B, Tq, Tk, Hq, Hkv,
+                           causal, window, q_offset, st);
+  return (int)cudaErrorInvalidValue;
 }

@@ -9,6 +9,9 @@ window against the per-lane clock t) and, when ``new_kv`` is given, the
 in-flight token at distance 0. ``return_probs`` also returns the
 normalized probabilities over the M slots [B, Hq, M] and, with
 ``new_kv``, the in-flight token's mass [B, Hq] (both float32).
+A cross-attention memory slab passes ``mem_len`` [B] int32 with pos
+None: slot j of lane b is at position 0 below mem_len[b] and empty past
+it (``core.cache.memory_pos``), which the kernel computes itself.
 
 The kernel splits the slots of each (lane, kv head) over a
 thread-block cluster of up to 8 CTAs, one launch per call; each CTA
@@ -55,13 +58,17 @@ def _lane_clock(t, device):
 
 
 def decode_attention_torch(q_t, k_cache, v_cache, pos, t, *, window=0,
-                           new_kv=None, return_probs=False):
+                           new_kv=None, return_probs=False, mem_len=None):
     """Plain version, after ``repro/kernels/ref.py:decode_attention_ref``.
     q_t: [B, Hq, D]; k_cache, v_cache: [B, Hkv, M, D]; pos: [B, Hkv, M]
-    int32; t: int, scalar or [B]; new_kv: optional (k_t, v_t)
-    [B, Hkv, D]."""
+    int32, or None with mem_len [B] int32 (see the module docstring);
+    t: int, scalar or [B]; new_kv: optional (k_t, v_t) [B, Hkv, D]."""
     B, Hq, D = q_t.shape
     Hkv, M = k_cache.shape[1], k_cache.shape[2]
+    if pos is None:
+        iota = torch.arange(M, dtype=torch.int32, device=q_t.device)
+        pos = torch.where(iota < mem_len.reshape(-1, 1, 1), 0, -1).to(
+            torch.int32).expand(B, Hkv, M)
     group = Hq // Hkv
     t3 = _lane_clock(t, q_t.device)
     if new_kv is not None:
@@ -90,7 +97,7 @@ def decode_attention_torch(q_t, k_cache, v_cache, pos, t, *, window=0,
 
 
 def decode_attention_cuda(q_t, k_cache, v_cache, pos, t, *, window=0,
-                          new_kv=None, return_probs=False):
+                          new_kv=None, return_probs=False, mem_len=None):
     """Launch ``csrc/decode_attention.cu``: B * Hkv clusters of
     ``split_plan(M, B * Hkv)[0]`` CTAs. Same contract as the plain
     version; every tensor must be a contiguous CUDA tensor, q/k/v in one
@@ -106,7 +113,12 @@ def decode_attention_cuda(q_t, k_cache, v_cache, pos, t, *, window=0,
     build.check_tensor("q_t", q_t, (B, Hq, D), dt, dev)
     build.check_tensor("k_cache", k_cache, (B, Hkv, M, D), dt, dev)
     build.check_tensor("v_cache", v_cache, (B, Hkv, M, D), dt, dev)
-    build.check_tensor("pos", pos, (B, Hkv, M), torch.int32, dev)
+    if (pos is None) == (mem_len is None):
+        raise ValueError("pass exactly one of pos and mem_len")
+    if pos is None:
+        build.check_tensor("mem_len", mem_len, (B,), torch.int32, dev)
+    else:
+        build.check_tensor("pos", pos, (B, Hkv, M), torch.int32, dev)
     t_arr = torch.as_tensor(t, dtype=torch.int32, device=dev)
     t_arr = t_arr.expand(B).contiguous()
     k_new = v_new = None
@@ -129,9 +141,9 @@ def decode_attention_cuda(q_t, k_cache, v_cache, pos, t, *, window=0,
     ptr = lambda x: None if x is None else x.data_ptr()
     err = build.library().decode_attention_launch(
         int(dt == torch.bfloat16), ptr(q_t), ptr(k_cache), ptr(v_cache),
-        ptr(pos), ptr(t_arr), ptr(k_new), ptr(v_new), ptr(out), ptr(probs),
-        ptr(p_new), B, Hq, Hkv, M, D, int(window), n_split, split_len,
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(pos), ptr(mem_len), ptr(t_arr), ptr(k_new), ptr(v_new), ptr(out),
+        ptr(probs), ptr(p_new), B, Hq, Hkv, M, D, int(window), n_split,
+        split_len, torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "decode_attention")
     if not return_probs:
         return out

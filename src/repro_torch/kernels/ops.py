@@ -51,18 +51,20 @@ def _route(name: str, x) -> str:
 
 
 def decode_attention(q_t, k_cache, v_cache, pos, t, *, window=0,
-                     new_kv=None, return_probs=False):
+                     new_kv=None, return_probs=False, mem_len=None):
     """One decode position's attention over the slot cache (plus the
-    in-flight token when new_kv is given); see
+    in-flight token when new_kv is given), or over a memory slab of
+    mem_len valid slots a lane with pos None; see
     kernels/decode_attention.py."""
     if _on_cpu(q_t):
         return decode_attention_torch(q_t, k_cache, v_cache, pos, t,
                                       window=window, new_kv=new_kv,
-                                      return_probs=return_probs)
+                                      return_probs=return_probs,
+                                      mem_len=mem_len)
     LAUNCHES["decode_attention"] += 1
     return decode_attention_cuda(q_t, k_cache, v_cache, pos, t,
                                  window=window, new_kv=new_kv,
-                                 return_probs=return_probs)
+                                 return_probs=return_probs, mem_len=mem_len)
 
 
 def chunk_attention(q, k_c, v_c, cache, chunk_pos, *, window=0,

@@ -4,7 +4,7 @@ its plain PyTorch version.
 Replaces the Pallas kernel ``retention_attention_pallas``
 (``repro/kernels/retention_attention.py``) with two CUDA kernels, one
 per dtype: bfloat16 runs ``csrc/retention_attention_tc.cu`` (wgmma and
-TMA on the tensor cores, head dim 128), float32 runs
+TMA on the tensor cores, head dim 64 or 128), float32 runs
 ``csrc/retention_attention.cu`` (full float32 FMAs on the CUDA cores,
 register-blocked like an SGEMM; one CTA serves the q heads of a kv
 head together, so each K/V tile is staged once per group; head dim
@@ -61,7 +61,7 @@ def retention_attention_torch(q, k, v, log_beta=None, *, causal=True,
 def retention_attention_cuda(q, k, v, log_beta=None, *, causal=True,
                              window=0, q_offset=0):
     """Launch the kernel of q's dtype: bfloat16
-    ``csrc/retention_attention_tc.cu`` (head dim 128, 16-byte-aligned
+    ``csrc/retention_attention_tc.cu`` (head dim 64 or 128, 16-byte-aligned
     tensors, as TMA reads them), float32 ``csrc/retention_attention.cu``
     (head dim at most 128 and a multiple of 4, 16-byte-aligned tensors,
     as cp.async copies them). Same contract as the plain version;
@@ -87,7 +87,7 @@ def retention_attention_cuda(q, k, v, log_beta=None, *, causal=True,
         build.check_tc(D, q=q, k=k, v=v, out=out)
         err = build.library().retention_attention_tc_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lb, out.data_ptr(), B,
-            Tq, Tk, Hq, Hkv, *opts)
+            Tq, Tk, Hq, Hkv, D, *opts)
     else:
         if D > 128 or D % 4:
             raise ValueError(f"the float32 retention kernel takes head dim "

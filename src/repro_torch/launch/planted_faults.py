@@ -12,6 +12,8 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --reuse
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --cross
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
 kernel source), LANE_FAULTS (one to the lane layer; --lanes runs the
@@ -20,7 +22,9 @@ policies' attention aux; --policies runs the sound build and these
 alone), LIFECYCLE_FAULTS (one to the sampling, snapshot, resume or
 quarantine path; --lifecycle runs the sound build and these alone) and
 REUSE_FAULTS (one to the prefix cache or speculative decoding; --reuse
-runs the sound build and these alone) it
+runs the sound build and these alone) and CROSS_FAULTS (one to the head
+dim 64 tensor-core kernels or the cross lanes' reset; --cross runs the
+sound build and these alone) it
 copies src/repro_torch and chip_smoke.py into a temporary directory,
 applies the change, and runs,
 in a fresh process that builds that copy's kernels, the chip_smoke
@@ -46,7 +50,10 @@ quarantine as well) its counts of requests, leaves and
 counters that broke its rules (limit 0; inf when it raised) and its
 one-shot margin readings (against chip_smoke.SAMPLED_MARGIN_TOL), and
 the reuse phase (chip_smoke.reuse_phase, computing its spec_k 0
-baseline itself) its counts (limit 0; inf when it raised); the
+baseline itself) its counts (limit 0; inf when it raised), the cross
+kernel phase (chip_smoke.cross_kernel_phase) its row-relative and
+float32 errors, and the cross lanes (chip_smoke.cross_lanes_float32,
+both families) their counts (limit 0; inf when they raised); the
 script prints
 every reading beside its limit, the largest reading of the sound build
 per kind, and exits non-zero unless the sound build stays within every
@@ -86,8 +93,8 @@ FAULTS = [
      "const float sc = fast_exp2(mrow[r][t] - st.m[r]) * inv;",
      "const float sc = inv;", ("chunk",)),
     ("both: O not rescaled across key tiles", "hopper_flash.cuh",
-     "for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];",
-     "for (int i = 0; i < 64; ++i) o[i] *= 1.f;", ("chunk", "retention")),
+     "for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];",
+     "for (int i = 0; i < D / 2; ++i) o[i] *= 1.f;", ("chunk", "retention")),
     ("decode: split 1's partial left out of the combine",
      "decode_attention.cu",
      "      if (s < n_split) x = fmaf(sm.wgt[s * G + g], part[s], x);",
@@ -218,10 +225,11 @@ REUSE_FAULTS = [
     ("reuse: phase A of a verify round writes the durable cache (no "
      "scratch copy)", "models/blocks.py",
      "    if scratch is None:\n"
-     "        scratch = {k: v.clone() for k, v in state.items()}\n"
+     "        scratch = {k: state[k].clone() for k in CACHE_LEAVES}\n"
      "    else:\n"
-     "        for k, v in state.items():\n"
-     "            scratch[k].copy_(v)\n",
+     "        for k in CACHE_LEAVES:\n"
+     "            scratch[k].copy_(state[k])\n"
+     "    scratch = {**scratch, **_memory(state)}\n",
      "    scratch = state\n", ("reuse",)),
     ("reuse: cache_replay commits one position too many",
      "core/cache.py", "        mask = live & (j < n_commit)\n",
@@ -237,8 +245,25 @@ REUSE_FAULTS = [
      "                    caps[i] = (cap_tokens // C - d1 + 1, key)",
      ("reuse",)),
 ]
+# faults in the cross-memory families' paths: the D-64 tensor-core
+# kernels (read by chip_smoke.cross_kernel_phase) and the lane reset
+# (read by chip_smoke.cross_lanes_float32); --cross runs the sound build
+# and these alone
+CROSS_FAULTS = [
+    ("cross: the D-64 kernels rescale only half the head dim of the P.V "
+     "accumulator", "hopper_flash.cuh",
+     "for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];",
+     "for (int i = 0; i < (D == 64 ? D / 4 : D / 2); ++i) "
+     "o[i] *= alpha[(i >> 1) & 1];", ("cross-kernels",)),
+    ("cross: a reset leaves mem_len unchanged (the next occupant reads "
+     "the old memory)", "core/cache.py",
+     "    if \"mem_len\" in cache:\n"
+     "        cache[\"mem_len\"].masked_fill_(lane_mask, 0)\n", "",
+     ("cross",)),
+]
 SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
-         "serve", "policy", "stream-policies", "lifecycle", "reuse")
+         "serve", "policy", "stream-policies", "lifecycle", "reuse",
+         "cross-kernels", "cross")
 
 
 def child(phases):
@@ -398,6 +423,27 @@ def child(phases):
                 print(json.dumps(readings), flush=True)
                 os._exit(0)
         torch.cuda.empty_cache()
+    if "cross-kernels" in phases:
+        g.manual_seed(0)
+        with torch.no_grad():
+            cs.cross_kernel_phase(g)
+        torch.cuda.empty_cache()
+    if "cross" in phases:
+        def record_cross(name, violations):
+            for kind, n in violations.items():
+                readings.append({"case": f"cross {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+
+        cs.check_cross = record_cross
+        for arch in ("seamless-m4t-large-v2", "llama-3.2-vision-90b"):
+            try:
+                with torch.no_grad():
+                    cs.cross_lanes_float32(*cs.cross_float32_model(arch))
+            except (AssertionError, RuntimeError) as e:
+                print(f"cross: {str(e).splitlines()[0]}")
+                readings.append({"case": f"cross {arch}", "kind": "raised",
+                                 "reading": math.inf, "limit": 0.0})
+            torch.cuda.empty_cache()
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -442,20 +488,21 @@ def run(fault, phases):
     lines = proc.stdout.strip().splitlines()
     return json.loads(lines[-1]), [x for x in lines if x.startswith(
         ("parity", "capacity:", "stream", "serve", "policy", "Table",
-         "lifecycle", "reuse"))]
+         "lifecycle", "reuse", "cross"))]
 
 
 def main(only: str | None = None) -> int:
-    """only: None (every fault), "--lanes", "--policies", "--lifecycle"
-    or "--reuse"."""
+    """only: None (every fault), "--lanes", "--policies", "--lifecycle",
+    "--reuse" or "--cross"."""
     ok = True
     faults, sound = {
         None: (FAULTS + LANE_FAULTS + POLICY_FAULTS + LIFECYCLE_FAULTS
-               + REUSE_FAULTS, SOUND),
+               + REUSE_FAULTS + CROSS_FAULTS, SOUND),
         "--lanes": (LANE_FAULTS, ("stream", "serve")),
         "--policies": (POLICY_FAULTS, ("policy", "stream-policies")),
         "--lifecycle": (LIFECYCLE_FAULTS, ("lifecycle",)),
         "--reuse": (REUSE_FAULTS, ("reuse",)),
+        "--cross": (CROSS_FAULTS, ("cross-kernels", "cross")),
     }[only]
     for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"

@@ -40,6 +40,7 @@ to the CPU.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
 
@@ -65,14 +66,17 @@ def _zipf_probs(n: int, alpha: float) -> np.ndarray:
 def poisson_requests(n, rate, *, vocab, prompt_lo, prompt_hi, new_lo,
                      new_hi, seed=0, eos_id=-1, priority_frac=0.0,
                      high_deadline_ms=None, low_deadline_ms=None,
-                     timeout_ms=None, prefix_pools=0, prefix_len=0,
-                     zipf_alpha=1.1):
-    """Synthetic Poisson trace (a copy of the JAX launcher's, without
-    its cross-memory option): exponential inter-arrival gaps at `rate`
-    req/s, ragged prompt lengths and per-request max_new drawn
-    uniformly, one seed per request. A `priority_frac` fraction of
-    requests is the high class (priority 1, deadline high_deadline_ms);
-    the rest is priority 0 with low_deadline_ms.
+                     mem_key=None, mem_shape=None, timeout_ms=None,
+                     prefix_pools=0, prefix_len=0, zipf_alpha=1.1):
+    """Synthetic Poisson trace (a copy of the JAX launcher's):
+    exponential inter-arrival gaps at `rate` req/s, ragged prompt
+    lengths and per-request max_new drawn uniformly, one seed per
+    request. A `priority_frac` fraction of requests is the high class
+    (priority 1, deadline high_deadline_ms); the rest is priority 0
+    with low_deadline_ms. For a cross-memory family pass mem_key /
+    mem_shape (Engine.mem_key / Engine.mem_shape): each request then
+    carries its own random memory of ragged length (half to the full
+    slab), drawn from the same stream as the JAX launcher's.
 
     Shared-prefix pools (prefix_pools > 0): `prefix_pools` fixed system
     prompts of `prefix_len` tokens (default prompt_hi), from their own
@@ -94,6 +98,11 @@ def poisson_requests(n, rate, *, vocab, prompt_lo, prompt_hi, new_lo,
     for i in range(n):
         L = int(rng.randint(prompt_lo, prompt_hi + 1))
         high = bool(rng.rand() < priority_frac)
+        extra = None
+        if mem_key is not None:
+            S, feat = mem_shape
+            S_i = int(rng.randint(max(S // 2, 1), S + 1))
+            extra = {mem_key: rng.randn(S_i, feat).astype(np.float32) * 0.1}
         prompt = rng.randint(0, vocab, size=L).astype(np.int32)
         if pools is not None:
             pid = int(rng.choice(len(pools), p=pool_p))
@@ -104,7 +113,7 @@ def poisson_requests(n, rate, *, vocab, prompt_lo, prompt_hi, new_lo,
             eos_id=eos_id, arrival=float(arrivals[i]),
             priority=1 if high else 0,
             deadline_ms=high_deadline_ms if high else low_deadline_ms,
-            timeout_ms=timeout_ms))
+            timeout_ms=timeout_ms, extra_inputs=extra))
     return reqs
 
 
@@ -138,6 +147,7 @@ def _run_stream(cfg, model, args):
         new_lo=max(args.max_new // 4, 1), new_hi=args.max_new,
         seed=args.seed, priority_frac=args.priority_frac,
         high_deadline_ms=args.deadline_ms, timeout_ms=args.timeout_ms,
+        mem_key=eng.mem_key, mem_shape=eng.mem_shape,
         prefix_pools=args.prefix_pools, prefix_len=args.prefix_len,
         zipf_alpha=args.zipf_alpha)
     greedy = args.temperature == 0.0
@@ -246,6 +256,10 @@ def main(argv=None):
     ap.add_argument("--arch", choices=PORTED_ARCHS, default="trimkv-paper-4b")
     ap.add_argument("--smoke", action="store_true",
                     help="the architecture's reduced smoke config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (full "
+                         "width; e.g. llama-3.2-vision-90b at 10 layers "
+                         "fits one card)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (CUDA kernels and graphs) or cpu (plain "
                          "PyTorch, eager)")
@@ -354,6 +368,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     model = T.init_params(cfg, seed=args.seed, device=args.device)
     T.init_gate_params(model, cfg, seed=args.seed + 1)
     if args.stream:
@@ -364,8 +380,16 @@ def main(argv=None):
     eng = build_engine(cfg, model, device=args.device, budget=args.budget,
                        policy=args.policy, prefill_chunk=args.prefill_chunk,
                        fused=not args.eager, temperature=args.temperature)
+    extra = None
+    if eng.mem_key is not None:
+        # one full-length random memory per row (the stub front end)
+        S, feat = eng.mem_shape
+        rng = np.random.RandomState(args.seed)
+        extra = {eng.mem_key: rng.randn(args.batch, S, feat).astype(
+            np.float32) * 0.1}
     out = eng.generate(tokens, args.max_new, chunked=args.chunked,
-                       greedy=args.temperature == 0.0, seed=args.seed)
+                       greedy=args.temperature == 0.0, seed=args.seed,
+                       extra_inputs=extra)
     print(f"device={eng.device} policy={args.policy} budget={args.budget} "
           f"prefill {out['prefill_tok_per_sec']:.1f} tok/s, "
           f"decode {out['tok_per_sec']:.1f} tok/s "

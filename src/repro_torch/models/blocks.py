@@ -1,12 +1,26 @@
-"""Dense transformer blocks (kinds "global" and "local"): init, state
-and apply in prefill, chunked-prefill, decode and training modes.
+"""Transformer blocks of the dense and cross-memory families: init,
+state and apply in prefill, chunked-prefill, decode and training modes.
 
-Ported from ``repro/models/blocks.py``, cut to the dense self-attention
-path. A block is an ``nn.Module`` holding its retention gate (or None);
-the apply functions are plain functions over it. Attention goes
-through ``kernels.ops``, which runs the CUDA kernels on the card and
-their plain versions on the CPU. Block apply returns (x_out, new_state,
-None).
+Ported from ``repro/models/blocks.py`` for the kinds "global" and
+"local" (self-attention + FFN, ``DenseBlock``) and "cross"
+(self-attention + tanh-gated cross-attention to a memory + FFN,
+``CrossBlock``: the vision layers of the vlm family and the decoder
+layers of the encdec family). A block is an ``nn.Module`` holding its
+retention gate (or None); the apply functions are plain functions over
+it. Self-attention goes through ``kernels.ops``, which runs the CUDA
+kernels on the card and their plain versions on the CPU; so does the
+decode-time cross-attention (the decode kernel over the memory slab,
+as the JAX package's Pallas path runs it). The prefill-time
+cross-attention and the encoder's bidirectional attention are the plain
+``chunked_attention`` with key positions, as the JAX package computes
+them in XLA. Block apply returns (x_out, new_state, None).
+
+A block's state is one flat dict per layer: the slot cache (k, v
+[B, Hkv, M, D], beta, pos, aux [B, Hkv, M]) and, for a cross layer, its
+memory slab xk, xv [B, Hkv, S, D] (the JAX package keeps
+[B, S, Hkv, D]; this is the decode kernel's layout, so no step moves an
+axis) and mem_len [B] int32 (slots >= mem_len are masked; 0 = no
+memory).
 """
 from __future__ import annotations
 
@@ -16,7 +30,8 @@ from torch import nn
 
 from repro_torch.core import gates as gates_lib
 from repro_torch.core.cache import (cache_insert, cache_replay,
-                                   cache_topm_merge, init_cache)
+                                   cache_topm_merge, init_cache,
+                                   memory_attend, memory_pos)
 from repro_torch.core.gates import Gate
 from repro_torch.kernels import ops
 from repro_torch.models.common import (NEG_INF, MLP, RMSNorm, apply_rope,
@@ -25,13 +40,27 @@ from repro_torch.models.common import (NEG_INF, MLP, RMSNorm, apply_rope,
                                        rmsnorm_apply, to_dtype)
 
 DENSE_KINDS = ("global", "local")
+PORTED_KINDS = DENSE_KINDS + ("cross",)
+# a layer state's slot-cache leaves and a cross layer's memory leaves
+CACHE_LEAVES = ("k", "v", "beta", "pos", "aux")
+MEMORY_LEAVES = ("xk", "xv", "mem_len")
 
 
-def _require_dense(kind: str):
-    if kind not in DENSE_KINDS:
+def _require_ported(kind: str):
+    if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"layer kind {kind!r} is not ported to repro_torch yet; "
-            f"ported: {DENSE_KINDS}")
+            f"ported: {PORTED_KINDS}")
+
+
+def memory_len(cfg) -> int:
+    """Length S of the static cross-attention memory (vision tokens or
+    encoder frames); 0 for a family without one."""
+    if cfg.family == "vlm":
+        return cfg.num_image_tokens
+    if cfg.family == "encdec":
+        return cfg.source_len
+    return 0
 
 
 class Attention(nn.Module):
@@ -50,7 +79,7 @@ class DenseBlock(nn.Module):
 
     def __init__(self, cfg, kind: str, *, device, generator):
         super().__init__()
-        _require_dense(kind)
+        _require_ported(kind)
         dtype = to_dtype(cfg.dtype)
         self.kind = kind
         self.norm1 = RMSNorm(cfg.d_model, device=device)
@@ -61,13 +90,29 @@ class DenseBlock(nn.Module):
         self.gate = None
 
 
+class CrossBlock(DenseBlock):
+    """A DenseBlock with a tanh-gated cross-attention to the memory
+    between its self-attention and its FFN: x + tanh(xgate) * xattn(
+    normx(x), memory). xgate is a float32 scalar (0 at init, as in the
+    JAX package, where the cross path then changes nothing)."""
+
+    def __init__(self, cfg, kind: str, *, device, generator):
+        super().__init__(cfg, kind, device=device, generator=generator)
+        dtype = to_dtype(cfg.dtype)
+        self.normx = RMSNorm(cfg.d_model, device=device)
+        self.xattn = Attention(cfg, dtype, device, generator)
+        self.xgate = nn.Parameter(torch.zeros((), dtype=torch.float32,
+                                              device=device))
+
+
 def init_block(cfg, kind: str, *, device, generator) -> DenseBlock:
-    return DenseBlock(cfg, kind, device=device, generator=generator)
+    cls = CrossBlock if kind == "cross" else DenseBlock
+    return cls(cfg, kind, device=device, generator=generator)
 
 
 def init_block_gate(cfg, kind: str, *, device, generator):
     """Retention gate for a block that owns a growing KV cache."""
-    _require_dense(kind)
+    _require_ported(kind)
     if not cfg.trimkv:
         return None
     return Gate(cfg.d_model, cfg.gate_hidden, cfg.num_kv_heads,
@@ -75,12 +120,76 @@ def init_block_gate(cfg, kind: str, *, device, generator):
 
 
 def init_block_state(cfg, kind: str, batch: int, budget: int, dtype,
-                     device):
-    _require_dense(kind)
+                     device, slab_len: int | None = None):
+    """A layer's state: the slot cache, and for a cross layer its memory
+    slab of slab_len (default memory_len(cfg)) slots, all masked."""
+    _require_ported(kind)
     M = (min(budget, cfg.window) if (kind == "local" and cfg.window > 0)
          else budget)
-    return init_cache(batch, cfg.num_kv_heads, M, cfg.head_dim, dtype,
-                      device=device)
+    cache = init_cache(batch, cfg.num_kv_heads, M, cfg.head_dim, dtype,
+                       device=device)
+    if kind == "cross":
+        S = memory_len(cfg) if slab_len is None else slab_len
+        shape = (batch, cfg.num_kv_heads, S, cfg.head_dim)
+        cache["xk"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["xv"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["mem_len"] = torch.zeros((batch,), dtype=torch.int32,
+                                       device=device)
+    return cache
+
+
+def _memory(state):
+    """A cross layer state's memory leaves ({} for a dense layer)."""
+    return {k: state[k] for k in MEMORY_LEAVES if k in state}
+
+
+def make_memory_kv(attn: Attention, cfg, memory):
+    """The cross-attention K/V of memory tokens [B, S, d]: xk, xv
+    [B, Hkv, S, D] (no RoPE: memory is position-free)."""
+    xk = _split_heads(dense_apply(attn.wk, memory), cfg.num_kv_heads,
+                      cfg.head_dim)
+    xv = _split_heads(dense_apply(attn.wv, memory), cfg.num_kv_heads,
+                      cfg.head_dim)
+    return xk.transpose(1, 2), xv.transpose(1, 2)
+
+
+def cross_attn_apply(attn: Attention, cfg, x, xk, xv, mem_len):
+    """Prefill-time cross-attention of x [B, T, d] over the memory slab
+    xk, xv [B, Hkv, S, D], slots >= mem_len ([B]) masked from every
+    query (a lane with mem_len 0 reads exactly zero): the plain
+    chunked_attention with key positions, as the JAX package computes
+    it in XLA. Returns [B, T, d]."""
+    B, T, _ = x.shape
+    S = xk.shape[2]
+    q = _split_heads(dense_apply(attn.wq, x), cfg.num_heads, cfg.head_dim)
+    kv_pos = memory_pos(mem_len, S)[:, 0].expand(B, S)
+    out = chunked_attention(q, xk.transpose(1, 2), xv.transpose(1, 2),
+                            causal=False, kv_positions=kv_pos,
+                            q_block=cfg.attn_q_block,
+                            kv_block=cfg.attn_kv_block)
+    return dense_apply(attn.wo, out.reshape(B, T, cfg.q_dim))
+
+
+def _cross_attn_decode(attn: Attention, cfg, x_t, state, t):
+    """Decode-time cross-attention of x_t [B, d] over the lane's memory
+    slab (core.cache.memory_attend: the decode kernel on the card, as the
+    JAX package's Pallas path runs it). t: the lanes' clock, as the JAX
+    package passes it (no window reads it; a tensor keeps the step
+    capturable). Returns [B, d]."""
+    B = x_t.shape[0]
+    q = _split_heads(dense_apply(attn.wq, x_t), cfg.num_heads, cfg.head_dim)
+    out = memory_attend(q, state["xk"], state["xv"], state["mem_len"], t)
+    return dense_apply(attn.wo, out.reshape(B, cfg.q_dim).to(x_t.dtype))
+
+
+def _cross_residual(block, cfg, x, xo_fn):
+    """x + tanh(xgate) * xo for a cross block (tanh in float32, cast to
+    the activations' dtype, as in the JAX package); x for the others.
+    xo_fn(normed) computes the cross-attention of normx(x)."""
+    if block.kind != "cross":
+        return x
+    xo = xo_fn(rmsnorm_apply(block.normx.scale, x, cfg.norm_eps))
+    return x + torch.tanh(block.xgate).to(x.dtype) * xo
 
 
 def _window(cfg, kind) -> int:
@@ -182,6 +291,8 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
                          active=active)
     x = x_t + dense_apply(block.attn.wo,
                           out.reshape(B, cfg.q_dim).to(x_t.dtype))
+    x = _cross_residual(block, cfg, x, lambda n: _cross_attn_decode(
+        block.xattn, cfg, n, cache, t))
     sig = ({"k": k_t, "v": v_t, "beta": beta_t, "pkv": pkv,
             "auxn": aux_new} if return_sig else None)
     return _ffn_residual(block, cfg, x), cache, sig
@@ -214,15 +325,18 @@ def apply_block_verify(block: DenseBlock, cfg, x, state, t, *, policy,
     new one) receives a copy of ``state`` and carries the positions'
     evolving cache; the serving step programs pass one static scratch
     for every layer. Returns (x_out [B, C, d], sig), sig's leaves
-    stacked on axis 1 (see apply_block_decode's return_sig)."""
+    stacked on axis 1 (see apply_block_decode's return_sig). The scratch
+    holds the slot cache only: a cross layer's memory is read-only at
+    decode, so its positions read the state's slab."""
     B, C, _ = x.shape
     if live is None:
         live = torch.ones((B,), dtype=torch.bool, device=x.device)
     if scratch is None:
-        scratch = {k: v.clone() for k, v in state.items()}
+        scratch = {k: state[k].clone() for k in CACHE_LEAVES}
     else:
-        for k, v in state.items():
-            scratch[k].copy_(v)
+        for k in CACHE_LEAVES:
+            scratch[k].copy_(state[k])
+    scratch = {**scratch, **_memory(state)}
     tb = torch.as_tensor(t, dtype=torch.int32, device=x.device).expand(B)
     rows, sigs = [], []
     for j in range(C):
@@ -244,9 +358,10 @@ def apply_block_verify_commit(cfg, kind, state, sig, t, n_commit, live,
     sig: apply_block_verify's signals; n_commit: [B] accepted-prefix
     length (0..C, 0 for non-live lanes); t: round-entry clock. Returns
     the same cache, bit-identical to having decoded only the accepted
-    prefix. (The recurrent and mamba kinds select a stacked snapshot in
-    the JAX package; they come with their families.)"""
-    _require_dense(kind)
+    prefix; a cross layer's memory is left as it is. (The recurrent and
+    mamba kinds select a stacked snapshot in the JAX package; they come
+    with their families.)"""
+    _require_ported(kind)
     inc = 1.0 if policy.name == "trimkv" else None
     return cache_replay(state, sig["k"], sig["v"], sig["beta"], sig["pkv"],
                         sig["auxn"], t, n_commit, live, policy,
@@ -259,7 +374,8 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
     attention through the retention kernel, then the top-M merge of the
     prompt's keys by keep score at t = q_offset + T - 1. A needs_attn
     policy's chunk aux is the mean attention of the last obs_window
-    queries over the prompt (_obs_probs)."""
+    queries over the prompt (_obs_probs). A cross layer reads the memory
+    installed in ``state`` (transformer.install_memory) and keeps it."""
     del budget  # the cache carries M
     B, T, _ = x.shape
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
@@ -284,7 +400,9 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
     cache = cache_topm_merge(state, k_c, v_c, beta_c, pos_c, aux_c, t_end,
                              policy.keep_scores, chunk_scores)
     x = x + dense_apply(block.attn.wo, out.reshape(B, T, cfg.q_dim))
-    return _ffn_residual(block, cfg, x), cache, None
+    x = _cross_residual(block, cfg, x, lambda n: cross_attn_apply(
+        block.xattn, cfg, n, state["xk"], state["xv"], state["mem_len"]))
+    return _ffn_residual(block, cfg, x), {**cache, **_memory(state)}, None
 
 
 def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
@@ -339,7 +457,9 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
     if ragged:
         cache = _select_rows(nvb > 0, cache, state)
     x = x + dense_apply(block.attn.wo, out.reshape(B, C, cfg.q_dim))
-    return _ffn_residual(block, cfg, x), cache, None
+    x = _cross_residual(block, cfg, x, lambda n: cross_attn_apply(
+        block.xattn, cfg, n, state["xk"], state["xv"], state["mem_len"]))
+    return _ffn_residual(block, cfg, x), {**cache, **_memory(state)}, None
 
 
 def _obs_probs(q_obs, k, positions, obs_start, window):
@@ -407,13 +527,15 @@ def valid_counts(n_valid, B: int, C: int, device):
 
 
 def self_attn_train(block: DenseBlock, cfg, x, *, gated, cap_M,
-                    q_offset=0):
+                    q_offset=0, causal=True, kv_positions=None):
     """Training-mode (full-sequence) self-attention over x [B, T, d];
     retention-gated when ``gated`` (paper Eq. 3): log_beta from the
     gate biases the logits, and with ``cap_M`` the block's L_cap goes
     through ``ops.capacity_loss_log`` (the CUDA kernels on the card).
     Attention itself is the plain ``chunked_attention``, as the JAX
-    package computes it in XLA. Returns (out [B, T, d], cap scalar)."""
+    package computes it in XLA; kv_positions [B, T] (-1 = padded key)
+    with causal=False is the encoder's bidirectional attention over a
+    ragged batch. Returns (out [B, T, d], cap scalar)."""
     B, T, _ = x.shape
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
     positions = (q_offset + torch.arange(T, device=x.device))[None].expand(
@@ -425,17 +547,26 @@ def self_attn_train(block: DenseBlock, cfg, x, *, gated, cap_M,
         log_beta = gates_lib.gate_log_beta(block.gate, normed)  # [B,T,Hkv]
         if cap_M is not None:
             cap = ops.capacity_loss_log(log_beta, cap_M)
-    out = chunked_attention(q, k, v, log_beta=log_beta, causal=True,
+    out = chunked_attention(q, k, v, log_beta=log_beta, causal=causal,
                             window=_window(cfg, block.kind),
-                            q_offset=q_offset, q_block=cfg.attn_q_block,
+                            q_offset=q_offset, kv_positions=kv_positions,
+                            q_block=cfg.attn_q_block,
                             kv_block=cfg.attn_kv_block)
     return dense_apply(block.attn.wo, out.reshape(B, T, cfg.q_dim)), cap
 
 
 def apply_block_train(block: DenseBlock, cfg, x, *, gated=False,
-                      cap_M=None):
-    """Training forward of a dense block over x [B, T, d]. Returns
-    (x_out, cap): the block's capacity loss, zero when not gated."""
-    _require_dense(block.kind)
-    attn_out, cap = self_attn_train(block, cfg, x, gated=gated, cap_M=cap_M)
+                      cap_M=None, causal=True, kv_positions=None):
+    """Training forward of a dense block over x [B, T, d] (with
+    causal=False and kv_positions: an encoder layer). Returns (x_out,
+    cap): the block's capacity loss, zero when not gated. Cross blocks
+    train with their family (ROADMAP queue 1)."""
+    if block.kind not in DENSE_KINDS:
+        raise NotImplementedError(
+            f"training a {block.kind!r} block is not ported to repro_torch "
+            f"yet; see ROADMAP queue 1, gate training for the cross "
+            f"families")
+    attn_out, cap = self_attn_train(block, cfg, x, gated=gated, cap_M=cap_M,
+                                    causal=causal,
+                                    kv_positions=kv_positions)
     return _ffn_residual(block, cfg, x + attn_out), cap

@@ -180,7 +180,8 @@ def _attend_block(q, k, v, bias, mask, carry):
 
 
 def chunked_attention(q, k, v, *, log_beta=None, causal=True, window=0,
-                      q_offset=0, q_block=512, kv_block=512):
+                      q_offset=0, kv_positions=None, q_block=512,
+                      kv_block=512):
     """Memory-efficient attention with optional retention bias.
 
     q: [B, Tq, Hq, D]; k, v: [B, Tk, Hkv, D] (GQA: Hq % Hkv == 0)
@@ -188,15 +189,17 @@ def chunked_attention(q, k, v, *, log_beta=None, causal=True, window=0,
         (t - i) * log_beta_i to the logit (paper Eq. 3).
     window: sliding-window size (0 = unbounded).
     q_offset: absolute position of q[0] (for prefill continuation).
-    Returns [B, Tq, Hq, D] in q.dtype. Keys sit at positions 0..Tk-1
-    (the JAX package's kv_positions, which only its encoder and cross
-    attention pass, is not ported).
+    kv_positions: [B, Tk] int absolute key positions, a key at a
+        position < 0 masked from every query (the padded tail of a
+        ragged encoder or cross-memory batch); None: keys at 0..Tk-1.
+    Returns [B, Tq, Hq, D] in q.dtype. A query row that sees no key
+    gives exactly 0.
 
     The last q and kv blocks are cut short where the JAX package pads
     them (padded keys are masked there, padded queries dropped). A kv
     block that the causal mask or the window hides from every query of
-    a q block is skipped: the JAX package scans it and it changes
-    nothing.
+    a q block is skipped (only with the default key positions): the
+    JAX package scans it and it changes nothing.
     """
     B, Tq, Hq, D = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
@@ -220,12 +223,17 @@ def chunked_attention(q, k, v, *, log_beta=None, causal=True, window=0,
         acc = torch.zeros((B, Hq, Bq, D), device=dev)
         for k0 in range(0, Tk, kv_block):
             k1 = min(k0 + kv_block, Tk)
-            if causal and k0 > q_offset + q0 + Bq - 1:
-                break                              # every key is in the future
-            if window > 0 and k1 - 1 <= q_offset + q0 - window:
-                continue                           # every key left the window
-            dist = q_pos[:, None] - torch.arange(k0, k1, device=dev)[None]
-            mask = torch.ones_like(dist, dtype=torch.bool)    # [Bq,Bk]
+            if kv_positions is None:
+                if causal and k0 > q_offset + q0 + Bq - 1:
+                    break                          # every key is in the future
+                if window > 0 and k1 - 1 <= q_offset + q0 - window:
+                    continue                       # every key left the window
+                dist = q_pos[:, None] - torch.arange(k0, k1, device=dev)[None]
+                mask = torch.ones_like(dist, dtype=torch.bool)  # [Bq,Bk]
+            else:
+                kp = kv_positions[:, None, None, k0:k1]         # [B,1,1,Bk]
+                dist = q_pos[None, None, :, None] - kp          # [B,1,Bq,Bk]
+                mask = kp >= 0
             if causal:
                 mask = mask & (dist >= 0)
             if window > 0:

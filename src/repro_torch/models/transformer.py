@@ -1,15 +1,18 @@
-"""The dense stack: init, logits, decode state, single-shot and chunked
-prefill, decode, sampling, speculative verify rounds, the token loops
-and the training forward.
+"""The model stack of the dense and cross-memory families: init,
+logits, decode state, the cross-attention memory (vision projection or
+encoder, install_memory), single-shot and chunked prefill, decode,
+sampling, speculative verify rounds, the token loops and the training
+forward.
 
-Ported from ``repro/models/transformer.py`` (dense path). The model is
-a ``Transformer`` module holding its blocks in order; the JAX package's
-scans over layers become Python loops, and its scans over tokens and
-chunks become loops over step functions (``serve.graphs`` captures the
-steps as CUDA graphs). The decode state is
-{"t": [B] int32 per-lane clock, "layers": [one slot cache per layer]};
-``bridge.state_to_numpy`` gives it the JAX package's layout. Decode
-updates the caches in place.
+Ported from ``repro/models/transformer.py`` (the dense, vlm and encdec
+families). The model is a ``Transformer`` module holding its blocks in
+order (and, for encdec, its encoder); the JAX package's scans over
+layers become Python loops, and its scans over tokens and chunks become
+loops over step functions (``serve.graphs`` captures the steps as CUDA
+graphs). The decode state is {"t": [B] int32 per-lane clock, "layers":
+[one flat state dict per layer]} (blocks.init_block_state: a slot
+cache, plus a cross layer's memory slab); ``bridge.state_to_numpy``
+gives it the JAX package's layout. Decode updates the caches in place.
 """
 from __future__ import annotations
 
@@ -33,10 +36,10 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg, *, device, generator):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported to repro_torch yet; "
-                f"only 'dense' is")
+                f"ported: {FAMILIES}")
         dtype = to_dtype(cfg.dtype)
         Vp = cfg.padded_vocab
         embed = torch.empty((Vp, cfg.d_model), dtype=torch.float32,
@@ -49,10 +52,36 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(
             blocks.init_block(cfg, kind, device=device, generator=generator)
             for kind in cfg.layer_kinds())
+        # the memory's front end: the vision projection [vision_dim, d]
+        # (vlm) or the bidirectional encoder (encdec; no gates)
+        self.vis_proj = (dense(cfg.vision_dim, cfg.d_model, dtype=dtype,
+                               device=device, generator=generator)
+                         if cfg.family == "vlm" else None)
+        self.encoder = self.encoder_norm = None
+        if cfg.family == "encdec":
+            self.encoder = nn.ModuleList(
+                blocks.init_block(cfg, "global", device=device,
+                                  generator=generator)
+                for _ in range(cfg.encoder_layers))
+            self.encoder_norm = RMSNorm(cfg.d_model, device=device)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+
+FAMILIES = ("dense", "vlm", "encdec")
+# the extra_inputs key that carries a cross family's memory
+MEM_KEYS = {"vlm": "vision_embeds", "encdec": "source_embeds"}
+
+
+def memory_shape(cfg):
+    """(S, feat) of one request's full-length front-end inputs (vision
+    embeds or source frames), or None for a family without memory."""
+    if cfg.family not in MEM_KEYS:
+        return None
+    return (blocks.memory_len(cfg),
+            cfg.vision_dim if cfg.family == "vlm" else cfg.d_model)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -103,14 +132,110 @@ def compute_logits(model: Transformer, cfg, hidden):
     return torch.where(mask, logits, torch.full_like(logits, -1e30))
 
 
-def init_decode_state(cfg, batch: int, budget: int, device):
+def init_decode_state(cfg, batch: int, budget: int, device,
+                      slab_len: int | None = None):
+    """A fresh decode state of ``batch`` lanes; a cross layer's memory
+    slab has slab_len slots (default blocks.memory_len(cfg))."""
     dtype = to_dtype(cfg.dtype)
     return {
         "t": torch.zeros((batch,), dtype=torch.int32, device=device),
         "layers": [blocks.init_block_state(cfg, kind, batch, budget, dtype,
-                                           device)
+                                           device, slab_len=slab_len)
                    for kind in cfg.layer_kinds()],
     }
+
+
+# ------------------------------------------------- cross-attention memory
+
+
+def _encoder_forward(model: Transformer, cfg, source_embeds, mem_len=None):
+    """The bidirectional encoder over frame embeddings [B, S, d] (in the
+    model dtype). mem_len: optional [B] valid frame counts of a ragged
+    batch padded to a shared S: padded frames are masked out of every
+    attention read, so each row's valid prefix is what encoding that
+    row alone gives; padded rows of the output are garbage, masked
+    downstream by the same mem_len."""
+    kv_positions = None
+    if mem_len is not None:
+        S = source_embeds.shape[1]
+        iota = torch.arange(S, dtype=torch.int32,
+                            device=source_embeds.device)[None]
+        kv_positions = torch.where(iota < mem_len[:, None], iota, -1)
+    h = source_embeds
+    for block in model.encoder:
+        h, _ = blocks.apply_block_train(block, cfg, h, causal=False,
+                                        kv_positions=kv_positions)
+    return rmsnorm_apply(model.encoder_norm.scale, h, cfg.norm_eps)
+
+
+def memory_from_inputs(model: Transformer, cfg, extra_inputs):
+    """The memory tokens of a cross family from its front-end inputs:
+    (memory [B, S, d] in the model dtype, mem_len [B] int32), or
+    (None, None) for a family without memory. extra_inputs holds the
+    family's key (MEM_KEYS: vision embeds [B, S, vision_dim] or source
+    frame embeds [B, S, d]) and optionally "mem_len" [B], each row's
+    valid length in a padded batch (default: every row whole). As in
+    the JAX package, the vision projection runs in float32 and is cast
+    after; source frames are cast before the encoder."""
+    key = MEM_KEYS.get(cfg.family)
+    if key is None:
+        return None, None
+    dev, dtype = model.device, to_dtype(cfg.dtype)
+    x = torch.as_tensor(extra_inputs[key], device=dev)
+    mem_len = extra_inputs.get("mem_len")
+    if mem_len is not None:
+        mem_len = torch.as_tensor(mem_len, dtype=torch.int32, device=dev)
+    if cfg.family == "vlm":
+        memory = (x.float() @ model.vis_proj.weight.float().T).to(dtype)
+    else:
+        memory = _encoder_forward(model, cfg, x.to(dtype), mem_len)
+    if mem_len is None:
+        mem_len = torch.full((memory.shape[0],), memory.shape[1],
+                             dtype=torch.int32, device=dev)
+    return memory, mem_len
+
+
+def install_memory(model: Transformer, cfg, state, memory, mem_len,
+                   lanes_mask=None):
+    """Write the memory's cross-attention K/V (blocks.make_memory_kv)
+    and mem_len into every cross layer of ``state``, IN PLACE. memory:
+    [B, S, d]; mem_len: [B] int32. lanes_mask: optional [B] bool: only
+    those lanes take the new memory, every other lane's is left
+    bit-identical (the scheduler admits into reset lanes while their
+    neighbours decode). Without a mask the whole batch is replaced and
+    S may differ from the state's slab (the state then adopts the
+    request's own S, as the JAX package's one-shot path does: those
+    leaves are rebound, so a static state is installed with its own
+    S). Returns the same state."""
+    m = None if lanes_mask is None else torch.as_tensor(
+        lanes_mask, device=memory.device)
+    ml = torch.as_tensor(mem_len, dtype=torch.int32,
+                         device=memory.device).expand(memory.shape[0])
+    for block, st in zip(model.layers, state["layers"]):
+        if block.kind != "cross":
+            continue
+        xk, xv = blocks.make_memory_kv(block.xattn, cfg, memory)
+        if m is None and st["xk"].shape != xk.shape:
+            st["xk"], st["xv"] = xk.contiguous(), xv.contiguous()
+            st["mem_len"] = ml.clone()
+            continue
+        if m is not None:
+            xk = torch.where(m[:, None, None, None], xk, st["xk"])
+            xv = torch.where(m[:, None, None, None], xv, st["xv"])
+            ml = torch.where(m, ml, st["mem_len"])
+        st["xk"].copy_(xk)
+        st["xv"].copy_(xv)
+        st["mem_len"].copy_(ml)
+    return state
+
+
+def _install_inputs(model, cfg, state, extra_inputs):
+    """install_memory of extra_inputs' memory into every lane (a no-op
+    for a family without memory). Returns the state."""
+    memory, mem_len = memory_from_inputs(model, cfg, extra_inputs or {})
+    if memory is not None:
+        install_memory(model, cfg, state, memory, mem_len)
+    return state
 
 
 def _embed(model, tokens):
@@ -118,9 +243,12 @@ def _embed(model, tokens):
                        model.embed)
 
 
-def prefill(model: Transformer, cfg, tokens, state, policy, serve_cfg):
-    """Single-shot prefill of tokens [B, T] into a fresh ``state``.
-    Returns (state, last_hidden [B, d])."""
+def prefill(model: Transformer, cfg, tokens, state, policy, serve_cfg, *,
+            extra_inputs=None):
+    """Single-shot prefill of tokens [B, T] into a fresh ``state``; a
+    cross family's memory comes from extra_inputs (memory_from_inputs)
+    and is installed first. Returns (state, last_hidden [B, d])."""
+    state = _install_inputs(model, cfg, state, extra_inputs)
     h = _embed(model, tokens)
     B, T = h.shape[:2]
     layers = []
@@ -160,17 +288,20 @@ def _prefill_chunk_step(model: Transformer, cfg, tokens, state, policy,
 
 
 def prefill_chunk_loop(model: Transformer, cfg, chunks, n_valid, state,
-                       policy, serve_cfg):
+                       policy, serve_cfg, *, extra_inputs=None):
     """Chunked prefill as a loop over chunks [n_chunks, B, C] with
     real-token counts n_valid [n_chunks] (C except the padded tail), or
     [n_chunks, B] for a ragged batch: mixed-length prompts on one chunk
     grid, each row with its own counts (full chunks, its tail, then
     zeros, which freeze the row). Returns (state, h_last [B, d] of each
-    row's last real token, carried across its empty chunks).
+    row's last real token, carried across its empty chunks). A cross
+    family's memory (extra_inputs) is installed once before the first
+    chunk: it is loop-invariant.
 
     The prefix cache's boundary snapshots (the JAX package's
     capture_chunk) are taken by the serving layer, between the chunk
     program's replays (serve.graphs.LanePrograms.prefill_chunks)."""
+    state = _install_inputs(model, cfg, state, extra_inputs)
     chunks = torch.as_tensor(chunks, device=model.device)
     n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
                               device=model.device)
@@ -557,7 +688,8 @@ def decode_segment_loop(model: Transformer, cfg, state, tok, keys, active,
 
 def mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
                     n_emitted, max_new, eos_id, chunks, chunk_valid, finish,
-                    new_keys, policy, serve_cfg, *, greedy=True):
+                    new_keys, policy, serve_cfg, *, greedy=True,
+                    mem_inputs=None, mem_install=None):
     """An interleaved prefill/decode segment through the mixed programs
     of serve.graphs.LanePrograms (eager): step j runs mixed_step with
     chunks[j] [B, C], chunk_valid[j] [B] and finish[j] [B] (a lane that
@@ -566,7 +698,12 @@ def mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
     mode per step (active lanes have chunk_valid 0). The variant with
     first-token logits runs only on steps where some lane finishes,
     chosen on the host, where the JAX package's lax.cond chooses on the
-    device. Returns the tuple of decode_segment_loop."""
+    device. Cross families: mem_inputs (the extra_inputs dict, padded
+    [B, S, feat] and per-lane "mem_len") and mem_install ([B] bool: the
+    lanes whose first prompt chunk rides in this segment) install those
+    lanes' memory before their first chunk (the JAX package installs it
+    before its scan; a lane is frozen until its first chunk, so the
+    two agree). Returns the tuple of decode_segment_loop."""
     n_steps = int(np.shape(chunks)[0])
     lanes = _lane_programs(model, cfg, state, policy, serve_cfg, n_steps)
     lanes.tok.copy_(torch.as_tensor(tok))
@@ -574,7 +711,8 @@ def mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
     lanes.upload_carries(active, n_emitted, max_new, eos_id)
     lanes.run_mixed(np.asarray(chunks), np.asarray(chunk_valid),
                     np.asarray(finish), np.asarray(new_keys, np.int64),
-                    greedy=greedy)
+                    greedy=greedy,
+                    memory=_memory_upload(cfg, mem_inputs, mem_install))
     return (lanes.state, *lanes.results(n_steps))
 
 
@@ -608,12 +746,13 @@ def spec_decode_segment_loop(model: Transformer, cfg, state, tok, keys,
 def spec_mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
                          n_emitted, max_new, eos_id, hist, chunks,
                          chunk_valid, finish, new_keys, policy, serve_cfg, *,
-                         spec_k: int):
+                         spec_k: int, mem_inputs=None, mem_install=None):
     """Speculative counterpart of mixed_step_loop through the spec_mixed
     programs of serve.graphs.LanePrograms (eager): per step the decode
     lanes run one verify round while admitting lanes consume one prompt
-    chunk. Greedy only. Returns the spec_decode_segment_loop tuple
-    (ids / emitted [B, n_steps * (spec_k + 1)])."""
+    chunk. Greedy only; memory as in mixed_step_loop. Returns the
+    spec_decode_segment_loop tuple (ids / emitted
+    [B, n_steps * (spec_k + 1)])."""
     import dataclasses
     n_steps = int(np.shape(chunks)[0])
     serve_cfg = dataclasses.replace(serve_cfg, spec_k=spec_k)
@@ -623,15 +762,29 @@ def spec_mixed_step_loop(model: Transformer, cfg, state, tok, keys, active,
     lanes.upload_carries(active, n_emitted, max_new, eos_id, hist=hist)
     lanes.run_mixed(np.asarray(chunks), np.asarray(chunk_valid),
                     np.asarray(finish), np.asarray(new_keys, np.int64),
-                    spec=True)
+                    spec=True,
+                    memory=_memory_upload(cfg, mem_inputs, mem_install))
     return (lanes.state, *lanes.results(n_steps, spec=True))
+
+
+def _memory_upload(cfg, mem_inputs, mem_install):
+    """(mem [B, S, feat], mem_len [B], install [B]) numpy for
+    LanePrograms.run_mixed from a mixed loop's memory arguments, or
+    None."""
+    if mem_inputs is None:
+        return None
+    return (np.asarray(mem_inputs[MEM_KEYS[cfg.family]], np.float32),
+            np.asarray(mem_inputs["mem_len"], np.int32),
+            np.asarray(mem_install, bool))
 
 
 def reset_lanes(state, lane_mask):
     """Retire lanes in place: the masked lanes' slot metadata is cleared
-    (core.cache.reset_lanes: pos -1, beta 1, aux 0) and their clock set
-    to 0; K/V bytes stay (invisible once pos < 0). Other lanes are
-    untouched. lane_mask: [B] bool. Returns the same state."""
+    (core.cache.reset_lanes: pos -1, beta 1, aux 0; a cross layer's
+    mem_len 0, so the next occupant never reads this memory) and their
+    clock set to 0; K/V and memory bytes stay (invisible once masked).
+    Other lanes are untouched. lane_mask: [B] bool. Returns the same
+    state."""
     state["t"].masked_fill_(lane_mask, 0)
     for st in state["layers"]:
         cache_reset_lanes(st, lane_mask)
@@ -639,8 +792,9 @@ def reset_lanes(state, lane_mask):
 
 
 def scrub_lanes(state, lane_mask):
-    """reset_lanes plus zeroed K/V (core.cache.scrub_lanes), in place:
-    the quarantine primitive. Returns the same state."""
+    """reset_lanes plus zeroed K/V and memory slabs
+    (core.cache.scrub_lanes), in place: the quarantine primitive.
+    Returns the same state."""
     state["t"].masked_fill_(lane_mask, 0)
     for st in state["layers"]:
         cache_scrub_lanes(st, lane_mask)
@@ -696,7 +850,13 @@ def forward_train(model: Transformer, cfg, tokens, *, gated=False,
     each block under ``torch.utils.checkpoint`` (non-reentrant), keeping
     only the residual stream between blocks; backward recomputes the
     block, its L_cap forward included. Without autograd (the teacher
-    under ``torch.no_grad``) nothing is checkpointed."""
+    under ``torch.no_grad``) nothing is checkpointed. The dense family
+    only: the cross families' gate training is ROADMAP queue 1."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family is not ported to "
+            f"repro_torch yet; see ROADMAP queue 1, gate training for the "
+            f"cross families")
     h = _embed(model, tokens)
     cap_total = torch.zeros((), dtype=torch.float32, device=h.device)
 

@@ -2,9 +2,19 @@
 under the TRIM-KV policy over the bounded KV cache.
 
 Ported from ``repro/serve/engine.py`` (``Engine.prefill``,
-``generate``, ``teacher_forced_accuracy``, ``lane_closures``, ``build_engine``) for the dense family. On the card
+``generate``, ``teacher_forced_accuracy``, ``lane_closures``,
+``build_engine``) for the dense, vlm and encdec families. On the card
 the attention runs through the hand-written CUDA kernels
 (``kernels.ops``).
+
+Cross-memory families (vlm, encdec) take each request's memory in
+``extra_inputs`` ({mem_key: [B, S, feat], optionally "mem_len": [B]}),
+as the JAX engine does: the one-shot paths adopt the request's own S
+(the programs of a batch size are rebuilt when S changes), the
+scheduler pads to
+the family's ``mem_shape``. The memory is installed before the first
+chunk (``LanePrograms.install_memory``, a captured program with the
+encoder in it), and the prefix cache is bypassed for these families.
 
 Step programs (``serve.graphs``): with ``serve_cfg.fused`` (the
 default) chunked prefill, greedy decode and teacher forcing run their
@@ -59,9 +69,9 @@ from repro_torch.serve.prefix_cache import PrefixCache
 class Engine:
     def __init__(self, cfg, model: T.Transformer, serve_cfg: ServeConfig,
                  *, device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in T.FAMILIES:
             raise NotImplementedError(
-                f"the repro_torch engine serves the dense family only, "
+                f"the repro_torch engine serves the families {T.FAMILIES}, "
                 f"got {cfg.family!r}")
         self.device = resolve_device(device)
         if model.device.type != self.device.type:
@@ -94,21 +104,51 @@ class Engine:
     def _fused(self, fused) -> bool:
         return self.serve.fused if fused is None else fused
 
-    def _lane_programs(self, batch: int, pool) -> LanePrograms:
+    @property
+    def mem_key(self):
+        """The extra_inputs key of this family's cross-attention memory
+        (None for a family without one)."""
+        return T.MEM_KEYS.get(self.cfg.family)
+
+    @property
+    def mem_shape(self):
+        """(S, feat) of one request's full-length memory: the shape the
+        scheduler pads ragged memories to (None without memory)."""
+        return T.memory_shape(self.cfg)
+
+    def _slab_len(self, extra_inputs):
+        """The slab length S of a one-shot call's memory (None without)."""
+        if self.mem_key is None:
+            return None
+        if not extra_inputs or self.mem_key not in extra_inputs:
+            raise ValueError(f"family {self.cfg.family!r} requires "
+                             f"extra_inputs[{self.mem_key!r}]")
+        return int(np.shape(extra_inputs[self.mem_key])[1])
+
+    def _lane_programs(self, batch: int, pool, slab_len=None) -> LanePrograms:
         return LanePrograms(self.model, self.cfg, self.serve, self.policy,
-                            self.fresh_state(batch), pool)
+                            self.fresh_state(batch, slab_len), pool)
 
-    def _programs(self, batch: int) -> LanePrograms:
+    def _programs(self, batch: int, slab_len=None) -> LanePrograms:
         """The lock-step programs of this batch size, as captured graphs
-        on the card (the fused path)."""
-        if batch not in self._batch_programs:
-            self._batch_programs[batch] = self._lane_programs(batch,
-                                                              self.graphs)
-        return self._batch_programs[batch]
+        on the card (the fused path). One set is kept a batch size: a
+        cross family's is built for one memory slab length S, and a call
+        with another S releases it (its state, memory buffers and
+        graphs) and builds the new S's."""
+        if slab_len is None and self.mem_key is not None:
+            slab_len = self.mem_shape[0]
+        progs = self._batch_programs.get(batch)
+        if progs is not None and progs.slab_len != slab_len:
+            progs.release()
+            progs = None
+        if progs is None:
+            progs = self._batch_programs[batch] = self._lane_programs(
+                batch, self.graphs, slab_len)
+        return progs
 
-    def fresh_state(self, batch: int):
+    def fresh_state(self, batch: int, slab_len=None):
         return T.init_decode_state(self.cfg, batch, self.serve.budget,
-                                   self.model.device)
+                                   self.model.device, slab_len=slab_len)
 
     def lane_closures(self, n_lanes: int) -> LanePrograms:
         """The continuous-batching programs of ``n_lanes`` lanes
@@ -143,8 +183,11 @@ class Engine:
         return tokens.reshape(B, n_chunks, C).transpose(0, 1), n_valid
 
     @torch.no_grad()
-    def prefill(self, tokens, chunked: bool = False, fused=None):
-        """tokens: [B, T] (numpy or tensor). Returns (state, last_hidden).
+    def prefill(self, tokens, chunked: bool = False, fused=None,
+                extra_inputs=None):
+        """tokens: [B, T] (numpy or tensor); extra_inputs: a cross
+        family's memory (see the module docstring). Returns (state,
+        last_hidden).
 
         Chunked: the prompt is padded up to whole prefill_chunk-sized
         chunks and the tail chunk's padding is masked (n_valid), as the
@@ -155,25 +198,33 @@ class Engine:
         eager per-chunk loop into a fresh state."""
         tokens = torch.as_tensor(tokens, device=self.model.device)
         B, Tn = tokens.shape
+        S = self._slab_len(extra_inputs)
         if not chunked:
             self.dispatch_count += 1
             return T.prefill(self.model, self.cfg, tokens,
-                             self.fresh_state(B), self.policy, self.serve)
+                             self.fresh_state(B, S), self.policy, self.serve,
+                             extra_inputs=extra_inputs)
         chunks, n_valid = self._chunk_grid(tokens)
         if self._fused(fused):
-            progs = self._programs(B)
+            progs = self._programs(B, S)
             progs.fresh()
             self.dispatch_count += 1
+            if S is not None:
+                mem_len = extra_inputs.get("mem_len", np.full(B, S))
+                progs.install_memory(extra_inputs[self.mem_key], mem_len,
+                                     np.ones(B, bool))
             h_last, _ = progs.prefill_chunks(chunks, n_valid)
             return progs.state, h_last.clone()
         self.dispatch_count += len(n_valid)
         return T.prefill_chunk_loop(self.model, self.cfg, chunks,
-                                    n_valid[:, 0], self.fresh_state(B),
-                                    self.policy, self.serve)
+                                    n_valid[:, 0], self.fresh_state(B, S),
+                                    self.policy, self.serve,
+                                    extra_inputs=extra_inputs)
 
     @torch.no_grad()
     def generate(self, tokens, max_new: int, chunked: bool = False,
-                 greedy: bool = True, seed: int = 0, fused=None):
+                 greedy: bool = True, seed: int = 0, fused=None,
+                 extra_inputs=None):
         """Prefill, then max_new decode steps. Returns a dict with ids
         [B, max_new] (numpy), margins [B, max_new] (numpy: the top-two
         margin of the scores the step that chose each id took the argmax
@@ -187,20 +238,22 @@ class Engine:
         chain of ``seed``: one split per step, one categorical draw over
         the whole [B, Vp] logits. fused (default serve_cfg.fused): the
         decode program's graph (greedy or sampled) replays per token;
-        fused=False runs the eager loop."""
+        fused=False runs the eager loop. extra_inputs: a cross family's
+        memory (see the module docstring)."""
         fused = self._fused(fused)
         tokens = torch.as_tensor(tokens, device=self.model.device)
         B, Tn = tokens.shape
         self._sync()
         t0 = time.perf_counter()
-        state, h_last = self.prefill(tokens, chunked, fused=fused)
+        state, h_last = self.prefill(tokens, chunked, fused=fused,
+                                     extra_inputs=extra_inputs)
         tok, margin0 = self._first_token(h_last)
         self._sync()
         t1 = time.perf_counter()
         greedy = greedy or self.serve.temperature == 0.0
         key = prng.prng_key(seed, device=self.model.device)
         if fused:
-            progs = self._programs(B)
+            progs = self._programs(B, self._slab_len(extra_inputs))
             if state is not progs.state:         # single-shot prefill
                 copy_state(progs.state, state)
             progs.key.copy_(key)
@@ -232,7 +285,7 @@ class Engine:
 
     @torch.no_grad()
     def teacher_forced_accuracy(self, tokens, labels, chunked: bool = False,
-                                fused=None):
+                                fused=None, extra_inputs=None):
         """Feed gold tokens; argmax-match rate on positions where
         labels >= 0. tokens/labels: [B, T]."""
         fused = self._fused(fused)
@@ -242,13 +295,13 @@ class Engine:
         first_label = int(np.min(np.where(labels >= 0)[1]))
         prefix_len = max(first_label, 1)
         state, h_last = self.prefill(tokens[:, :prefix_len], chunked,
-                                     fused=fused)
+                                     fused=fused, extra_inputs=extra_inputs)
         preds = [self._first_token(h_last)[0]]
         if prefix_len < Tn:
             self.dispatch_count += 1
             gold = tokens[:, prefix_len:]
             if fused:
-                progs = self._programs(B)
+                progs = self._programs(B, self._slab_len(extra_inputs))
                 if state is not progs.state:
                     copy_state(progs.state, state)
                 for i in range(gold.shape[1]):

@@ -31,6 +31,16 @@ the programs over it:
   key from ``gkeys``); the host picks the variant per step from its
   finish grid, where the JAX package's lax.cond picks on the device.
 
+A cross-memory family (vlm, encdec) adds the memory's static buffers
+(the packed front-end inputs ``mem`` [B, S, feat] float32, ``mem_len``
+[B] and the lanes to install, ``mem_mask`` [B]) and the ``memory``
+program: the front end (vision projection or encoder) over ``mem`` and
+install_memory into the lanes of ``mem_mask``, in place. Phased
+admission and the one-shot programs run it before their first chunk,
+an interleaved dispatch before its first mixed step, as the JAX
+package installs before its scan (a lane is frozen until its first
+chunk, so an earlier install changes nothing it reads).
+
 Speculative decoding (``serve.spec_k`` > 0, greedy only) adds three
 more, over the drafter history ``hist`` [B, SPEC_HISTORY] and ids /
 emitted buffers widened to W * (spec_k + 1) columns:
@@ -88,6 +98,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
+from repro_torch.models.blocks import CACHE_LEAVES
 
 # rows of LanePrograms.io, the per-lane carries a dispatch uploads once
 # and the segment / mixed programs update in place (the last two: the
@@ -258,6 +269,19 @@ class LanePrograms:
         # is a static buffer of the captured graph)
         self.hist = torch.full((B, T.SPEC_HISTORY), -1, dtype=torch.int64,
                                device=dev)
+        # a cross family's memory: the packed front-end inputs at the
+        # state's slab length S, their lengths, the lanes to install
+        self.mem_key = T.MEM_KEYS.get(cfg.family)
+        self.mem = self.mem_len = self.mem_mask = self.slab_len = None
+        if self.mem_key is not None:
+            S, feat = T.memory_shape(cfg)
+            self.slab_len = S = next((st["xk"].shape[2]
+                                      for st in state["layers"]
+                                      if "xk" in st), S)
+            self.mem = torch.zeros((B, S, feat), dtype=torch.float32,
+                                   device=dev)
+            self.mem_len = torch.zeros((B,), dtype=torch.int32, device=dev)
+            self.mem_mask = torch.zeros((B,), dtype=torch.bool, device=dev)
         self.scratch = None
         self.programs = {}
         self._staging = None      # extract's pinned host rows, made once
@@ -268,6 +292,7 @@ class LanePrograms:
         prog = self.programs.get(name)
         if prog is None:
             fn = {"chunk": self._chunk,
+                  "memory": self._install_memory,
                   "decode": lambda: self._decode(False),
                   "decode_sampled": lambda: self._decode(True),
                   "segment": lambda: self._segment(False),
@@ -282,6 +307,15 @@ class LanePrograms:
                   }[name]
             prog = self.programs[name] = StepProgram(name, fn, self.pool)
         return prog
+
+    def _install_memory(self):
+        """The memory of the lanes in ``mem_mask``: the front end over the
+        static ``mem`` and install_memory, in place."""
+        memory, mem_len = T.memory_from_inputs(
+            self.model, self.cfg, {self.mem_key: self.mem,
+                                   "mem_len": self.mem_len})
+        T.install_memory(self.model, self.cfg, self.state, memory, mem_len,
+                         lanes_mask=self.mem_mask)
 
     def _chunk(self):
         new, h = T._prefill_chunk_step(self.model, self.cfg, self.ctok,
@@ -361,8 +395,8 @@ class LanePrograms:
             for st in self.state["layers"]:
                 key = tuple(st["pos"].shape)
                 if key not in self.scratch:
-                    self.scratch[key] = {k: torch.empty_like(v)
-                                         for k, v in st.items()}
+                    self.scratch[key] = {k: torch.empty_like(st[k])
+                                         for k in CACHE_LEAVES}
         return self.scratch
 
     def _spec_segment(self):
@@ -399,6 +433,13 @@ class LanePrograms:
         io[IO_ACC_ROUNDS].copy_(acc_rounds)
         self._commit(self._spec_cols(j), fed, emitted, tok, keys, nactive,
                      n_emitted, ok)
+
+    def release(self):
+        """Drop the captured programs (their closures hold this object in
+        a reference cycle), so that the state, buffers and graphs are
+        freed as soon as the last reference to it goes."""
+        self.programs.clear()
+        self.scratch = self._staging = None
 
     # ------------------------------------------------------- lock-step use
 
@@ -443,8 +484,18 @@ class LanePrograms:
                                  zip(lanes, self.extract(lanes)))
         return self.h_last, snaps
 
+    def install_memory(self, mem, mem_len, lane_mask):
+        """Upload a cross family's packed front-end inputs (mem
+        [B, S, feat], mem_len [B], numpy or tensors) and run the memory
+        program: the lanes of lane_mask ([B] bool) take their memory,
+        the others keep theirs bit-identically."""
+        self.mem.copy_(torch.as_tensor(mem, dtype=torch.float32))
+        self.mem_len.copy_(torch.as_tensor(mem_len, dtype=torch.int32))
+        self.mem_mask.copy_(torch.as_tensor(lane_mask))
+        self.program("memory").run()
+
     def admit(self, chunks, n_valid, lane_mask, new_keys=None, hits=None,
-              capture=None):
+              capture=None, memory=None):
         """Phased admission: prefill the ragged chunk grid (chunks
         [n, B, C], n_valid [n, B], numpy; lanes not admitted ride as
         all-zero rows and stay frozen) straight into the lanes of
@@ -461,10 +512,14 @@ class LanePrograms:
         ``capture`` ([B] ints) takes the lanes' boundary snapshots
         between chunk replays (prefill_chunks). The JAX package's fresh
         rows for the lanes without a hit are the reset lanes here, so
-        only the hit lanes' rows move. Returns the captured rows
-        ({lane: row})."""
+        only the hit lanes' rows move. ``memory`` ((mem, mem_len), a cross
+        family's packed inputs) is installed into the admitted lanes
+        before the first chunk, inside the admission. Returns the
+        captured rows ({lane: row})."""
         if hits:
             self.install(list(hits), list(hits.values()))
+        if memory is not None:
+            self.install_memory(*memory, lane_mask)
         h_last, snaps = self.prefill_chunks(chunks, n_valid, capture)
         first = torch.argmax(T.compute_logits(self.model, self.cfg, h_last),
                              dim=-1)
@@ -637,14 +692,19 @@ class LanePrograms:
             prog.run()
 
     def run_mixed(self, chunks, nv, finish, new_keys=None,
-                  greedy: bool = True, spec: bool = False):
+                  greedy: bool = True, spec: bool = False, memory=None):
         """The mixed programs (see _variant) over a schedule of d steps:
         chunks [d, B, C], nv [d, B], finish [d, B] (numpy,
         d <= decode_segment) and the keys of the lanes finishing their
         prompt in it, new_keys [B, 2] (numpy; None: zeros); one replay
         per step, the variant with first-token logits where some lane
-        finishes."""
+        finishes. ``memory`` ((mem, mem_len, install), a cross family's
+        packed inputs and the lanes whose first prompt chunk is in this
+        schedule, numpy) is installed into those lanes before the first
+        step (install_memory)."""
         d = chunks.shape[0]
+        if memory is not None and memory[2].any():
+            self.install_memory(*memory)
         self.grid[:d].copy_(torch.as_tensor(chunks))
         self.gnv[:d].copy_(torch.as_tensor(nv))
         self.gfin[:d].copy_(torch.as_tensor(finish))

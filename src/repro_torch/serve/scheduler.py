@@ -104,8 +104,19 @@ near tie.
 `continuous=False` degrades the same machinery to static batching
 (admission waits until every lane is free).
 
-Not ported yet: cross-memory families (NotImplementedError naming
-their ROADMAP queue 1 item).
+Cross-memory families (vlm, encdec): each request carries its own
+vision or encoder memory in `Request.extra_inputs` (ragged lengths,
+checked at submit against the family's `mem_shape`). Admission packs
+the admitted lanes' memories into one padded [B, S, feat] slab with a
+per-lane mem_len and installs it inside the admission (the memory
+program, before the first chunk of a phased admission or the first
+step of the interleaved dispatch that holds the lanes' first chunks,
+as the JAX scheduler installs before its scan). Retiring a
+lane sets its mem_len to 0, so a recycled lane never reads a previous
+occupant's memory; the slab and mem_len ride in every LaneSnapshot, so
+a resumed lane is not encoded again. The prefix cache is bypassed for
+these families (a cached slab would not carry the memory its suffix
+cross-attends into).
 """
 from __future__ import annotations
 
@@ -126,11 +137,6 @@ from repro_torch.serve.store import SnapshotStore, state_spec
 
 SCHED_POLICIES = ("fifo", "priority", "edf")
 SHED_POLICIES = ("reject", "evict")
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported to repro_torch yet; "
-                               f"see {item}")
 
 
 def _chunk_prompt(prompt: np.ndarray, C: int):
@@ -201,15 +207,17 @@ class Scheduler:
             raise ValueError(f"unknown shed_policy "
                              f"{self.serve.shed_policy!r}; "
                              f"expected one of {SHED_POLICIES}")
-        if self.cfg.family in ("vlm", "encdec"):
-            raise _not_ported("a cross-memory family",
-                              "ROADMAP queue 1, cross-memory families")
         self.greedy = greedy or self.serve.temperature == 0.0
         # speculative decoding is greedy only: under temperature sampling
         # spec_k degrades to 0 (the plain segments)
         self.spec_k = self.serve.spec_k if self.greedy else 0
-        # the prefix KV cache lives on the engine (None when off)
-        self._pc = engine.prefix_cache
+        # cross-memory families: each request's memory is a per-lane
+        # resource, packed at admission to the family's (S, feat)
+        self.mem_key = engine.mem_key
+        self.mem_shape = engine.mem_shape
+        # the prefix KV cache lives on the engine (None when off);
+        # cross-memory families bypass it
+        self._pc = engine.prefix_cache if self.mem_key is None else None
         # chaos adversary (serve.faults.FaultInjector), None in
         # production: step() gives it first crack at the scheduler
         self.injector = injector
@@ -342,7 +350,7 @@ class Scheduler:
                           submit_sec=self._now())
         self._submit_seq += 1
         self.results[request.rid] = rs
-        reason = request.validation_error()
+        reason = request.validation_error() or self._check_memory(request)
         if reason is None and len(self.queue) >= self.serve.max_queue:
             reason = self._shed(rs)
         if reason is not None:
@@ -351,6 +359,39 @@ class Scheduler:
             return rs
         self.queue.append(rs)
         return rs
+
+    def _check_memory(self, request: Request) -> Optional[str]:
+        """Cross-memory families: every request carries its own memory
+        (vision embeds or source frames) of at most the family's S rows
+        and exactly its feature width. Returns the rejection reason, or
+        None."""
+        if self.mem_key is None:
+            return None
+        S, feat = self.mem_shape
+        mem = (request.extra_inputs or {}).get(self.mem_key)
+        if mem is None:
+            return (f"family {self.cfg.family!r} requires "
+                    f"extra_inputs[{self.mem_key!r}]")
+        if mem.ndim != 2 or mem.shape[1] != feat:
+            return (f"extra_inputs[{self.mem_key!r}] shape {mem.shape} "
+                    f"does not match the family slab [<= {S}, {feat}]")
+        if mem.shape[0] > S:
+            return (f"extra_inputs[{self.mem_key!r}] length "
+                    f"{mem.shape[0]} exceeds the family slab length {S}")
+        return None
+
+    def _pack_memory(self, slots: Dict[int, RequestState]):
+        """Pack the lanes' requests' memories into one padded slab: mem
+        [n_lanes, S, feat] float32 and mem_len [n_lanes] int32 (lanes
+        not in ``slots`` zero, with mem_len 0)."""
+        S, feat = self.mem_shape
+        mem = np.zeros((self.n_lanes, S, feat), np.float32)
+        mem_len = np.zeros((self.n_lanes,), np.int32)
+        for lane, rs in slots.items():
+            m = rs.request.extra_inputs[self.mem_key]
+            mem[lane, :m.shape[0]] = m
+            mem_len[lane] = m.shape[0]
+        return mem, mem_len
 
     def _order_key(self, rs: RequestState):
         """Admission order under sched_policy; smaller is served first.
@@ -803,9 +844,11 @@ class Scheduler:
         self.eng.dispatch_count += 1
         self.n_prefill_rounds += 1
         self.steps_run["chunk"] += int(n_valid.any(axis=1).sum())
+        memory = (self._pack_memory({lane: rs for rs, lane in fresh})
+                  if self.mem_key is not None else None)
         snaps = self.lanes.admit(chunks, n_valid, mask, _prng_keys(seeds),
                                  hits={l: e.state for l, e in hits.items()},
-                                 capture=capture)
+                                 capture=capture, memory=memory)
         for lane, (_, key) in caps.items():
             self._pc.insert(key, snaps[lane])
         for rs, lane in fresh:
@@ -854,14 +897,17 @@ class Scheduler:
         per segment (0 = unlimited; the first chunk of a segment always
         proceeds). Returns (chunks, n_valid, finish, the key chains of
         the lanes finishing in this segment [B, 2], the per-lane chunk
-        counts to commit after the dispatch, the drain step: the first
-        step with no chunk left)."""
+        counts to commit after the dispatch, the install mask [B]: the
+        lanes whose first prompt chunk rides in this segment, whose
+        memory a cross family installs, the drain step: the first step
+        with no chunk left)."""
         C = self.serve.prefill_chunk
         B = self.n_lanes
         chunks = np.zeros((n_steps, B, C), np.int32)
         nv = np.zeros((n_steps, B), np.int32)
         finish = np.zeros((n_steps, B), bool)
         new_keys = np.zeros((B, 2), np.uint32)
+        install = np.zeros((B,), bool)
         budget = self.serve.prefill_budget
         lanes = [l for l in range(B) if self.lane_prefill[l] is not None]
         lanes.sort(key=lambda l: self._order_key(self.lane_req[l]))
@@ -882,6 +928,8 @@ class Scheduler:
                     continue
                 chunks[j, lane] = pf.chunks[i]
                 nv[j, lane] = tok_count
+                if i == 0:
+                    install[lane] = True
                 if i == pf.n_chunks - 1:
                     finish[j, lane] = True
                     new_keys[lane] = _prng_keys(
@@ -891,7 +939,7 @@ class Scheduler:
                 drain = j + 1
         scheduled = {l: progress[l] - self.lane_prefill[l].next_chunk
                      for l in lanes}
-        return chunks, nv, finish, new_keys, scheduled, drain
+        return chunks, nv, finish, new_keys, scheduled, install, drain
 
     def _harvest(self, n_steps: int):
         """Read a dispatch's results back (the one sync of a dispatch)
@@ -927,10 +975,13 @@ class Scheduler:
                 rs.spec_rounds += int(acc_rounds[lane])
                 rs.spec_tokens += int(acc_tok[lane])
 
-    def _dispatch_mixed(self, chunks, nv, finish, new_keys, scheduled):
+    def _dispatch_mixed(self, chunks, nv, finish, new_keys, scheduled,
+                        install):
         """One mixed prefill/decode dispatch running the prebuilt
         schedule (chunks [d, B, C], sliced to the drain step); commits
-        the host-side chunk progress. Returns (ids, emitted, ok)."""
+        the host-side chunk progress. A cross family's lanes in
+        ``install`` take their memory before the dispatch's first step.
+        Returns (ids, emitted, ok)."""
         self.eng.dispatch_count += 1
         self.n_segments += 1
         t0 = time.perf_counter()
@@ -939,8 +990,14 @@ class Scheduler:
             self.n_verify_rounds += int(chunks.shape[0])
         self.steps_run["spec_mixed" if self.spec_k else "mixed"] += int(
             chunks.shape[0])
+        memory = None
+        if self.mem_key is not None and install.any():
+            memory = (*self._pack_memory(
+                {l: self.lane_req[l] for l in np.flatnonzero(install)}),
+                install)
         self.lanes.run_mixed(chunks, nv, finish, new_keys,
-                             greedy=self.greedy, spec=bool(self.spec_k))
+                             greedy=self.greedy, spec=bool(self.spec_k),
+                             memory=memory)
         self.enqueue_sec += time.perf_counter() - t0
         for lane, n in scheduled.items():
             pf = self.lane_prefill[lane]
@@ -1029,11 +1086,11 @@ class Scheduler:
         prefilling = any(pf is not None for pf in self.lane_prefill)
         t_seg0 = self._now()
         if prefilling:
-            chunks, nv, finish, new_keys, scheduled, drain = \
+            chunks, nv, finish, new_keys, scheduled, install, drain = \
                 self._build_prefill_schedule(n_steps)
             ids, emitted, ok = self._dispatch_mixed(
                 chunks[:drain], nv[:drain], finish[:drain], new_keys,
-                scheduled)
+                scheduled, install)
             if drain < n_steps:
                 self.n_segment_splits += 1
                 ids2, emitted2, ok2 = self._dispatch_decode(n_steps - drain)

@@ -13,8 +13,8 @@ ids equal the port's own one-shot Engine.generate(prompt[None],
 chunked=True), graphs' eager twin against the reference loops; every
 subsystem of the JAX scheduler the port has (the prefix cache and
 speculative decoding among them) runs a short trace to DONE, while a
-cross-memory family raises NotImplementedError; and init_cache has no
-default device.
+cross-memory family's scheduler rejects a request without its memory;
+and init_cache has no default device.
 """
 import copy
 import dataclasses
@@ -172,8 +172,9 @@ def test_ported_subsystems_run():
     """Every subsystem ported so far runs a short trace to DONE: the
     prefix cache, speculative decoding, both together, checkpoints, a
     snapshot budget, an injector, sampled lanes, park and revive, and
-    swap preemption (the default); a cross-memory family raises
-    NotImplementedError naming its ROADMAP item."""
+    swap preemption (the default); a cross-memory family's scheduler
+    rejects a request that carries no memory (tests/test_torch_cross.py
+    serves those families)."""
     _, _, _, cfg, model = _models()
     eng = build_engine(cfg, model, device="cpu", **SERVE)
     reqs = _trace(Request)
@@ -189,8 +190,8 @@ def test_ported_subsystems_run():
             assert (sched.stats()["n_verify_rounds"] > 0) == ("spec_k" in kw)
     cross = copy.copy(eng)
     cross.cfg = dataclasses.replace(cfg, family="encdec")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Scheduler(cross, n_lanes=2)
+    rs = Scheduler(cross, n_lanes=2).submit(reqs[0])
+    assert rs.status is Status.REJECTED and "source_embeds" in rs.reason
     for kw in (dict(checkpoint_every=2), dict(snapshot_host_bytes=1 << 30)):
         sched = Scheduler(build_engine(cfg, model, device="cpu", **SERVE,
                                        **kw), n_lanes=2)
