@@ -42,6 +42,13 @@ pass, a backward) — then:
    held against the plain version at pos = memory_pos) at S 4096, G 1,
    D 64 and S 1601, G 8, D 128 with ragged mem_len including 0 (that lane
    reads exactly 0), bf16 and float32;
+1b. MoE kernels — retention, chunk and decode at granite-moe-3b-a800m's
+   shape (D 64, GQA group 3: Hq 24, Hkv 8; the float32 chunk kernel's
+   CTA packs 42 positions, 126 rows), bf16 row by row and float32,
+   against their plain versions (moe_kernel_phase); and at
+   mixtral-8x7b's main-path shape (D 128, G 4, M 4096, window 4096,
+   which binds: retention over T 4500, chunks of C 1024 at t0 4096 and
+   8192, decode at clocks 4515 and 7000; mixtral_kernel_cases);
 2. serve — trimkv-paper-4b at full width (36 layers, bfloat16, random
    weights from a seed, perturbed gate biases) through Engine.generate,
    batch 4, prompt 2000, budget 512, 32 new tokens, single-shot and
@@ -153,6 +160,25 @@ pass, a backward) — then:
    ids, spec_k 2 = spec_k 0, reset lanes hold mem_len 0 and read zero
    memory, extract -> resume bit-exact on every leaf, a scrubbed slab
    all zero, its neighbour bit-identical), check_cross counts 0;
+2g. moe — the MoE family (moe_phase): blocks.moe_apply against
+   moe_reference (the JAX package's _moe_apply op by op: per-column
+   int32 cumsums, one-hot [g, E, cap] dispatch and combine) in float32
+   on one full-width layer of each config (decode of 4 lanes, chunks at
+   factor 1.25 and 0.5, two groups): out within TOL, keep masks equal;
+   granite-moe-3b-a800m at full width and depth (32 layers, 40
+   experts top 8) and mixtral-8x7b at full width cut to MIXTRAL_LAYERS
+   (8 experts top 2, window 4096; a prompt of 4500 at budget 4096, so
+   the window masks kept slots in decode, counted and > 0), bf16,
+   seeded weights, gate biases ~ U(2, 8): generate_pairs (exact
+   launches, graphs against eager), 4-lane streams (granite phased and
+   interleaved, mixtral phased: every request DONE, dispatches on the
+   formula, launches the steps imply, dropped choices by layer), the
+   granite stream at capacity factor E / k (no drop) against one-shot
+   runs up to CROSS_MARGIN_STEPS; float32 card (kernels) against CPU
+   (plain) through the scheduler (granite 2 layers, mixtral 1; 3
+   lanes, a better-ranked arrival after the first step, phased and
+   interleaved): ids and slot positions equal after every step, logits
+   within TOL, every layer's dropped choices equal and > 0;
 3. parity — the same config cut to 2 layers, one set of weights on the
    card (kernels) and on the CPU (plain versions), after single-shot
    and after chunked prefill, with exact launch counts: in float32
@@ -191,20 +217,26 @@ pass, a backward) — then:
    1e-4 and gate gradients within rel 1e-3 of their largest entry;
    adamw_update on the CPU's gradients gives the same gates on both
    within atol 1e-6; one train_step on each gives the same loss
-   within rel 1e-4 and moves the gates.
+   within rel 1e-4 and moves the gates;
+7. moe train — gate distillation of granite-moe-3b-a800m at full width
+   cut to MOE_TRAIN_LAYERS (bf16, batch 1 x 2048, M 256), 3 steps:
+   exact capacity launches, finite losses, gates moved, every base
+   weight (routers and experts included) bit-identical.
 
 Prints the card's name and power limit and a {"kernels": [...]} line
 (each kernel's launches are those of the main paths that run it, each
 counted from 0 just before its run: the decode and bf16 chunk kernels
 over the serve and policy phases' generate calls, the bf16 stream's
 phased run, the reuse phase's drains, the lifecycle phase, the
-qwen2.5-14b calls and the cross phase's one-shot calls and phased
-streams, the bf16 retention kernel over the serve, policy, qwen2.5-14b
-and cross one-shot phases, the float32 chunk kernel over the float32
-parity runs, the reuse phase's float32 drains, the lifecycle phase and
-the cross float32 parity runs, the float32 retention kernel over the
-float32 parity runs (the cross ones included), the capacity kernels
-over the train phase) and each phase's seconds, then, as the last line,
+qwen2.5-14b calls, the cross phase's one-shot calls and phased
+streams and the MoE phase's one-shot calls and phased streams, the
+bf16 retention kernel over the serve, policy, qwen2.5-14b, cross and
+MoE one-shot phases, the float32 chunk kernel over the float32 parity
+runs, the reuse phase's float32 drains, the lifecycle phase and the
+cross and MoE float32 parity runs, the float32 retention kernel over
+the float32 parity runs (the cross ones included), the capacity
+kernels over the train and MoE train phases) and each phase's seconds,
+then, as the last line,
 {"ok": true, "device": {...}}. Any failure raises: the script exits
 non-zero and prints no result line. It exits non-zero at once when no
 CUDA card is visible.
@@ -1248,19 +1280,22 @@ def first_divergence(got, want):
                 None if len(got) == len(want) else n)
 
 
-def traced_drain(eng, lanes, reqs, kw):
+def traced_drain(eng, lanes, reqs, kw, later=()):
     """Serve reqs on a fresh Scheduler with every request submitted at
     once (no arrival times: the schedule depends on the trace alone),
-    one step() at a time. After each step, record every layer's slot
-    positions and aux and the lanes' last decode logits. Returns
-    (results, trace)."""
+    and the requests of ``later`` after the first step, one step() at a
+    time. After each step, record every layer's slot positions and aux
+    and the lanes' last decode logits. Returns (results, trace)."""
     from repro_torch.serve.scheduler import Scheduler
     sched = Scheduler(eng, n_lanes=lanes, **kw)
     for r in sorted(reqs, key=lambda r: r.arrival):
         sched.submit(r)
-    trace = []
-    while sched.queue or sched.n_running:
+    trace, pending = [], list(later)
+    while sched.queue or sched.n_running or pending:
         sched.step()
+        for r in pending:
+            sched.submit(r)
+        pending = []
         layers = sched.lanes.state["layers"]
         trace.append(([st["pos"].clone() for st in layers],
                       sched.lanes.logits.clone(),
@@ -3350,6 +3385,650 @@ def cross_kernel_phase(g):
     return out
 
 
+# ---------------------------------------------------------------- moe
+
+# The MoE family (granite-moe-3b-a800m, mixtral-8x7b). Expert capacity
+# couples every row of an FFN call (the JAX package's _moe_apply, GShard
+# top-k dispatch), so a lane's tokens depend on its neighbours' under
+# drops: the bf16 streams are held against one-shot runs only at the
+# no-drop capacity factor E / k, and the float32 runs hold the card
+# against the CPU on the same requests, drop counts included.
+MOE_SHAPE = dict(B=4, P=1024, N=32, chunk=512, budget=512)
+# mixtral at full width is ~94 GB in bf16: 8 of its 32 layers (~24 GB),
+# a prompt above its window of 4096 and a budget of 4096 (M = min(budget,
+# window)), so the window binds in prefill and, once the oldest kept
+# slots fall out of it, in decode
+MIXTRAL_LAYERS = 8
+MIXTRAL_SHAPE = dict(B=2, P=4500, N=16, chunk=1024, budget=4096)
+MOE_TRAIN_LAYERS = 8
+
+
+def check_moe(name, violations):
+    """Raise unless every MoE count is 0."""
+    bad = {k: v for k, v in violations.items() if v}
+    if bad:
+        raise AssertionError(f"moe {name}: {bad}")
+
+
+def moe_model(arch, dtype="bfloat16", num_layers=None, seed=70,
+              device="cuda"):
+    """An MoE config at full width (num_layers cuts the depth), seeded
+    weights, gates and gate biases ~ U(2, 8). Returns (cfg, model)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=seed, device=device)
+    T.init_gate_params(model, cfg, seed=seed + 1)
+    perturb_gates(model, seed=seed + 2)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"moe: {cfg.name} {cfg.num_layers} layers {cfg.dtype}, "
+        f"{cfg.num_experts} experts top {cfg.experts_per_token}, "
+        f"{n_params / 1e9:.3f} B parameters, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def zero_drops(model):
+    """Set every MoE layer's drop counter to 0."""
+    for block in model.layers:
+        block.ffn.drops.zero_()
+
+
+def layer_drops(model):
+    return [int(block.ffn.drops) for block in model.layers]
+
+
+def moe_oneshot(arch, num_layers=None, shape=MOE_SHAPE):
+    """An MoE config in bf16 at full width through Engine.generate
+    (generate_pairs: single-shot and chunked, fused and eager, exact
+    launch counts, graphs against eager) at shape's budget; for a local
+    layer, the kept slots whose position the last decode step's window
+    masked, which must be above 0 (the window binds in decode). Returns
+    (launch counts from 0 before the first call, cfg, model)."""
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import build_engine
+
+    cfg, model = moe_model(arch, num_layers=num_layers)
+    eng = build_engine(cfg, model, device="cuda", budget=shape["budget"],
+                       prefill_chunk=shape["chunk"])
+    tokens, _, _ = make_batch("copy", 0, shape["B"], shape["P"],
+                              cfg.vocab_size)
+    label = f"moe {cfg.name} {cfg.num_layers} layers"
+    ops.reset_launches()
+    results = generate_pairs(eng, cfg, tokens, label, shape=shape)
+    launches = dict(ops.LAUNCHES)
+    if cfg.window:
+        t = shape["P"] + shape["N"] - 1          # the last decode step
+        for mode in ("single-shot fused", "chunked fused"):
+            pos = results[mode]["pos"]
+            out = sum(int(((p >= 0) & (t - p >= cfg.window)).sum())
+                      for p in pos)
+            log(f"{label} {mode}: {out} of {sum(p.numel() for p in pos)} "
+                f"kept slots at positions the window {cfg.window} masked "
+                f"in the last decode step (t {t})")
+            check_moe(f"{label} {mode}", {"window never binds": int(not out)})
+    log(f"{label}: graph pool {eng.graphs.bytes / 2**20:.1f} MiB; static "
+        f"decode state {results['chunked fused']['state bytes'] / 2**20:.1f}"
+        f" MiB per batch of {shape['B']}")
+    del eng, results
+    torch.cuda.empty_cache()
+    return launches, cfg, model
+
+
+def moe_stream(cfg, model, n_requests=8, modes=("phased", "interleaved"),
+               no_drop=False):
+    """Continuous batching of an MoE config in bf16: 4 lanes, budget
+    512, chunks 512, segments 16, n_requests from poisson_requests (seed
+    0, prompts 256-1024, max_new 16-48, 8 requests/s), per mode: every
+    request DONE with its max_new tokens, dispatch_count on the formula,
+    the launches the steps imply; prints output tok/s, TTFT p50 / p99,
+    TPOT p50, dispatches and the FFN calls' dropped choices. With
+    no_drop the capacity factor is E / k (a choice is never dropped, so
+    a lane's tokens do not depend on its neighbours) and every
+    request's ids are held against its one-shot run under the streams'
+    margin rule: up to the one-shot's first near tie, CROSS_MARGIN_STEPS
+    bf16 rounding steps at its largest |logit| (MARGIN_TOL's 0.02 is one
+    step below 4; granite's logits reach the next binade). That limit
+    admits what bf16 batch-4 and batch-1 GEMMs round apart; the gate for
+    a wrong lane is moe_parity's exact float32 ids, card against CPU, and
+    planted_faults --moe reads this limit against two lane faults.
+    Returns the phased run's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.request import Status, latency_percentiles
+    from repro_torch.serve.scheduler import Scheduler, warm_up
+
+    if no_drop:
+        cfg = dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
+    L, lanes, tol = cfg.num_layers, 4, math.inf
+    eng = build_engine(cfg, model, device="cuda", budget=512,
+                       prefill_chunk=512, decode_segment=16,
+                       prefill_budget=1024, swap_preempt=False)
+    reqs = poisson_requests(n_requests, 8.0, vocab=cfg.vocab_size,
+                            prompt_lo=256, prompt_hi=1024, new_lo=16,
+                            new_hi=48, seed=0)
+    name = (f"{cfg.name} {L} layers, capacity factor "
+            f"{cfg.moe_capacity_factor:g}")
+    log(f"moe stream {name}: {len(reqs)} requests, prompts "
+        f"{[r.prompt_len for r in reqs]}, max_new "
+        f"{[r.max_new for r in reqs]}")
+    oneshot = ({r.rid: eng.generate(r.prompt[None], r.max_new, chunked=True)
+                for r in reqs} if no_drop else {})
+    if no_drop:
+        top = max(o["logits"][0, :cfg.vocab_size].abs().max().item()
+                  for o in oneshot.values())
+        step = 2.0 ** (math.floor(math.log2(top)) - 7)
+        tol = math.nextafter(CROSS_MARGIN_STEPS * step, math.inf)
+        log(f"  one-shot largest |logit| {top:.3f}: one bf16 rounding step "
+            f"{step:g}; margin limit {CROSS_MARGIN_STEPS} steps")
+    for mode in modes:
+        warm_up(eng, lanes, reqs, interleaved=mode == "interleaved")
+    launches_phased = None
+    for mode in modes:
+        ops.reset_launches()
+        zero_drops(model)
+        eng.dispatch_count = 0
+        sched = Scheduler(eng, n_lanes=lanes,
+                          interleaved=mode == "interleaved")
+        t0 = time.perf_counter()
+        res = sched.run(reqs, respect_arrivals=True)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        if mode == "phased":
+            launches_phased = launches
+        steps = sched.steps_run
+        expect = dict.fromkeys(ops.KERNELS, 0)
+        expect["decode_attention"] = L * (steps["segment"] + steps["mixed"])
+        expect["chunk_attention"] = L * (steps["chunk"] + steps["mixed"])
+        formula = sched.n_prefill_rounds + sched.n_segments + sched.n_resets
+        margin, report = 0.0, []
+        for rid, ref in oneshot.items():
+            got = res[rid].tokens
+            diff = first_divergence(got, ref["ids"][0].tolist())
+            if diff is not None:
+                m = float(ref["margins"][0][:diff + 1].min())
+                margin = max(margin, m)
+                report.append(f"{rid}: at {diff} of {len(got)} (smallest "
+                              f"margin up to it {m:.3e})")
+        drops = layer_drops(model)
+        violations = {
+            "requests not DONE with max_new tokens": sum(
+                res[r.rid].status is not Status.DONE
+                or len(res[r.rid].tokens) != r.max_new for r in reqs),
+            "dispatch_count off the formula": int(
+                eng.dispatch_count != formula),
+            "launches off the schedule": int(launches != expect),
+            "drops at the no-drop factor": sum(drops) if no_drop else 0,
+        }
+        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+        ttft = latency_percentiles([res[r.rid].ttft_sec for r in reqs])
+        tpot = latency_percentiles([res[r.rid].tpot_sec for r in reqs])
+        log(f"moe stream {name} {mode}: {n_tok} tokens in {wall:.3f} s = "
+            f"{n_tok / wall:.1f} output tok/s; TTFT p50 "
+            f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms; "
+            f"TPOT p50 {tpot['p50'] * 1e3:.2f} ms; segments "
+            f"{sched.n_segments}, prefill rounds {sched.n_prefill_rounds}, "
+            f"dispatches {eng.dispatch_count} (formula {formula}); steps "
+            f"{steps}; dropped choices by layer (the warm-up excluded) "
+            f"{drops}; launches {launches}")
+        if no_drop:
+            log(f"  one-shot comparison: {len(report)} of {len(reqs)} "
+                f"requests differ; margin reading {margin:.3e} (limit "
+                f"{tol}): " + ("; ".join(report) if report else "none"))
+        check_stream(f"moe {name} {mode}", violations, margin, tol)
+        sched.close()
+    del eng
+    torch.cuda.empty_cache()
+    return launches_phased
+
+
+def moe_parity(arch, num_layers):
+    """float32 at full width cut to num_layers, one set of weights on the
+    card (kernels) and on the CPU (plain versions): the lane scheduler
+    (3 lanes, budget 64, chunks 64, segments 4, priority order, swap
+    preemption) drains the same 5 requests (prompts 40-150; after the
+    first step a better-ranked one arrives, which swaps a decoding lane
+    out, and one more), phased and interleaved, on both (traced_drain):
+    ids exact, slot positions equal after every step, logits within TOL
+    of the largest |logit|, and every layer's dropped choices equal on
+    both and above 0 (the drop order held on the card). Returns the
+    card's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.request import Request
+
+    cfg, gpu = moe_model(arch, "float32", num_layers=num_layers, seed=80)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    rng = np.random.RandomState(6)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, n),
+                    max_new=m, seed=i, priority=pr)
+            for i, (n, m, pr) in enumerate([(150, 12, 0), (97, 10, 0),
+                                            (64, 9, 0), (40, 6, 3),
+                                            (120, 5, 0)])]
+    serve = dict(budget=64, prefill_chunk=64, decode_segment=4,
+                 sched_policy="priority")
+    L = cfg.num_layers
+    total = dict.fromkeys(ops.KERNELS, 0)
+    for mode, kw in (("phased", {}), ("interleaved", {"interleaved": True})):
+        runs, drops = {}, {}
+        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+            zero_drops(model)
+            eng = build_engine(cfg, model, device=dev, **serve)
+            ops.reset_launches()
+            with torch.no_grad():
+                runs[dev] = traced_drain(eng, 3, reqs[:3], kw, reqs[3:])
+            drops[dev] = layer_drops(model)
+            if dev == "cuda":
+                launches = dict(ops.LAUNCHES)
+                total = {k: total[k] + launches[k] for k in total}
+            del eng
+        res, trace = runs["cuda"]
+        runs["cuda"] = res, [([p.cpu() for p in pos], logits.cpu(),
+                              [a.cpu() for a in aux])
+                             for pos, logits, aux in trace]
+        twins = twin_readings(runs["cuda"], runs["cpu"], cfg.vocab_size)
+        label = f"moe parity {cfg.name} {L} layers float32 {mode}"
+        log(f"{label}: card vs CPU over {len(runs['cpu'][1])} scheduler "
+            f"steps: {twins['ids differ']} requests' ids and "
+            f"{twins['slot positions differ']} slot positions differ, "
+            f"logits |diff| / max |logit| {twins['logit gap']:.3e} (tol "
+            f"{TOL['float32']}); dropped choices by layer: card "
+            f"{drops['cuda']}, CPU {drops['cpu']}; card launches {launches}")
+        check_moe(label, {
+            "requests whose ids differ": twins["ids differ"],
+            "slot positions that differ": twins["slot positions differ"],
+            "logits beyond TOL": int(not twins["logit gap"]
+                                     <= TOL["float32"]),
+            "layers whose drops differ": sum(
+                a != b for a, b in zip(drops["cuda"], drops["cpu"])),
+            "layers without a drop": sum(d == 0 for d in drops["cpu"]),
+            "no launch on the card": int(not launches["decode_attention"]
+                                         or not launches[
+                                             "chunk_attention_f32"]),
+        })
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return total
+
+
+def moe_train():
+    """Three distillation steps of granite-moe-3b-a800m at full width cut
+    to MOE_TRAIN_LAYERS, bf16, batch 1 x 2048 tokens, M 256: exact
+    capacity-kernel launches, finite loss terms, cap > 0, the gates
+    moved and every base weight (the experts and routers included)
+    bit-identical. Returns the launch counts."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, batches
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as T
+    from repro_torch.train import distill
+
+    cfg, model = moe_model("granite-moe-3b-a800m",
+                           num_layers=MOE_TRAIN_LAYERS, seed=90)
+    B, Tn, steps = 1, 2048, 3
+    train_cfg = TrainConfig(seq_len=Tn, capacity_M=256, lambda_cap=1.0)
+    gates = T.gate_parameters(model)
+    gate_ids = {id(p) for p in gates}
+    base = [p for p in model.parameters() if id(p) not in gate_ids]
+    base0 = [p.cpu() for p in base]
+    gates0 = [p.clone() for p in gates]
+    state, opt_cfg = distill.make_train_state(cfg, train_cfg, model)
+    data = batches(DataConfig(batch=B, seq_len=Tn))
+    L = cfg.num_layers
+    expect = dict.fromkeys(ops.KERNELS, 0)
+    expect.update(capacity_loss=2 * L * steps, capacity_loss_bwd=L * steps)
+    ops.reset_launches()
+    secs = []
+    for _ in range(steps):
+        b = next(data)
+        batch = {k: torch.as_tensor(b[k], device="cuda")
+                 for k in ("tokens", "lm_labels")}
+        t0 = time.perf_counter()
+        state, m = distill.train_step(state, batch, cfg=cfg,
+                                      train_cfg=train_cfg, opt_cfg=opt_cfg)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        m = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in m.values()) or m["cap"] <= 0:
+            raise AssertionError(f"moe train step {len(secs) - 1}: {m}")
+        log(f"moe train step {len(secs) - 1}: {secs[-1]:.3f} s, loss "
+            f"{m['loss']:.4f} kl {m['kl']:.4e} ntp {m['ntp']:.4f} cap "
+            f"{m['cap']:.4f} grad_norm {m['grad_norm']:.4e}")
+    launches = dict(ops.LAUNCHES)
+    moved = max((p - q).abs().max().item() for p, q in zip(gates, gates0))
+    check_moe("train", {
+        "launches off the count": int(launches != expect),
+        "base weights changed": sum(not torch.equal(p.cpu(), q)
+                                    for p, q in zip(base, base0)),
+        "gates unmoved": int(not moved > 0)})
+    step_s = sum(secs[1:]) / (steps - 1)
+    log(f"moe train: {cfg.name} {L} layers {cfg.dtype}, batch {B} x {Tn}, "
+        f"M {train_cfg.capacity_M}: launches {launches}; {step_s:.3f} s per "
+        f"step after the first = {B * Tn / step_s:.1f} train tokens/s; "
+        f"largest gate change {moved:.3e}")
+    del state, model, base, base0, gates, gates0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_reference(ffn, x, cfg):
+    """The JAX package's _moe_apply transcribed op by op, independent of
+    blocks.moe_apply: per group, a loop over the top-k columns with an
+    int32 cumsum each (the counts carried), one-hot dispatch and combine
+    tensors [g, E, cap] in the weight dtype, einsums for the experts, the
+    combine summed in float32. Ties in the router are left to
+    torch.topk: the inputs here are random. Returns (out [S, d] in
+    x.dtype, keep [S, k])."""
+    import numpy as np
+    import torch
+    F = torch.nn.functional
+    E, k = cfg.num_experts, cfg.experts_per_token
+    xf = x.reshape(-1, x.shape[-1])
+    S = xf.shape[0]
+    group = min(2048, S)
+    n_groups = S // group if S % group == 0 else 1
+    if S % group != 0:
+        group = S
+    cap = max(int(np.ceil(group * k / E * cfg.moe_capacity_factor)), k)
+    probs = torch.softmax(xf.float() @ ffn.router, dim=-1)
+    top_vals, top_idx = torch.topk(probs, k)
+    top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+    wd = ffn.gate_w.dtype
+    outs, keeps = [], []
+    for gi in range(n_groups):
+        rows = slice(gi * group, (gi + 1) * group)
+        ti, tv, xg = top_idx[rows], top_vals[rows], xf[rows]
+        counts = torch.zeros((E,), dtype=torch.int32, device=x.device)
+        disp = torch.zeros((group, E, cap), dtype=wd, device=x.device)
+        comb = torch.zeros_like(disp)
+        keep = []
+        for j in range(k):
+            oh = F.one_hot(ti[:, j], E).to(torch.int32)
+            pos = torch.cumsum(oh, dim=0, dtype=torch.int32) - 1 + counts
+            ok = (pos < cap) & (oh > 0)
+            pos_oh = F.one_hot(torch.where(ok, pos, cap).long(),
+                               cap + 1)[..., :cap].to(wd)
+            sel = (oh * ok).to(wd)[..., None] * pos_oh
+            disp = disp + sel
+            comb = comb + sel * tv[:, j][:, None, None].to(wd)
+            counts = counts + oh.sum(dim=0, dtype=torch.int32)
+            keep.append(ok.any(dim=-1))
+        xin = torch.einsum("gec,gd->ecd", disp, xg.to(wd))
+        h = F.silu(torch.einsum("ecd,edf->ecf", xin, ffn.gate_w))
+        u = torch.einsum("ecd,edf->ecf", xin, ffn.up_w)
+        eo = torch.einsum("ecf,efd->ecd", h * u, ffn.down_w)
+        outs.append(torch.einsum("gec,ecd->gd", comb.float(),
+                                 eo.float()).to(x.dtype))
+        keeps.append(torch.stack(keep, dim=1))
+    return torch.cat(outs), torch.cat(keeps)
+
+
+def moe_apply_phase():
+    """blocks.moe_apply on the card against moe_reference (the JAX
+    package's op-by-op form), float32, one full-width layer of each MoE
+    config with seeded weights, over a decode step of 4 lanes (3 of them
+    alike, so mixtral's capacity 2 drops), a chunk of 4 x 64 at the
+    config's capacity factor and at 0.5 (drops forced) and 2 x 2048 (two
+    groups): out within TOL (|diff| <= TOL * (1 + |value|)) and the keep
+    masks equal; the drops counted. Counts must be 0 (check_moe)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import blocks
+
+    violations = {}
+    for arch in ("granite-moe-3b-a800m", "mixtral-8x7b"):
+        base = dataclasses.replace(get_config(arch), dtype="float32")
+        g = torch.Generator(device="cuda")
+        g.manual_seed(100)
+        ffn = blocks.MoE(base, dtype=torch.float32, device="cuda",
+                         generator=g)
+        d = base.d_model
+        for name, shape, factor in (
+                ("decode 4 lanes", (4, 1, d), base.moe_capacity_factor),
+                ("chunk 4 x 64", (4, 64, d), base.moe_capacity_factor),
+                ("chunk 4 x 64, factor 0.5", (4, 64, d), 0.5),
+                ("2 x 2048 (two groups)", (2, 2048, d),
+                 base.moe_capacity_factor)):
+            cfg = dataclasses.replace(base, moe_capacity_factor=factor)
+            x = torch.randn(shape, generator=g, device="cuda")
+            if shape[1] == 1:
+                x[1:3] = x[0]
+            with torch.no_grad():
+                got, _, keep = blocks.moe_apply(ffn, x, cfg,
+                                                return_keep=True)
+                want, want_keep = moe_reference(ffn, x, cfg)
+            got = got.reshape(want.shape)
+            err = ((got - want).abs() / (1 + want.abs())).max().item()
+            flips = int((keep.reshape(want_keep.shape) != want_keep).sum())
+            log(f"  moe_apply {arch} float32 {name}: |diff| / (1 + |value|)"
+                f" {err:.3e} (tol {TOL['float32']}), keep flips {flips}, "
+                f"drops {int((~want_keep).sum())} of {want_keep.numel()}")
+            label = f"{arch} {name}"
+            violations[f"{label}: out beyond TOL"] = int(
+                not err <= TOL["float32"])
+            violations[f"{label}: keep flips"] = flips
+        del ffn
+    torch.cuda.empty_cache()
+    check_moe("moe_apply vs reference", violations)
+
+
+def moe_kernel_phase(g):
+    """The attention kernels at granite-moe-3b-a800m's shape, head dim 64
+    with GQA group 3 (Hq 24, Hkv 8; the float32 chunk kernel packs
+    row_plan(C, 3) = 42 positions, 126 of its 128 rows, a CTA), each
+    against its plain version: retention (T 1024 causal, window 96 with
+    log_beta, a ragged q tile), chunk (C 512, M 512: full cache, n_valid
+    1 / 64 / 65 / C with probs) and decode (M 512, a window), bf16 row
+    by row and float32 element by element."""
+    import torch
+    from repro_torch.kernels.chunk_attention import (chunk_attention_cuda,
+                                                     chunk_attention_torch)
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_torch)
+    from repro_torch.kernels.retention_attention import (
+        retention_attention_cuda, retention_attention_torch)
+
+    B, Hq, Hkv, D, M, C, t0 = 4, 24, 8, 64, 512, 512, 1024
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for name, Tq, Tk, off, window, use_beta in (
+                ("T 1024, causal", 1024, 1024, 0, 0, False),
+                ("T 512, log_beta + window 96", 512, 512, 0, 96, True),
+                ("Tq 1023 at q_offset 1", 1023, 1024, 1, 0, False)):
+            q = rnd(g, (B, Tq, Hq, D), dt)
+            k, v = rnd(g, (B, Tk, Hkv, D), dt), rnd(g, (B, Tk, Hkv, D), dt)
+            lb = (-torch.rand((B, Tk, Hkv), generator=g, device="cuda")
+                  * 0.01 if use_beta else None)
+            kw = dict(window=window, q_offset=off)
+            check_case(f"retention {dn} D 64, G 3 {name}",
+                       (retention_attention_cuda(q, k, v, lb, **kw),),
+                       (retention_attention_torch(q, k, v, lb, **kw),), dn)
+        idx = torch.arange(C, device="cuda", dtype=torch.int32)
+        for name, nv, probs in (("full cache", [C] * B, False),
+                                ("n_valid [1, 64, 65, C] + probs",
+                                 [1, 64, 65, C], True)):
+            q = rnd(g, (B, C, Hq, D), dt)
+            kc, vc = rnd(g, (B, C, Hkv, D), dt), rnd(g, (B, C, Hkv, D), dt)
+            ck, cv = rnd(g, (B, Hkv, M, D), dt), rnd(g, (B, Hkv, M, D), dt)
+            cpos = torch.randint(0, t0, (B, Hkv, M), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            nvt = torch.tensor(nv, dtype=torch.int32, device="cuda")
+            cp = torch.where(idx[None] < nvt[:, None], t0 + idx[None],
+                             torch.full_like(idx[None], -1)).contiguous()
+            args = (q, kc, vc, ck, cv, cpos, cp)
+            n = 2 if probs else 1
+            check_case(f"chunk {dn} D 64, G 3 C {C} {name}",
+                       chunk_attention_cuda(*args, need_probs=probs)[:n],
+                       chunk_attention_torch(*args, need_probs=probs)[:n],
+                       dn)
+        for name, window in (("M 512", 0), ("M 512, window 300", 300)):
+            t = torch.tensor([t0, t0 + 7, 600, 900], dtype=torch.int32,
+                             device="cuda")
+            q = rnd(g, (B, Hq, D), dt)
+            ck, cv = rnd(g, (B, Hkv, M, D), dt), rnd(g, (B, Hkv, M, D), dt)
+            cpos = torch.randint(0, 600, (B, Hkv, M), generator=g,
+                                 device="cuda", dtype=torch.int32)
+            kn, vn = rnd(g, (B, Hkv, D), dt), rnd(g, (B, Hkv, D), dt)
+            kw = dict(window=window, new_kv=(kn, vn))
+            check_case(f"decode {dn} D 64, G 3 {name}",
+                       (decode_attention_cuda(q, ck, cv, cpos, t, **kw),),
+                       (decode_attention_torch(q, ck, cv, cpos, t, **kw),),
+                       dn)
+    torch.cuda.empty_cache()
+
+
+def mixtral_kernel_cases(g):
+    """The attention kernels at mixtral-8x7b's main-path shape
+    (MIXTRAL_SHAPE: B 2, a prompt of 4500 in chunks of 1024, M =
+    min(budget, window) = 4096; D 128, Hq 32, Hkv 8, G 4, every layer
+    local with window 4096), where the window binds, each against its
+    plain version in bf16 (row by row, ROW_TOL) and float32 (TOL):
+    retention over the whole prompt with log_beta; chunk at the
+    prompt's last chunk (t0 4096, n_valid [404, C], the cache holding
+    positions 0..4095 in shuffled slots, probs out) and at t0 8192 over
+    random older positions; decode at lane clocks 4515 and 7000 over
+    random positions below them (a share empty) with the new token.
+    Each case's count of (query, key) pairs the window masks among the
+    causally visible ones must be above 0 (check_moe)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.chunk_attention import (chunk_attention_cuda,
+                                                     chunk_attention_torch)
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_torch)
+    from repro_torch.kernels.retention_attention import (
+        retention_attention_cuda, retention_attention_torch)
+
+    cfg, sh = get_config("mixtral-8x7b"), MIXTRAL_SHAPE
+    B, P, C, W = sh["B"], sh["P"], sh["chunk"], cfg.window
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    M = min(sh["budget"], W)
+    label = f"D {D}, G {Hq // Hkv}, window {W}"
+    binds = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        q = rnd(g, (B, P, Hq, D), dt)
+        k, v = rnd(g, (B, P, Hkv, D), dt), rnd(g, (B, P, Hkv, D), dt)
+        lb = -torch.rand((B, P, Hkv), generator=g, device="cuda") * 0.01
+        name = f"retention {dn} {label} T {P}"
+        check_case(name,
+                   (retention_attention_cuda(q, k, v, lb, window=W),),
+                   (retention_attention_torch(q, k, v, lb, window=W),), dn)
+        binds[name] = (P - W) * (P - W + 1) // 2
+        del q, k, v, lb
+        torch.cuda.empty_cache()
+        idx = torch.arange(C, device="cuda", dtype=torch.int32)
+        for t0, nv, probs in ((C * (P // C), [P % C, C], True),
+                              (8192, [C] * B, False)):
+            q = rnd(g, (B, C, Hq, D), dt)
+            kc, vc = rnd(g, (B, C, Hkv, D), dt), rnd(g, (B, C, Hkv, D), dt)
+            ck, cv = rnd(g, (B, Hkv, M, D), dt), rnd(g, (B, Hkv, M, D), dt)
+            if t0 == M:                  # every position below t0, once
+                cpos = torch.rand((B, Hkv, M), generator=g,
+                                  device="cuda").argsort(-1)
+            else:
+                cpos = torch.randint(0, t0, (B, Hkv, M), generator=g,
+                                     device="cuda")
+            cpos = cpos.to(torch.int32)
+            nvt = torch.tensor(nv, dtype=torch.int32, device="cuda")
+            cp = torch.where(idx[None] < nvt[:, None], t0 + idx[None],
+                             torch.full_like(idx[None], -1)).contiguous()
+            args = (q, kc, vc, ck, cv, cpos, cp)
+            n = 2 if probs else 1
+            name = (f"chunk {dn} {label} C {C} M {M} at t0 {t0}, n_valid "
+                    f"{nv}" + (" + probs" if probs else ""))
+            check_case(name,
+                       chunk_attention_cuda(*args, window=W,
+                                            need_probs=probs)[:n],
+                       chunk_attention_torch(*args, window=W,
+                                             need_probs=probs)[:n], dn)
+            dist = cp[:, None, :, None] - cpos[:, :, None, :]
+            binds[name] = int(((cp[:, None, :, None] >= 0)
+                               & (dist >= W)).sum())
+            del q, kc, vc, ck, cv, args, dist
+        t = torch.tensor([P + sh["N"] - 1, 7000], dtype=torch.int32,
+                         device="cuda")
+        q = rnd(g, (B, Hq, D), dt)
+        ck, cv = rnd(g, (B, Hkv, M, D), dt), rnd(g, (B, Hkv, M, D), dt)
+        cpos = (torch.rand((B, Hkv, M), generator=g, device="cuda")
+                * t[:, None, None]).to(torch.int32)
+        empty = torch.rand((B, Hkv, M), generator=g, device="cuda") < 0.05
+        cpos = torch.where(empty, torch.full_like(cpos, -1), cpos)
+        kn, vn = rnd(g, (B, Hkv, D), dt), rnd(g, (B, Hkv, D), dt)
+        kw = dict(window=W, new_kv=(kn, vn))
+        name = f"decode {dn} {label} M {M} at t {t.tolist()}"
+        check_case(name,
+                   (decode_attention_cuda(q, ck, cv, cpos, t, **kw),),
+                   (decode_attention_torch(q, ck, cv, cpos, t, **kw),), dn)
+        binds[name] = int(((cpos >= 0)
+                           & (t[:, None, None] - cpos >= W)).sum())
+        del q, ck, cv, cpos
+        torch.cuda.empty_cache()
+    for n, c in binds.items():
+        log(f"  {n}: {c} (query, key) pairs the window masks")
+    check_moe("kernels at mixtral's shape",
+              {f"{n}: the window never binds": int(not c)
+               for n, c in binds.items()})
+
+
+def moe_phase():
+    """The MoE family on the card: moe_apply against its op-by-op
+    reference (moe_apply_phase), granite-moe-3b-a800m in bf16 at full
+    width and depth (one-shot pairs, the 4-lane stream phased and
+    interleaved, the same stream at the no-drop factor against one-shot
+    runs), mixtral-8x7b in bf16 at full width cut to MIXTRAL_LAYERS
+    (one-shot pairs with a prompt above the window, a phased stream),
+    float32 card-vs-CPU scheduler parity of both (granite 2 layers,
+    mixtral 1); granite's gate training is moe_train. Returns the launch
+    counts of its main paths: the bf16 one-shot calls and phased
+    streams and the float32 parity runs on the card."""
+    import torch
+    total = None
+
+    def add(launches):
+        nonlocal total
+        total = dict(launches) if total is None else {
+            k: total[k] + launches[k] for k in total}
+
+    with timed("moe_apply vs reference"):
+        moe_apply_phase()
+    with timed("moe granite one-shot"):
+        launches, cfg, model = moe_oneshot("granite-moe-3b-a800m")
+        add(launches)
+    with timed("moe granite stream"):
+        add(moe_stream(cfg, model))
+    with timed("moe granite stream, no drops"):
+        moe_stream(cfg, model, modes=("phased",), no_drop=True)
+    del model
+    torch.cuda.empty_cache()
+    with timed("moe mixtral one-shot"):
+        launches, cfg, model = moe_oneshot(
+            "mixtral-8x7b", num_layers=MIXTRAL_LAYERS, shape=MIXTRAL_SHAPE)
+        add(launches)
+    with timed("moe mixtral stream"):
+        add(moe_stream(cfg, model, n_requests=6, modes=("phased",)))
+    del model
+    torch.cuda.empty_cache()
+    with timed("moe float32 parity"):
+        add(moe_parity("granite-moe-3b-a800m", 2))
+        add(moe_parity("mixtral-8x7b", 1))
+    return total
+
+
 # -------------------------------------------------------------- train
 
 
@@ -3532,6 +4211,10 @@ def main() -> int:
         log("kernels at the cross families' shapes:")
         cross_kernel_phase(g)
         torch.cuda.empty_cache()
+        log("kernels at granite-moe-3b-a800m's shape (D 64, G 3):")
+        moe_kernel_phase(g)
+        log("kernels at mixtral-8x7b's shape (D 128, G 4, window 4096):")
+        mixtral_kernel_cases(g)
     with timed("capacity"):
         kernels += capacity_phase(g)
     torch.cuda.empty_cache()
@@ -3579,6 +4262,12 @@ def main() -> int:
                   "retention_attention", "chunk_attention_f32",
                   "retention_attention_f32"):
             launches[k] += cross[k]
+        # the MoE family (granite-moe-3b-a800m, mixtral-8x7b)
+        moe = moe_phase()
+        for k in ("decode_attention", "chunk_attention",
+                  "retention_attention", "chunk_attention_f32",
+                  "retention_attention_f32"):
+            launches[k] += moe[k]
     # the float32 attention kernels' path is the float32 parity runs
     for policy, _ in POLICY_BUDGETS:
         with timed(f"parity float32 {policy}"):
@@ -3589,7 +4278,9 @@ def main() -> int:
         parity_phase("bfloat16")
     with timed("train"):
         train_launches = train_phase({k["name"]: k["ms"] for k in kernels})
-    launches.update({k: train_launches[k]
+    with timed("moe train"):
+        moe_train_launches = moe_train()
+    launches.update({k: train_launches[k] + moe_train_launches[k]
                      for k in ("capacity_loss", "capacity_loss_bwd")})
     with timed("train parity"):
         train_parity_phase()

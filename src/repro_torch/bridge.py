@@ -9,9 +9,11 @@ holds the num_layers % U layers after them. Dense weights are
 [in, out] there and [out, in] in ``nn.Linear``. The cross families add
 ``vis_proj`` (vlm) or ``encoder`` ({"layers": a 1-tuple of global
 blocks stacked over encoder_layers, "final_norm"}, encdec), and a cross
-block's ``normx``, ``xattn`` and ``xgate``. A cross layer's memory slab
-is [B, S, Hkv, D] in the JAX decode state and [B, Hkv, S, D] in the
-port's.
+block's ``normx``, ``xattn`` and ``xgate``. An MoE block's ``ffn`` is
+{"router": {"w": [d, E]}, "gate_w", "up_w": [E, d, f], "down_w":
+[E, f, d]}, the port's layout too (nothing is transposed). A cross
+layer's memory slab is [B, S, Hkv, D] in the JAX decode state and
+[B, Hkv, S, D] in the port's.
 """
 from __future__ import annotations
 
@@ -87,8 +89,13 @@ def _copy_block(block, p):
     _copy(block.norm2.scale, p["norm2"]["scale"])
     for name in ("wq", "wk", "wv", "wo"):
         _copy_dense(getattr(block.attn, name), p["attn"][name])
-    for name in ("gate", "up", "down"):
-        _copy_dense(getattr(block.ffn, name), p["ffn"][name])
+    if "router" in p["ffn"]:
+        _copy(block.ffn.router, p["ffn"]["router"]["w"])
+        for name in ("gate_w", "up_w", "down_w"):
+            _copy(getattr(block.ffn, name), p["ffn"][name])
+    else:
+        for name in ("gate", "up", "down"):
+            _copy_dense(getattr(block.ffn, name), p["ffn"][name])
     if block.kind == "cross":
         _copy(block.normx.scale, p["normx"]["scale"])
         for name in ("wq", "wk", "wv", "wo"):

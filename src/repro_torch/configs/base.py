@@ -204,10 +204,12 @@ ARCH_IDS = (
 )
 
 # architectures whose config module the port carries: the dense GQA
-# configs of head dim 128 and the two cross-memory families
+# configs of head dim 128, the two cross-memory families and the two
+# MoE configs
 PORTED_ARCHS = ("trimkv-paper-4b", "qwen2.5-14b", "codeqwen1.5-7b",
                 "minitron-8b", "llama-3.2-vision-90b",
-                "seamless-m4t-large-v2")
+                "seamless-m4t-large-v2", "granite-moe-3b-a800m",
+                "mixtral-8x7b")
 # why an architecture the port carries no config of is refused
 _REFUSED = {
     "gemma3-12b": "its head dim 256 exceeds what the prefill kernels take "

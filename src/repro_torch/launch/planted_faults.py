@@ -14,6 +14,8 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --cross
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --moe
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
 kernel source), LANE_FAULTS (one to the lane layer; --lanes runs the
@@ -24,6 +26,8 @@ quarantine path; --lifecycle runs the sound build and these alone) and
 REUSE_FAULTS (one to the prefix cache or speculative decoding; --reuse
 runs the sound build and these alone) and CROSS_FAULTS (one to the head
 dim 64 tensor-core kernels or the cross lanes' reset; --cross runs the
+sound build and these alone) and MOE_FAULTS (one to the MoE FFN's
+routing or to the lanes under the no-drop MoE stream; --moe runs the
 sound build and these alone) it
 copies src/repro_torch and chip_smoke.py into a temporary directory,
 applies the change, and runs,
@@ -53,8 +57,11 @@ the reuse phase (chip_smoke.reuse_phase, computing its spec_k 0
 baseline itself) its counts (limit 0; inf when it raised), the cross
 kernel phase (chip_smoke.cross_kernel_phase) its row-relative and
 float32 errors, and the cross lanes (chip_smoke.cross_lanes_float32,
-both families) their counts (limit 0; inf when they raised); the
-script prints
+both families) their counts (limit 0; inf when they raised), and
+moe_apply against its op-by-op reference (chip_smoke.moe_apply_phase)
+its counts (limit 0), and the no-drop granite stream
+(chip_smoke.moe_stream) its counts (limit 0) and its one-shot margin
+reading (against CROSS_MARGIN_STEPS bf16 steps); the script prints
 every reading beside its limit, the largest reading of the sound build
 per kind, and exits non-zero unless the sound build stays within every
 limit and each fault exceeds at least one.
@@ -261,9 +268,44 @@ CROSS_FAULTS = [
      "        cache[\"mem_len\"].masked_fill_(lane_mask, 0)\n", "",
      ("cross",)),
 ]
+# faults in the MoE FFN's routing (models/blocks.py, read by
+# chip_smoke.moe_apply_phase: moe_apply against the JAX package's
+# op-by-op form on the card) and two lane faults read by the no-drop
+# granite stream ("moe-stream": chip_smoke.moe_stream(no_drop=True),
+# its ids against one-shot runs under CROSS_MARGIN_STEPS); --moe runs
+# the sound build and these alone
+MOE_FAULTS = [
+    ("moe: the top-k probabilities are not renormalised", "models/blocks.py",
+     "    return probs, top_idx, top_vals / top_vals.sum(dim=-1, "
+     "keepdim=True)", "    return probs, top_idx, top_vals", ("moe",)),
+    ("moe: one cumsum over each token's k choices in token order (not "
+     "column by column)", "models/blocks.py",
+     "    cols = top_idx.reshape(n_groups, g, k).transpose(1, 2)   # [n,k,g]"
+     "\n    cols = cols.reshape(n_groups, 1, k * g)\n"
+     "    experts = torch.arange(E, device=top_idx.device)[None, :, None]\n"
+     "    pos = torch.cumsum(cols == experts, dim=-1, dtype=torch.int32) - 1"
+     "\n    pos = pos.gather(1, cols)[:, 0]                           # "
+     "[n,k*g]\n    return pos.reshape(n_groups, k, g).transpose(1, 2)"
+     ".reshape(S, k)",
+     "    cols = top_idx.reshape(n_groups, 1, g * k)\n"
+     "    experts = torch.arange(E, device=top_idx.device)[None, :, None]\n"
+     "    pos = torch.cumsum(cols == experts, dim=-1, dtype=torch.int32) - 1"
+     "\n    pos = pos.gather(1, cols)[:, 0]\n    return pos.reshape(S, k)",
+     ("moe",)),
+    ("moe lanes: an inactive lane not frozen (the active mask dropped "
+     "from cache_insert)", "core/cache.py",
+     "        write = write & active[:, None]\n", "        write = write\n",
+     ("moe-stream",)),
+    ("moe lanes: the chunk program's n_valid buffer replaced, not "
+     "refreshed", "serve/graphs.py",
+     "                self.cnv.copy_(nv_dev[i])\n",
+     "                self.__dict__.setdefault(\"_held\", []).append("
+     "self.cnv)\n"
+     "                self.cnv = nv_dev[i].clone()\n", ("moe-stream",)),
+]
 SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
          "serve", "policy", "stream-policies", "lifecycle", "reuse",
-         "cross-kernels", "cross")
+         "cross-kernels", "cross", "moe", "moe-stream")
 
 
 def child(phases):
@@ -444,6 +486,37 @@ def child(phases):
                 readings.append({"case": f"cross {arch}", "kind": "raised",
                                  "reading": math.inf, "limit": 0.0})
             torch.cuda.empty_cache()
+    if "moe" in phases:
+        def record_moe(name, violations):
+            for kind, n in violations.items():
+                readings.append({"case": f"moe {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+
+        cs.check_moe = record_moe
+        cs.moe_apply_phase()
+        torch.cuda.empty_cache()
+    if "moe-stream" in phases:
+        def record_moe_stream(name, violations, margin=0.0, tol=math.inf):
+            for kind, n in violations.items():
+                readings.append({"case": f"stream {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+            readings.append({"case": f"stream {name}", "kind": "margin",
+                             "reading": margin, "limit": tol})
+
+        cs.check_stream = record_moe_stream
+        try:
+            with torch.no_grad():
+                cfg, model = cs.moe_model("granite-moe-3b-a800m")
+                cs.moe_stream(cfg, model, modes=("phased",), no_drop=True)
+        except (AssertionError, RuntimeError) as e:
+            print(f"stream moe: {str(e).splitlines()[0]}")
+            readings.append({"case": "stream moe phase", "kind": "raised",
+                             "reading": math.inf, "limit": 0.0})
+            if not isinstance(e, AssertionError):
+                # the card's context may be lost: report what was read
+                print(json.dumps(readings), flush=True)
+                os._exit(0)
+        torch.cuda.empty_cache()
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -488,21 +561,23 @@ def run(fault, phases):
     lines = proc.stdout.strip().splitlines()
     return json.loads(lines[-1]), [x for x in lines if x.startswith(
         ("parity", "capacity:", "stream", "serve", "policy", "Table",
-         "lifecycle", "reuse", "cross"))]
+         "lifecycle", "reuse", "cross", "  moe_apply", "moe stream",
+         "  one-shot comparison"))]
 
 
 def main(only: str | None = None) -> int:
     """only: None (every fault), "--lanes", "--policies", "--lifecycle",
-    "--reuse" or "--cross"."""
+    "--reuse", "--cross" or "--moe"."""
     ok = True
     faults, sound = {
         None: (FAULTS + LANE_FAULTS + POLICY_FAULTS + LIFECYCLE_FAULTS
-               + REUSE_FAULTS + CROSS_FAULTS, SOUND),
+               + REUSE_FAULTS + CROSS_FAULTS + MOE_FAULTS, SOUND),
         "--lanes": (LANE_FAULTS, ("stream", "serve")),
         "--policies": (POLICY_FAULTS, ("policy", "stream-policies")),
         "--lifecycle": (LIFECYCLE_FAULTS, ("lifecycle",)),
         "--reuse": (REUSE_FAULTS, ("reuse",)),
         "--cross": (CROSS_FAULTS, ("cross-kernels", "cross")),
+        "--moe": (MOE_FAULTS, ("moe", "moe-stream")),
     }[only]
     for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"

@@ -2,10 +2,13 @@
 device busy time, for the eager step and for its CUDA graph.
 
     PYTHONPATH=src python3 -m repro_torch.launch.profile_decode \
-        [--policy h2o] [--budget 512] [--temperature 0.8]
+        [--policy h2o] [--budget 512] [--temperature 0.8] \
+        [--arch granite-moe-3b-a800m] [--smoke] [--layers 8]
 
-Needs one CUDA card. Builds trimkv-paper-4b at full width (36 layers,
-bf16, random weights from a seed), prefills batch 4 x 2000 tokens in
+Needs one CUDA card. Builds --arch (default trimkv-paper-4b; a dense
+or MoE architecture, its smoke config with --smoke, cut to --layers)
+at full width (bf16, random weights from a seed), prefills batch 4 x
+2000 tokens in
 chunks of 512 under --budget (default 512) and --policy (default
 trimkv; h2o, snapkv and rkv decode through the kernel's probabilities
 and their aux update), then, for the eager decode step
@@ -30,6 +33,12 @@ key split, gumbel noise over [4, Vp] and argmax, core.prng, captured in
 the same graph) is measured after the greedy one, so its busy time and
 top kernels stand beside the greedy step's.
 
+For an MoE architecture it then prints layer 0's FFN over the step's
+[4, 1, d] split into router, dispatch, experts and combine, each
+replayed alone as a CUDA graph, beside the whole moe_apply and the
+decode kernel's own device time from the graph step's trace
+(profiling.print_moe_stages).
+
 When enqueue and wall are equal and the idle share is high, decode is
 bound by the host's launches, not by the card.
 """
@@ -41,12 +50,13 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
 from repro_torch.core import prng
 from repro_torch.core.policies import POLICIES
 from repro_torch.data.synthetic import make_batch
-from repro_torch.launch.profiling import device_kernels
+from repro_torch.launch.profiling import (add_arch_args, arch_config,
+                                          device_kernels, print_moe_stages)
 from repro_torch.models import transformer as T
+from repro_torch.models.blocks import is_moe
 from repro_torch.serve.engine import build_engine
 
 B, PROMPT, CHUNK, STEPS = 4, 2000, 512, 8
@@ -97,6 +107,9 @@ def measure(name, run, replays, budget):
         ms = e.self_device_time_total / 1e3 / STEPS
         print(f"  {ms:10.4f} ms/step {e.count / STEPS:8.1f} x/step  "
               f"{e.key[:90]}")
+    attn = sum(e.self_device_time_total for e in kernels
+               if "decode_split_kernel" in e.key) / 1e3 / STEPS
+    print(f"  the decode kernel: {attn:.4f} ms/step")
 
 
 @torch.no_grad()
@@ -107,8 +120,9 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0,
                     help="also measure the sampled step program at this "
                          "temperature")
+    add_arch_args(ap)
     args = ap.parse_args(argv)
-    cfg = get_config("trimkv-paper-4b")
+    cfg = arch_config(args)
     model = T.init_params(cfg, seed=0, device="cuda")
     T.init_gate_params(model, cfg, seed=1)
     eng = build_engine(cfg, model, device="cuda", budget=args.budget,
@@ -143,6 +157,9 @@ def main(argv=None):
 
         measure(f"graph sampled (T {args.temperature})", sampled,
                 lambda: eng.graphs.replays, args.budget)
+    if is_moe(cfg):
+        print_moe_stages(model, cfg, (B, 1, cfg.d_model),
+                         "decode step", cfg.num_layers)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,13 @@
 """Where prefill's time goes on the card: wall time against device busy
 time, and the operators that take it.
 
-    PYTHONPATH=src python3 -m repro_torch.launch.profile_prefill
+    PYTHONPATH=src python3 -m repro_torch.launch.profile_prefill \
+        [--arch granite-moe-3b-a800m] [--smoke] [--layers 8]
 
-Needs one CUDA card. Builds trimkv-paper-4b at full width (36 layers,
-bf16, random weights from a seed) and, for single-shot prefill and for
+Needs one CUDA card. Builds --arch (default trimkv-paper-4b; a dense
+or MoE architecture, its smoke config with --smoke, cut to --layers)
+at full width (bf16, random weights from a seed) and, for single-shot
+prefill and for
 chunked prefill (chunks of 512) eager and as the chunk program's CUDA
 graph (one replay per chunk; what Engine.prefill runs when fused), of
 batch 4 x 2000 tokens under budget 512:
@@ -20,18 +23,24 @@ batch 4 x 2000 tokens under budget 512:
    time. Where the trace shows no kernel of a replayed graph, busy is
    read from CUDA events around the call instead (an upper bound), and
    the script says so.
+
+For an MoE architecture it then prints layer 0's FFN over a chunk's
+[4, 512, d] and over the single-shot [4, 2000, d], split into router,
+dispatch, experts and combine (profiling.print_moe_stages).
 """
 from __future__ import annotations
 
+import argparse
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.configs import get_config
 from repro_torch.data.synthetic import make_batch
-from repro_torch.launch.profiling import device_kernels
+from repro_torch.launch.profiling import (add_arch_args, arch_config,
+                                          device_kernels, print_moe_stages)
 from repro_torch.models import transformer as T
+from repro_torch.models.blocks import is_moe
 from repro_torch.serve.engine import build_engine
 
 B, PROMPT, BUDGET, CHUNK = 4, 2000, 512, 512
@@ -88,8 +97,10 @@ def profile_mode(eng, tokens, chunked: bool, fused: bool):
 
 
 @torch.no_grad()
-def main():
-    cfg = get_config("trimkv-paper-4b")
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    add_arch_args(ap)
+    cfg = arch_config(ap.parse_args(argv))
     model = T.init_params(cfg, seed=0, device="cuda")
     T.init_gate_params(model, cfg, seed=1)
     eng = build_engine(cfg, model, device="cuda", budget=BUDGET,
@@ -100,6 +111,11 @@ def main():
           f"{torch.cuda.get_device_name(0)}")
     for chunked, fused in ((False, False), (True, False), (True, True)):
         profile_mode(eng, tokens, chunked, fused)
+    if is_moe(cfg):
+        print_moe_stages(model, cfg, (B, CHUNK, cfg.d_model),
+                         "chunk replay", cfg.num_layers)
+        print_moe_stages(model, cfg, (B, PROMPT, cfg.d_model),
+                         "single-shot prefill", cfg.num_layers)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,10 @@
-"""Transformer blocks of the dense and cross-memory families: init,
+"""Transformer blocks of the dense, MoE and cross-memory families: init,
 state and apply in prefill, chunked-prefill, decode and training modes.
 
 Ported from ``repro/models/blocks.py`` for the kinds "global" and
-"local" (self-attention + FFN, ``DenseBlock``) and "cross"
+"local" (self-attention + FFN, ``DenseBlock``; the FFN is the SwiGLU
+``MLP``, or for the moe family the top-k expert FFN ``MoE`` run by
+``moe_apply``) and "cross"
 (self-attention + tanh-gated cross-attention to a memory + FFN,
 ``CrossBlock``: the vision layers of the vlm family and the decoder
 layers of the encdec family). A block is an ``nn.Module`` holding its
@@ -46,6 +48,158 @@ CACHE_LEAVES = ("k", "v", "beta", "pos", "aux")
 MEMORY_LEAVES = ("xk", "xv", "mem_len")
 
 
+class MoE(nn.Module):
+    """The moe family's FFN, as ``init_ffn`` lays it out: a float32
+    router [d, E] and SwiGLU experts gate_w, up_w [E, d, f] and down_w
+    [E, f, d] in the config's dtype, N(0, 1) / sqrt(fan-in) from
+    ``generator``. Every moe_apply adds its dropped (token, choice) pairs
+    to ``drops``, a device counter that a CUDA graph replay keeps adding
+    to (zero it to count from a point on)."""
+
+    def __init__(self, cfg, *, dtype, device, generator):
+        super().__init__()
+        E, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+
+        def normal(shape, fan_in, dt):
+            w = torch.empty(shape, dtype=torch.float32, device=device)
+            w.normal_(0.0, 1.0, generator=generator)
+            return nn.Parameter((w / np.sqrt(fan_in)).to(dt))
+
+        self.router = normal((d, E), d, torch.float32)
+        self.gate_w = normal((E, d, f), d, dtype)
+        self.up_w = normal((E, d, f), d, dtype)
+        self.down_w = normal((E, f, d), f, dtype)
+        self.register_buffer("drops", torch.zeros((), dtype=torch.int64,
+                                                  device=device))
+
+
+def is_moe(cfg) -> bool:
+    return cfg.family == "moe" and cfg.num_experts > 0
+
+
+def moe_capacity(cfg, S: int):
+    """(group, n_groups, cap) of an MoE call over S tokens, as the JAX
+    package's _moe_apply splits them: groups of min(2048, S) tokens, or
+    one group of S when that does not divide, and an expert capacity of
+    max(ceil(group * k / E * moe_capacity_factor), k) per group."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    group = min(2048, S)
+    if S % group != 0:
+        group = S
+    cap = int(np.ceil(group * k / E * cfg.moe_capacity_factor))
+    return group, S // group, max(cap, k)
+
+
+def moe_route(router, xf, k: int):
+    """The router of S tokens xf [S, d], in float32 (TF32 is off on the
+    card): (probs [S, E], the top-k experts [S, k] with ties to the
+    lower index as jax.lax.top_k breaks them, their renormalised
+    probabilities [S, k])."""
+    probs = torch.softmax(xf.float() @ router, dim=-1)
+    top_idx = torch.sort(probs, dim=-1, descending=True,
+                         stable=True).indices[:, :k]
+    top_vals = probs.gather(1, top_idx)
+    return probs, top_idx, top_vals / top_vals.sum(dim=-1, keepdim=True)
+
+
+def moe_positions(top_idx, n_groups: int, E: int):
+    """Each (token, choice)'s slot in its expert's queue, per group:
+    [S, k] int32. A group's choices are queued column by column (every
+    token's first choice in token order, then every second choice, ...),
+    each expert's count carried from one column to the next: the JAX
+    package's int32 cumsum per column, as one cumsum per expert over the
+    column-major order (along the last axis, where the card's scan is
+    fast)."""
+    S, k = top_idx.shape
+    g = S // n_groups
+    cols = top_idx.reshape(n_groups, g, k).transpose(1, 2)   # [n,k,g]
+    cols = cols.reshape(n_groups, 1, k * g)
+    experts = torch.arange(E, device=top_idx.device)[None, :, None]
+    pos = torch.cumsum(cols == experts, dim=-1, dtype=torch.int32) - 1
+    pos = pos.gather(1, cols)[:, 0]                           # [n,k*g]
+    return pos.reshape(n_groups, k, g).transpose(1, 2).reshape(S, k)
+
+
+def moe_dispatch(ffn: MoE, xf, top_idx, cfg):
+    """Queue each (token, choice) in its expert per group and gather the
+    kept ones: (keep [S, k] bool, slot [S, k]: the choice's row in the
+    experts' [E * n_groups * cap] rows, xin [E, n_groups * cap, d] in
+    the weight dtype, an empty slot a zero row). A choice is kept when
+    its place in its expert's queue (moe_positions) is below the
+    capacity; a dropped one points at a dump row past the end."""
+    S, d = xf.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    group, n_groups, cap = moe_capacity(cfg, S)
+    pos = moe_positions(top_idx, n_groups, E)
+    keep = pos < cap
+    grp = (torch.arange(S, device=xf.device) // group)[:, None]
+    slot = torch.where(keep, (top_idx * n_groups + grp) * cap + pos,
+                       E * n_groups * cap)
+    src = torch.full((E * n_groups * cap + 1,), S, dtype=torch.int64,
+                     device=xf.device)
+    src.scatter_(0, slot.reshape(-1),
+                 torch.arange(S, device=xf.device).repeat_interleave(k))
+    wdtype = ffn.gate_w.dtype
+    xz = torch.cat([xf.to(wdtype), xf.new_zeros((1, d), dtype=wdtype)])
+    return keep, slot, xz[src[:-1]].reshape(E, n_groups * cap, d)
+
+
+def moe_experts(ffn: MoE, xin):
+    """Every expert's SwiGLU over its slots xin [E, R, d] (batched
+    matmuls in the weight dtype): [E, R, d]."""
+    h = torch.nn.functional.silu(torch.bmm(xin, ffn.gate_w))
+    return torch.bmm(h * torch.bmm(xin, ffn.up_w), ffn.down_w)
+
+
+def moe_combine(eo, keep, slot, top_vals, dtype):
+    """Each token's kept choices' expert rows, weighted by their
+    renormalised probabilities rounded to the weight dtype, summed in
+    float32 and cast to ``dtype``: [S, d]."""
+    w = torch.where(keep, top_vals.to(eo.dtype).float(),
+                    torch.zeros_like(top_vals))
+    rows = eo.reshape(-1, eo.shape[-1])[torch.where(keep, slot, 0)]
+    return (rows.float() * w[..., None]).sum(dim=1).to(dtype)
+
+
+def moe_apply(ffn: MoE, x, cfg, *, return_keep=False):
+    """GShard top-k dispatch with an expert capacity per group: the plain
+    PyTorch counterpart of the JAX package's _moe_apply (XLA einsums
+    there, no Pallas kernel). x: [..., d], its leading axes flattened in
+    order into the S tokens the capacity is shared by. Returns (out
+    [..., d] in x.dtype, the Switch aux E * sum(mean(probs) *
+    mean(onehot(top1))) float32), and with return_keep the keep mask
+    [..., k] (False: the choice overflowed its expert and is dropped).
+
+    Four stages: the router (moe_route), the dispatch of the kept
+    choices into [E, n_groups * cap, d] (moe_dispatch), the experts
+    (moe_experts) and the combine (moe_combine), which compute what the
+    JAX package's one-hot dispatch and combine in the weight dtype
+    compute. No [g, E, cap] tensor is built, every shape is static and
+    nothing leaves the device, so the step programs capture it."""
+    shape = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    xf = x.reshape(-1, shape[-1])
+    probs, top_idx, top_vals = moe_route(ffn.router, xf, k)
+    me = probs.mean(dim=0)
+    ce = torch.nn.functional.one_hot(top_idx[:, 0], E).float().mean(dim=0)
+    aux = E * (me * ce).sum()
+    keep, slot, xin = moe_dispatch(ffn, xf, top_idx, cfg)
+    out = moe_combine(moe_experts(ffn, xin), keep, slot, top_vals,
+                      x.dtype).reshape(shape)
+    ffn.drops += (~keep).sum()
+    if return_keep:
+        return out, aux, keep.reshape(shape[:-1] + (k,))
+    return out, aux
+
+
+def ffn_apply(ffn, x, cfg):
+    """The block FFN over x [..., d]: (out, router aux; None without
+    experts)."""
+    if isinstance(ffn, MoE):
+        return moe_apply(ffn, x, cfg)
+    return mlp_apply(ffn, x), None
+
+
 def _require_ported(kind: str):
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
@@ -74,8 +228,9 @@ class Attention(nn.Module):
 
 
 class DenseBlock(nn.Module):
-    """Pre-norm self-attention + SwiGLU FFN, with an optional retention
-    gate (``gate``) that scores the keys this block caches."""
+    """Pre-norm self-attention + FFN (SwiGLU, or the moe family's
+    experts), with an optional retention gate (``gate``) that scores the
+    keys this block caches."""
 
     def __init__(self, cfg, kind: str, *, device, generator):
         super().__init__()
@@ -85,8 +240,10 @@ class DenseBlock(nn.Module):
         self.norm1 = RMSNorm(cfg.d_model, device=device)
         self.attn = Attention(cfg, dtype, device, generator)
         self.norm2 = RMSNorm(cfg.d_model, device=device)
-        self.ffn = MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device,
-                       generator=generator)
+        self.ffn = (MoE(cfg, dtype=dtype, device=device, generator=generator)
+                    if is_moe(cfg) else
+                    MLP(cfg.d_model, cfg.d_ff, dtype=dtype, device=device,
+                        generator=generator))
         self.gate = None
 
 
@@ -231,8 +388,12 @@ def _beta(block, cfg, normed):
 
 
 def _ffn_residual(block, cfg, x):
-    return x + mlp_apply(block.ffn, rmsnorm_apply(block.norm2.scale, x,
-                                                  cfg.norm_eps))
+    """(x + FFN(norm2(x)), router aux or None). The FFN sees exactly the
+    rows the JAX package's _ffn_apply sees (a decode step's [B, d] is
+    its [B, 1, d]): expert capacity couples them."""
+    out, aux = ffn_apply(block.ffn, rmsnorm_apply(block.norm2.scale, x,
+                                                  cfg.norm_eps), cfg)
+    return x + out, aux
 
 
 def _select_rows(mask, new, old):
@@ -295,7 +456,7 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
         block.xattn, cfg, n, cache, t))
     sig = ({"k": k_t, "v": v_t, "beta": beta_t, "pkv": pkv,
             "auxn": aux_new} if return_sig else None)
-    return _ffn_residual(block, cfg, x), cache, sig
+    return _ffn_residual(block, cfg, x)[0], cache, sig
 
 
 # ============================================ block: speculative verify
@@ -329,6 +490,11 @@ def apply_block_verify(block: DenseBlock, cfg, x, state, t, *, policy,
     holds the slot cache only: a cross layer's memory is read-only at
     decode, so its positions read the state's slab."""
     B, C, _ = x.shape
+    if is_moe(cfg):
+        raise ValueError(
+            "speculative verify is unsupported for MoE blocks: expert "
+            "capacity couples tokens across the [B, C] grid, so "
+            "speculative scoring cannot be bit-identical per row")
     if live is None:
         live = torch.ones((B,), dtype=torch.bool, device=x.device)
     if scratch is None:
@@ -402,7 +568,7 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
     x = x + dense_apply(block.attn.wo, out.reshape(B, T, cfg.q_dim))
     x = _cross_residual(block, cfg, x, lambda n: cross_attn_apply(
         block.xattn, cfg, n, state["xk"], state["xv"], state["mem_len"]))
-    return _ffn_residual(block, cfg, x), {**cache, **_memory(state)}, None
+    return _ffn_residual(block, cfg, x)[0], {**cache, **_memory(state)}, None
 
 
 def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
@@ -459,7 +625,7 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
     x = x + dense_apply(block.attn.wo, out.reshape(B, C, cfg.q_dim))
     x = _cross_residual(block, cfg, x, lambda n: cross_attn_apply(
         block.xattn, cfg, n, state["xk"], state["xv"], state["mem_len"]))
-    return _ffn_residual(block, cfg, x), {**cache, **_memory(state)}, None
+    return _ffn_residual(block, cfg, x)[0], {**cache, **_memory(state)}, None
 
 
 def _obs_probs(q_obs, k, positions, obs_start, window):
@@ -557,10 +723,11 @@ def self_attn_train(block: DenseBlock, cfg, x, *, gated, cap_M,
 
 def apply_block_train(block: DenseBlock, cfg, x, *, gated=False,
                       cap_M=None, causal=True, kv_positions=None):
-    """Training forward of a dense block over x [B, T, d] (with
+    """Training forward of a dense or MoE block over x [B, T, d] (with
     causal=False and kv_positions: an encoder layer). Returns (x_out,
-    cap): the block's capacity loss, zero when not gated. Cross blocks
-    train with their family (ROADMAP queue 1)."""
+    cap, router): the block's capacity loss, zero when not gated, and
+    its MoE router aux, zero without experts. Cross blocks train with
+    their family (ROADMAP queue 1)."""
     if block.kind not in DENSE_KINDS:
         raise NotImplementedError(
             f"training a {block.kind!r} block is not ported to repro_torch "
@@ -569,4 +736,7 @@ def apply_block_train(block: DenseBlock, cfg, x, *, gated=False,
     attn_out, cap = self_attn_train(block, cfg, x, gated=gated, cap_M=cap_M,
                                     causal=causal,
                                     kv_positions=kv_positions)
-    return _ffn_residual(block, cfg, x + attn_out), cap
+    x, router = _ffn_residual(block, cfg, x + attn_out)
+    if router is None:
+        router = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, cap, router

@@ -1,11 +1,11 @@
-"""The model stack of the dense and cross-memory families: init,
+"""The model stack of the dense, MoE and cross-memory families: init,
 logits, decode state, the cross-attention memory (vision projection or
 encoder, install_memory), single-shot and chunked prefill, decode,
 sampling, speculative verify rounds, the token loops and the training
 forward.
 
-Ported from ``repro/models/transformer.py`` (the dense, vlm and encdec
-families). The model is a ``Transformer`` module holding its blocks in
+Ported from ``repro/models/transformer.py`` (the dense, moe, vlm and
+encdec families). The model is a ``Transformer`` module holding its blocks in
 order (and, for encdec, its encoder); the JAX package's scans over
 layers become Python loops, and its scans over tokens and chunks become
 loops over step functions (``serve.graphs`` captures the steps as CUDA
@@ -70,7 +70,7 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
-FAMILIES = ("dense", "vlm", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "encdec")
 # the extra_inputs key that carries a cross family's memory
 MEM_KEYS = {"vlm": "vision_embeds", "encdec": "source_embeds"}
 
@@ -163,8 +163,8 @@ def _encoder_forward(model: Transformer, cfg, source_embeds, mem_len=None):
         kv_positions = torch.where(iota < mem_len[:, None], iota, -1)
     h = source_embeds
     for block in model.encoder:
-        h, _ = blocks.apply_block_train(block, cfg, h, causal=False,
-                                        kv_positions=kv_positions)
+        h, _, _ = blocks.apply_block_train(block, cfg, h, causal=False,
+                                           kv_positions=kv_positions)
     return rmsnorm_apply(model.encoder_norm.scale, h, cfg.norm_eps)
 
 
@@ -844,28 +844,33 @@ def forward_train(model: Transformer, cfg, tokens, *, gated=False,
                   cap_M=None, remat=False):
     """tokens: [B, T] -> (hidden [B, T, d], aux).
 
-    aux = {"cap": summed per-layer capacity losses, "n_gate_layers":
-    python int}. When ``gated``, attention uses the retention bias
-    (student); otherwise vanilla attention (teacher). ``remat`` runs
-    each block under ``torch.utils.checkpoint`` (non-reentrant), keeping
-    only the residual stream between blocks; backward recomputes the
-    block, its L_cap forward included. Without autograd (the teacher
-    under ``torch.no_grad``) nothing is checkpointed. The dense family
-    only: the cross families' gate training is ROADMAP queue 1."""
-    if cfg.family != "dense":
+    aux = {"cap": summed per-layer capacity losses, "router": summed MoE
+    router aux (zero without experts), "n_gate_layers": python int}.
+    When ``gated``, attention uses the retention bias (student);
+    otherwise vanilla attention (teacher). ``remat`` runs each block
+    under ``torch.utils.checkpoint`` (non-reentrant), keeping only the
+    residual stream between blocks; backward recomputes the block, its
+    L_cap forward included. Without autograd (the teacher under
+    ``torch.no_grad``) nothing is checkpointed. The dense and moe
+    families: the cross families' gate training is ROADMAP queue 1."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported to "
             f"repro_torch yet; see ROADMAP queue 1, gate training for the "
             f"cross families")
     h = _embed(model, tokens)
     cap_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    router_total = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def body(block, h):
         return blocks.apply_block_train(block, cfg, h, gated=gated,
                                         cap_M=cap_M)
 
     for block in model.layers:
-        h, cap = checkpointed(body, block, h) if remat else body(block, h)
+        h, cap, router = (checkpointed(body, block, h) if remat
+                          else body(block, h))
         cap_total = cap_total + cap
+        router_total = router_total + router
     h = rmsnorm_apply(model.final_norm.scale, h, cfg.norm_eps)
-    return h, {"cap": cap_total, "n_gate_layers": num_gate_layers(cfg)}
+    return h, {"cap": cap_total, "router": router_total,
+               "n_gate_layers": num_gate_layers(cfg)}

@@ -3,9 +3,10 @@ under the TRIM-KV policy over the bounded KV cache.
 
 Ported from ``repro/serve/engine.py`` (``Engine.prefill``,
 ``generate``, ``teacher_forced_accuracy``, ``lane_closures``,
-``build_engine``) for the dense, vlm and encdec families. On the card
-the attention runs through the hand-written CUDA kernels
-(``kernels.ops``).
+``build_engine``) for the dense, moe, vlm and encdec families. On the
+card the attention runs through the hand-written CUDA kernels
+(``kernels.ops``). The moe family refuses ``spec_k`` > 0, as the JAX
+engine does: expert capacity couples the rows of a call.
 
 Cross-memory families (vlm, encdec) take each request's memory in
 ``extra_inputs`` ({mem_key: [B, S, feat], optionally "mem_len": [B]}),
@@ -61,6 +62,7 @@ from repro_torch.configs import ServeConfig
 from repro_torch.core import prng
 from repro_torch.core.policies import make_policy
 from repro_torch.models import transformer as T
+from repro_torch.models.blocks import is_moe
 from repro_torch.models.common import resolve_device
 from repro_torch.serve.graphs import GraphPool, LanePrograms, copy_state
 from repro_torch.serve.prefix_cache import PrefixCache
@@ -79,6 +81,11 @@ class Engine:
                              f"on {self.device}")
         if serve_cfg.spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {serve_cfg.spec_k}")
+        if serve_cfg.spec_k > 0 and is_moe(cfg):
+            raise ValueError(
+                "spec_k > 0 is unsupported for the MoE family: expert "
+                "capacity couples tokens across the verify chunk, so "
+                "chunk-shaped scoring cannot be bit-identical per row")
         self.cfg = cfg
         self.model = model
         self.serve = serve_cfg

@@ -3,7 +3,8 @@ seamless-m4t-large-v2) against the JAX package's, on their smoke
 configs (2 layers, float32), and the three D-128 dense configs
 (qwen2.5-14b, codeqwen1.5-7b, minitron-8b).
 
-Weights: the JAX package's init, moved to the port through
+Weights: drawn with numpy as the JAX package's init draws them
+(tests/_jax_weights.py), moved to the port through
 repro_torch.bridge, with every cross layer's xgate drawn from
 U(0.5, 1.5) first: the JAX init sets it to 0, where tanh(xgate) = 0
 makes the memory change nothing, so a parity test on the init would hold
@@ -29,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_weights as jax_weights
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import cache as jcache
 from repro.models import common as jcommon
@@ -84,10 +86,10 @@ def _models(arch):
     torch.set_num_threads(1)
     cfg_j, cfg = jax_smoke_config(arch), get_smoke_config(arch)
     rng = np.random.RandomState(7)
-    params = _perturb(jax.device_get(
-        JT.init_params(jax.random.PRNGKey(0), cfg_j)), rng, False)
-    gates = _perturb(jax.device_get(
-        JT.init_gate_params(jax.random.PRNGKey(1), cfg_j)), rng, True)
+    params = _perturb(jax.device_get(jax_weights.init_params(cfg_j)), rng,
+                      False)
+    gates = _perturb(jax.device_get(jax_weights.init_gate_params(cfg_j)), rng,
+                     True)
     model = bridge.params_from_jax(params, cfg, device="cpu")
     bridge.gates_from_jax(gates, cfg, model)
     return (cfg_j, jax.tree.map(jnp.asarray, params),
@@ -116,11 +118,21 @@ def _tokens(cfg, B, L, seed):
         0, cfg.vocab_size, (B, L)).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine(arch, **kw):
+    """One JAX engine per (arch, serve fields): the cases that share one
+    share its compiled closures."""
+    cfg_j, params, gates, _, _ = _models(arch)
+    return jax_build_engine(cfg_j, params, gates, **{**SERVE, **kw})
+
+
 def _engines(arch, **kw):
-    cfg_j, params, gates, cfg, model = _models(arch)
-    serve = {**SERVE, **kw}
-    return (jax_build_engine(cfg_j, params, gates, **serve),
-            build_engine(cfg, model, device="cpu", **serve))
+    """(JAX engine, port engine); the JAX one cached, its dispatch count
+    reset."""
+    _, _, _, cfg, model = _models(arch)
+    je = _jax_engine(arch, **kw)
+    je.dispatch_count = 0
+    return je, build_engine(cfg, model, device="cpu", **{**SERVE, **kw})
 
 
 # ------------------------------------------------------ bridge and memory

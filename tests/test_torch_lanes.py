@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_weights as jax_weights
 from repro.configs import ServeConfig as JServeConfig
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import cache as jcache
@@ -50,8 +51,8 @@ def _setup():
     torch.set_num_threads(1)
     cfg_j = dataclasses.replace(jax_smoke_config(ARCH), **TINY)
     cfg = dataclasses.replace(get_smoke_config(ARCH), **TINY)
-    params = JT.init_params(jax.random.PRNGKey(0), cfg_j)
-    gates = JT.init_gate_params(jax.random.PRNGKey(1), cfg_j)
+    params = jax_weights.init_params(cfg_j)
+    gates = jax_weights.init_gate_params(cfg_j)
     model = bridge.params_from_jax(jax.device_get(params), cfg, device="cpu")
     bridge.gates_from_jax(jax.device_get(gates), cfg, model)
     return cfg_j, params, gates, cfg, model

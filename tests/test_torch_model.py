@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_weights as jax_weights
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core.policies import TrimKV as JTrimKV
 from repro.models import transformer as JT
@@ -40,8 +41,8 @@ BUDGET = 32
 def _models(gates_mode):
     """(jax params, jax gates, port model) with identical weights."""
     cfg_j = jax_smoke_config(ARCH)
-    params = JT.init_params(jax.random.PRNGKey(0), cfg_j)
-    gates = JT.init_gate_params(jax.random.PRNGKey(1), cfg_j)
+    params = jax_weights.init_params(cfg_j)
+    gates = jax_weights.init_gate_params(cfg_j)
     np_params, np_gates = jax.device_get(params), jax.device_get(gates)
     if gates_mode == "perturbed":
         g0 = dict(np_gates["layers"][0])
@@ -59,13 +60,20 @@ def _tokens(B, Tn, seed=0):
     return make_batch("copy", seed, B, Tn, get_smoke_config(ARCH).vocab_size)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_engine(gates_mode, **kw):
+    """One JAX engine per (gates, serve fields): the cases that share
+    one share its compiled closures."""
+    params, gates, _ = _models(gates_mode)
+    return jax_build_engine(jax_smoke_config(ARCH), params, gates,
+                            budget=BUDGET, attn_impl="pallas", **kw)
+
+
 def _engines(gates_mode, **kw):
-    params, gates, model = _models(gates_mode)
-    je = jax_build_engine(jax_smoke_config(ARCH), params, gates,
-                          budget=BUDGET, attn_impl="pallas", **kw)
+    _, _, model = _models(gates_mode)
     te = build_engine(get_smoke_config(ARCH), model, device="cpu",
                       budget=BUDGET, **kw)
-    return je, te
+    return _jax_engine(gates_mode, **kw), te
 
 
 def _assert_states(got, want):

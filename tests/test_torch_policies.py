@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_weights as jax_weights
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import policies as jpol
 from repro.models import blocks as JB
@@ -169,8 +170,8 @@ def _layer():
     params and gate of the layer, cfg, the port's block)."""
     torch.set_num_threads(1)
     cfg_j, cfg = jax_smoke_config(ARCH), get_smoke_config(ARCH)
-    params = jax.device_get(JT.init_params(jax.random.PRNGKey(0), cfg_j))
-    gates = jax.device_get(JT.init_gate_params(jax.random.PRNGKey(1), cfg_j))
+    params = jax.device_get(jax_weights.init_params(cfg_j))
+    gates = jax.device_get(jax_weights.init_gate_params(cfg_j))
     g0 = dict(gates["layers"][0])
     g0["b"] = np.random.RandomState(7).uniform(
         2.0, 8.0, g0["b"].shape).astype(np.float32)

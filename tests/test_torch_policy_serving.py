@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import _jax_weights as jax_weights
 from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core.policies import POLICIES
 from repro.models import transformer as JT
@@ -55,8 +56,8 @@ def _smoke(tiny=False):
                   num_kv_heads=2, vocab_size=64, gate_bias_init=3.0)
         cfg_j = dataclasses.replace(cfg_j, **kw)
         cfg = dataclasses.replace(cfg, **kw)
-    params = jax.device_get(JT.init_params(jax.random.PRNGKey(0), cfg_j))
-    gates = jax.device_get(JT.init_gate_params(jax.random.PRNGKey(1), cfg_j))
+    params = jax.device_get(jax_weights.init_params(cfg_j))
+    gates = jax.device_get(jax_weights.init_gate_params(cfg_j))
     if not tiny:
         g0 = dict(gates["layers"][0])
         g0["b"] = np.random.RandomState(7).uniform(
@@ -68,13 +69,24 @@ def _smoke(tiny=False):
             jax.tree.map(jnp.asarray, gates), cfg, model)
 
 
-def _engines(name, **kw):
-    cfg_j, params, gates, cfg, model = _smoke()
+def _serve(name):
     # windows well inside the budget: the scores, not recency, evict
-    serve = dict(budget=_budget(name), policy=name, prefill_chunk=16,
-                 recent_window=8, obs_window=8, **kw)
-    return (jax_build_engine(cfg_j, params, gates, **serve),
-            build_engine(cfg, model, device="cpu", **serve))
+    return dict(budget=_budget(name), policy=name, prefill_chunk=16,
+                recent_window=8, obs_window=8)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_engine(name):
+    """One JAX engine per policy: its generate and teacher-forcing cases
+    share its compiled closures."""
+    cfg_j, params, gates, _, _ = _smoke()
+    return jax_build_engine(cfg_j, params, gates, **_serve(name))
+
+
+def _engines(name):
+    _, _, _, cfg, model = _smoke()
+    return (_jax_engine(name),
+            build_engine(cfg, model, device="cpu", **_serve(name)))
 
 
 def _assert_states(got, want, cfg):
@@ -117,6 +129,19 @@ SERVE = dict(budget=8, prefill_chunk=8, decode_segment=4)
 LENS, MAX_NEW = [21, 7, 30, 12, 3], [6, 3, 9, 5, 2]
 
 
+def _sched_serve(name):
+    return dict(policy=name, swap_preempt=False, prefill_budget=8,
+                recent_window=3, obs_window=4, **SERVE)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sched_engine(name):
+    """One JAX engine per policy for both admission modes (the segment
+    closure is compiled once); a case resets its dispatch count."""
+    cfg_j, params, gates, _, _ = _smoke(tiny=True)
+    return jax_build_engine(cfg_j, params, gates, **_sched_serve(name))
+
+
 def _trace(cls):
     rng = np.random.RandomState(11)
     return [cls(rid=i, prompt=rng.randint(0, 64, size=L).astype(np.int32),
@@ -130,13 +155,12 @@ def _trace(cls):
 def test_scheduler_matches_jax(name, interleaved):
     """Five requests on two lanes: ragged admission grids, retired and
     refilled lanes, frozen lanes whose aux must not move."""
-    cfg_j, params, gates, cfg, model = _smoke(tiny=True)
-    serve = dict(policy=name, swap_preempt=False, prefill_budget=8,
-                 recent_window=3, obs_window=4, **SERVE)
-    je = jax_build_engine(cfg_j, params, gates, **serve)
+    _, _, _, cfg, model = _smoke(tiny=True)
+    je = _jax_sched_engine(name)
+    je.dispatch_count = 0
     want = JScheduler(je, n_lanes=2, interleaved=interleaved).run(
         _trace(JRequest))
-    te = build_engine(cfg, model, device="cpu", **serve)
+    te = build_engine(cfg, model, device="cpu", **_sched_serve(name))
     ts = Scheduler(te, n_lanes=2, interleaved=interleaved)
     got = ts.run(_trace(Request))
     for rid, rs in want.items():
