@@ -5,9 +5,10 @@
 
 Builds every kernel from src/repro_torch/kernels/csrc with nvcc — the
 decode kernel, the bf16 tensor-core retention and chunk kernels
-(wgmma + TMA, head dim 64 and 128), the float32 CUDA-core retention
-and chunk kernels and the capacity-loss kernels (a forward with its sum
-pass, a backward) — then:
+(wgmma + TMA, head dim 64, 128 and 256), the float32 CUDA-core
+retention and chunk kernels (head dim up to 128 and 256), the
+capacity-loss kernels (a forward with its sum pass, a backward) and the
+RG-LRU scan kernel — then:
 
 1. kernels — each CUDA kernel against its plain PyTorch version on the
    card at the main-path shapes (Hq 32, Hkv 8, D 128, B 4, M 512,
@@ -49,6 +50,19 @@ pass, a backward) — then:
    mixtral-8x7b's main-path shape (D 128, G 4, M 4096, window 4096,
    which binds: retention over T 4500, chunks of C 1024 at t0 4096 and
    8192, decode at clocks 4515 and 7000; mixtral_kernel_cases);
+1c. head dim 256 and the scan — hybrid_kernel_phase: retention (T 4096
+   with the window of 2048 binding, log_beta, Tq 1, Tk 65 past a
+   64-key tile, a ragged q tile), chunk (C 512, M 512: a full cache,
+   the window binding at t0 4096, a ragged tail, an empty cache, M 500,
+   n_valid 1 / 64 / 65, one live slot, probs out) and decode (M 512,
+   the window) at recurrentgemma-2b's G 10 (Hq 10, Hkv 1), and at
+   gemma3-12b's G 2 and M (chunk at M 1024 with its window of 1024 and
+   at M 2048 past t0 2048; decode at M 1024 with the window and M 2048,
+   clocks past both, empty slots, probs out), bf16 row by row and
+   float32 within TOL; the RG-LRU scan
+   at T 1, 511, 4096 from h0 != 0 and with ragged identity tails
+   (padded steps carry h bit for bit), within TOL; each timed beside
+   its bound (attention also beside one SDPA call; the scan has none);
 2. serve — trimkv-paper-4b at full width (36 layers, bfloat16, random
    weights from a seed, perturbed gate biases) through Engine.generate,
    batch 4, prompt 2000, budget 512, 32 new tokens, single-shot and
@@ -160,6 +174,18 @@ pass, a backward) — then:
    ids, spec_k 2 = spec_k 0, reset lanes hold mem_len 0 and read zero
    memory, extract -> resume bit-exact on every leaf, a scrubbed slab
    all zero, its neighbour bit-identical), check_cross counts 0;
+2f'. gemma3-12b (dense_config_phase, after qwen2.5-14b) — full width
+   (head dim 256, Hq 16, Hkv 8) cut to one unit of its pattern (5
+   local layers of window 1024, one global), bf16, budget 2048 (local
+   M 1024, global M 2048): Engine.generate at batch 4, prompt 2048
+   (past the window), single-shot and chunked, fused and eager (exact
+   launches, graphs against eager), then gemma3_stream: 4 lanes with
+   the prefix cache, spec_k 2 and swap preemption over a shared-prefix
+   trace, phased and interleaved (every request DONE, dispatches on the
+   formula, the launches the steps imply, a prefix hit, a swap and a
+   resume, extract -> resume bit-exact, ids against one-shot runs up to
+   CROSS_MARGIN_STEPS): the CUDA graphs, store rows, prefix rows and
+   verify scratch hold layers of two M;
 2g. moe — the MoE family (moe_phase): blocks.moe_apply against
    moe_reference (the JAX package's _moe_apply op by op: per-column
    int32 cumsums, one-hot [g, E, cap] dispatch and combine) in float32
@@ -179,6 +205,24 @@ pass, a backward) — then:
    lanes, a better-ranked arrival after the first step, phased and
    interleaved): ids and slot positions equal after every step, logits
    within TOL, every layer's dropped choices equal and > 0;
+2h. hybrid — recurrentgemma-2b (hybrid_phase) at full width and depth
+   (26 layers: 18 recurrent, 8 local of window 2048; 3.56 B parameters),
+   bf16, seeded weights, gate biases ~ U(2, 8), conv biases ~ N(0, 0.1):
+   Engine.generate at batch 2, prompt 4096, budget 512, single-shot and
+   chunked (512), fused and eager (exact launches: the decode, chunk
+   and retention kernels once per local layer, the RG-LRU scan once per
+   recurrent layer a prefill or chunk; graphs against eager with each
+   recurrent h within GRAPH_LOGIT_TOL); streams on 4 lanes (8
+   poisson_requests, seed 0, prompts 256-2048, max_new 16-48), phased
+   and interleaved at spec_k 0 and 2 (every request DONE, dispatches on
+   the formula, the launches the steps imply, ids against one-shot runs
+   up to CROSS_MARGIN_STEPS, spec_k 2 ids identical to spec_k 0's); one
+   lane's swap-out and resume timed beside a recompute, extract ->
+   resume bit-exact; then float32 at one unit (3 layers) card (kernels)
+   against CPU (plain versions): generate (ids and slot positions
+   identical, logits and h within TOL) and the lane scheduler with swap
+   preemption, phased and interleaved (ids and slot positions identical
+   after every step, logits within TOL);
 3. parity — the same config cut to 2 layers, one set of weights on the
    card (kernels) and on the CPU (plain versions), after single-shot
    and after chunked prefill, with exact launch counts: in float32
@@ -228,10 +272,14 @@ Prints the card's name and power limit and a {"kernels": [...]} line
 counted from 0 just before its run: the decode and bf16 chunk kernels
 over the serve and policy phases' generate calls, the bf16 stream's
 phased run, the reuse phase's drains, the lifecycle phase, the
-qwen2.5-14b calls, the cross phase's one-shot calls and phased
-streams and the MoE phase's one-shot calls and phased streams, the
-bf16 retention kernel over the serve, policy, qwen2.5-14b, cross and
-MoE one-shot phases, the float32 chunk kernel over the float32 parity
+qwen2.5-14b calls, the gemma3-12b calls and phased stream, the cross
+phase's one-shot calls and phased streams, the MoE phase's one-shot
+calls and phased streams and the hybrid phase's, the
+bf16 retention kernel over the serve, policy, qwen2.5-14b, cross, MoE,
+gemma3-12b and hybrid one-shot phases, the RG-LRU scan over the hybrid
+phase's one-shot calls, phased stream and float32 parity, the D-256
+variants (``*_d256``) over the gemma3-12b and hybrid phases (float32:
+the hybrid parity), the float32 chunk kernel over the float32 parity
 runs, the reuse phase's float32 drains, the lifecycle phase and the
 cross and MoE float32 parity runs, the float32 retention kernel over
 the float32 parity runs (the cross ones included), the capacity
@@ -963,6 +1011,8 @@ def perturb_gates(model, seed):
     g = torch.Generator(device=model.device)
     g.manual_seed(seed)
     for block in model.layers:
+        if block.gate is None:             # a recurrent layer has no cache
+            continue
         b = block.gate.b
         b.copy_(2.0 + 6.0 * torch.rand(b.shape, generator=g,
                                        device=model.device))
@@ -979,11 +1029,13 @@ GRAPH_LOGIT_TOL = 1e-6
 
 def check_graphs(name, readings):
     """Raise unless graphs and eager agree: ids and slot positions
-    identical (readings count what differs), logits and the policies'
-    aux within GRAPH_LOGIT_TOL of their largest magnitude."""
+    identical (readings count what differs), logits, the policies' aux
+    and (where read) a recurrent layer's h within GRAPH_LOGIT_TOL of
+    their largest magnitude."""
     if (readings["ids differ"] or readings["slot positions differ"]
             or not readings["logit gap"] <= GRAPH_LOGIT_TOL
-            or not readings["aux gap"] <= GRAPH_LOGIT_TOL):
+            or not readings["aux gap"] <= GRAPH_LOGIT_TOL
+            or not readings.get("h gap", 0.0) <= GRAPH_LOGIT_TOL):
         raise AssertionError(f"{name}: graphs and eager disagree: "
                              f"{readings}")
 
@@ -1021,7 +1073,7 @@ def aux_violations(policy, state):
     B = state["t"].shape[0]
     t_last = (state["t"] - 1)[:, None, None]
     missing = bad = 0
-    for st in state["layers"]:
+    for st in cache_layers(state):
         newest = st["pos"] == t_last
         missing += B * st["pos"].shape[1] - int(newest.sum())
         bad += int(((st["aux"] <= 0) & newest).sum() if policy.needs_attn
@@ -1037,30 +1089,42 @@ def check_aux(name, violations):
         raise AssertionError(f"{name}: {violations}")
 
 
+def cache_layers(state):
+    """The layer states of ``state`` that hold a slot cache (a recurrent
+    layer's {h, conv} holds none)."""
+    return [st for st in state["layers"] if "pos" in st]
+
+
 def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
                    shape=SERVE_SHAPE):
     """Engine.generate per mode (single-shot, chunked), fused then eager,
     on the same inputs (extra_inputs: a cross family's memory): each
     call's launches against the exact count (a decode step launches the
     decode kernel once per layer and once more per cross layer, over its
-    memory), finite logits, valid ids, the policy's aux
-    (aux_violations); then graphs against eager (check_graphs):
-    identical ids and slot positions in every layer, logits and every
-    layer's aux within GRAPH_LOGIT_TOL of their largest magnitude.
-    Returns the outputs by mode ("chunked fused", ...)."""
+    memory; a recurrent layer launches no attention kernel and the
+    RG-LRU scan once a prefill or chunk), finite logits, valid ids, the
+    policy's aux (aux_violations); then graphs against eager
+    (check_graphs): identical ids and slot positions in every layer,
+    logits, every layer's aux and a recurrent layer's h within
+    GRAPH_LOGIT_TOL of their largest magnitude. Returns the outputs by
+    mode ("chunked fused", ...)."""
     import torch
     from repro_torch.kernels import ops
 
     B, N = tokens.shape[0], shape["N"]
+    kinds = cfg.layer_kinds()
     L, n_chunks = cfg.num_layers, -(-tokens.shape[1] // shape["chunk"])
-    n_dec = L + cfg.layer_kinds().count("cross")
+    n_rec = kinds.count("recurrent")
+    n_attn = L - n_rec
+    n_dec = n_attn + kinds.count("cross")
     sfx = "" if cfg.dtype == "bfloat16" else "_f32"
     none = dict.fromkeys(ops.KERNELS, 0)        # serving trains nothing
     expect = {
-        False: {**none, "retention_attention" + sfx: L,
-                "decode_attention": n_dec * N},
-        True: {**none, "chunk_attention" + sfx: L * n_chunks,
-               "decode_attention": n_dec * N},
+        False: {**none, "retention_attention" + sfx: n_attn,
+                "decode_attention": n_dec * N, "rg_lru_scan": n_rec},
+        True: {**none, "chunk_attention" + sfx: n_attn * n_chunks,
+               "decode_attention": n_dec * N,
+               "rg_lru_scan": n_rec * n_chunks},
     }
     if eng.device.type == "cpu":          # the plain versions count none
         expect = {False: none, True: none}
@@ -1095,12 +1159,15 @@ def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
                 f"{out['prefill_tok_per_sec']:.1f} tok/s; decode "
                 f"{out['decode_sec']:.3f} s = {out['tok_per_sec']:.1f} "
                 f"tok/s; ids[0][:8] {ids[0][:8].tolist()}")
-            layers = out["state"]["layers"]
+            layers = cache_layers(out["state"])
             check_aux(f"{label} {mode}", aux_violations(eng.policy,
                                                          out["state"]))
             results[mode] = {"ids": ids, "logits": logits.clone(),
                              "pos": [st["pos"].clone() for st in layers],
                              "aux": [st["aux"].clone() for st in layers],
+                             "h": [st["h"].clone()
+                                   for st in out["state"]["layers"]
+                                   if "h" in st],
                              "state bytes": state_bytes(out["state"]),
                              "tok_per_sec": out["tok_per_sec"],
                              "prefill_tok_per_sec":
@@ -1118,12 +1185,16 @@ def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
                           ).item(),
             "aux gap": max((a - b).abs().max().item()
                            for a, b in zip(g["aux"], e["aux"]))
-            / max(aux_scale, 1e-30)}
+            / max(aux_scale, 1e-30),
+            "h gap": max([((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30)).item() for a, b in zip(g["h"], e["h"])],
+                default=0.0)}
         log(f"{label} {name}: graphs vs eager: {readings['ids differ']} ids "
             f"and {readings['slot positions differ']} slot positions (all "
-            f"{L} layers) differ, logits |diff| / max |logit| "
+            f"{n_attn} cache layers) differ, logits |diff| / max |logit| "
             f"{readings['logit gap']:.3e}, aux |diff| / max |aux| "
-            f"{readings['aux gap']:.3e} (tol {GRAPH_LOGIT_TOL}), "
+            f"{readings['aux gap']:.3e}, recurrent h |diff| / max |h| "
+            f"{readings['h gap']:.3e} (tol {GRAPH_LOGIT_TOL}), "
             f"bit-identical logits {torch.equal(g['logits'], e['logits'])}")
         check_graphs(f"{label} {name}", readings)
     return results
@@ -1296,7 +1367,7 @@ def traced_drain(eng, lanes, reqs, kw, later=()):
         for r in pending:
             sched.submit(r)
         pending = []
-        layers = sched.lanes.state["layers"]
+        layers = cache_layers(sched.lanes.state)
         trace.append(([st["pos"].clone() for st in layers],
                       sched.lanes.logits.clone(),
                       [st["aux"].clone() for st in layers]))
@@ -2845,14 +2916,15 @@ def cross_stream(arch, num_layers=None, modes=("phased", "interleaved"),
     lanes, budget 512, chunks 512, segments 16, 8 requests from
     poisson_requests (seed 0, prompts 256-1024, max_new 16-48, 8
     requests/s, each with its own ragged memory), per mode: every
-    request DONE with its max_new tokens, dispatch_count equal to the
-    formula, the launches the steps imply (the decode kernel once per
-    layer and cross layer a decode step, the chunk kernel once per layer
-    a chunk), ids against each request's one-shot run (its memory padded
-    to the family's S) up to CROSS_MARGIN_STEPS; prints output tok/s,
-    TTFT p50 / p99 and TPOT p50. With swap_times,
-    one lane is swapped out and resumed, timed. Returns the phased run's
-    launch counts."""
+    request DONE with its max_new tokens, dispatch_count on the formula,
+    the launches the steps imply (step_launches: the decode kernel once
+    per layer and cross layer a decode step, the chunk kernel once per
+    layer a chunk), no lane holding memory after the drain, ids against
+    each request's one-shot run (its memory padded to the family's S)
+    up to CROSS_MARGIN_STEPS; prints output tok/s, TTFT p50 / p99 and
+    TPOT p50. With swap_times, one lane is swapped out and resumed,
+    timed (lane_swap_ms: extract -> resume bit-exact on every leaf).
+    Returns the phased run's launch counts."""
     import numpy as np
     import torch
     from repro_torch.kernels import ops
@@ -2860,19 +2932,18 @@ def cross_stream(arch, num_layers=None, modes=("phased", "interleaved"),
     from repro_torch.serve.engine import build_engine
     from repro_torch.serve.graphs import host_row_template
     from repro_torch.serve.prefix_cache import state_row_bytes
-    from repro_torch.serve.request import Status, latency_percentiles
+    from repro_torch.serve.request import Status
     from repro_torch.serve.scheduler import Scheduler, warm_up
 
     cfg, model = cross_model(arch, num_layers=num_layers, seed=30)
-    L, lanes = cfg.num_layers, 4
-    n_dec = L + cfg.layer_kinds().count("cross")
+    lanes = 4
     eng = build_engine(cfg, model, device=model.device, budget=512,
                        prefill_chunk=512, decode_segment=16,
                        prefill_budget=1024, swap_preempt=False)
     reqs = poisson_requests(8, 8.0, vocab=cfg.vocab_size, prompt_lo=256,
                             prompt_hi=1024, new_lo=16, new_hi=48, seed=0,
                             mem_key=eng.mem_key, mem_shape=eng.mem_shape)
-    name = f"{cfg.name} {L} layers"
+    name = f"{cfg.name} {cfg.num_layers} layers"
     row = state_row_bytes(host_row_template(cfg, 512))
     log(f"cross stream {name}: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, memories "
@@ -2882,25 +2953,14 @@ def cross_stream(arch, num_layers=None, modes=("phased", "interleaved"),
     # (mem_len marks it), so the decode kernel reads a slab of the lanes'
     # shape; a B = 1 batch and a lane batch of 4 still run other splits
     S, feat = eng.mem_shape
-    oneshot = {}
-    for r in reqs:
+
+    def padded(r):
         m = r.extra_inputs[eng.mem_key]
         mem = np.zeros((1, S, feat), np.float32)
         mem[0, :m.shape[0]] = m
-        oneshot[r.rid] = eng.generate(
-            r.prompt[None], r.max_new, chunked=True,
-            extra_inputs={eng.mem_key: mem,
-                          "mem_len": np.array([m.shape[0]], np.int32)})
-    # the margin limit: CROSS_MARGIN_STEPS bf16 rounding steps at the
-    # largest |logit| of the one-shot runs (MARGIN_TOL admits one at
-    # trimkv-paper-4b's logits below 4; these logits reach the next
-    # binade, where one step is 2**-5)
-    top = max(o["logits"][0, :cfg.vocab_size].abs().max().item()
-              for o in oneshot.values())
-    step = 2.0 ** (math.floor(math.log2(top)) - 7)
-    tol = math.nextafter(CROSS_MARGIN_STEPS * step, math.inf)
-    log(f"  one-shot largest |logit| {top:.3f}: one bf16 rounding step "
-        f"{step:g}; margin limit {CROSS_MARGIN_STEPS} steps")
+        return {eng.mem_key: mem, "mem_len": np.array([m.shape[0]], np.int32)}
+
+    oneshot, tol = oneshot_refs(eng, cfg, reqs, padded)
     for mode in modes:
         warm_up(eng, lanes, reqs, interleaved=mode == "interleaved")
     launches_phased = None
@@ -2915,76 +2975,37 @@ def cross_stream(arch, num_layers=None, modes=("phased", "interleaved"),
         launches = dict(ops.LAUNCHES)
         if mode == "phased":
             launches_phased = launches
-        steps = sched.steps_run
-        expect = dict.fromkeys(ops.KERNELS, 0)
-        if eng.device.type == "cuda":      # the plain versions count none
-            expect["decode_attention"] = n_dec * (steps["segment"]
-                                                  + steps["mixed"])
-            expect["chunk_attention"] = L * (steps["chunk"] + steps["mixed"])
-        formula = sched.n_prefill_rounds + sched.n_segments + sched.n_resets
-        margin, report = 0.0, []
-        for r in reqs:
-            ref = oneshot[r.rid]
-            got = res[r.rid].tokens
-            diff = first_divergence(got, ref["ids"][0].tolist())
-            if diff is not None:
-                m = float(ref["margins"][0][:diff + 1].min())
-                margin = max(margin, m)
-                report.append(f"{r.rid}: at {diff} of {len(got)} (smallest "
-                              f"margin up to it {m:.3e})")
+        margin, report = oneshot_margin(res, oneshot, reqs)
         violations = {
             "requests not DONE with max_new tokens": sum(
                 res[r.rid].status is not Status.DONE
                 or len(res[r.rid].tokens) != r.max_new for r in reqs),
             "dispatch_count off the formula": int(
-                eng.dispatch_count != formula),
-            "launches off the schedule": int(launches != expect),
+                eng.dispatch_count != dispatch_formula(sched)),
+            "launches off the schedule": int(
+                launches != step_launches(eng, sched.steps_run)),
             "lanes holding memory after the drain": sum(
                 int((st["mem_len"] != 0).sum())
                 for st in sched.lanes.state["layers"] if "mem_len" in st),
         }
-        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
-        ttft = latency_percentiles([res[r.rid].ttft_sec for r in reqs])
-        tpot = latency_percentiles([res[r.rid].tpot_sec for r in reqs])
-        log(f"cross stream {name} {mode}: {n_tok} tokens in {wall:.3f} s = "
-            f"{n_tok / wall:.1f} output tok/s; TTFT p50 "
-            f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms; "
-            f"TPOT p50 {tpot['p50'] * 1e3:.2f} ms; segments "
-            f"{sched.n_segments}, prefill rounds {sched.n_prefill_rounds}, "
-            f"dispatches {eng.dispatch_count} (formula {formula}); steps "
-            f"{steps}; launches {launches}")
+        stream_line(f"cross stream {name} {mode}", sched, eng, res, reqs,
+                    wall, launches)
         log(f"  one-shot comparison: {len(report)} of {len(reqs)} requests "
             f"differ; margin reading {margin:.3e} (limit {tol}): "
             + ("; ".join(report) if report else "none"))
         check_stream(f"cross {name} {mode}", violations, margin, tol)
-    if swap_times:
-        sched = Scheduler(eng, n_lanes=lanes)
-        r = reqs[0]
-        sched.submit(dataclasses.replace(r, max_new=64))
-        sched.step()
-        lane = sched.results[r.rid].lane
-        _sync(eng.device)
-        t0 = time.perf_counter()
-        sched._swap_out([lane])
-        t1 = time.perf_counter()
-        snap = sched.store.get(r.rid)
-        sched.lanes.resume([lane], [snap.state], [snap.tok], [snap.key])
-        _sync(eng.device)
-        t2 = time.perf_counter()
-        m = r.extra_inputs[eng.mem_key]
-        mem = np.zeros((1, S, feat), np.float32)
-        mem[0, :m.shape[0]] = m
-        recompute = _median_ms(lambda: (eng.prefill(
-            r.prompt[None], chunked=True, extra_inputs={
-                eng.mem_key: mem,
-                "mem_len": np.array([m.shape[0]], np.int32)}),
-            _sync(eng.device)), 3)
-        log(f"cross {name}: one lane's swap-out (extract, crc32, put) "
-            f"{(t1 - t0) * 1e3:.2f} ms and resume (get + verify, install) "
-            f"{(t2 - t1) * 1e3:.2f} ms for {row:,} B; a recompute (its "
-            f"chunked prefill at batch 1, warm: the front end and "
-            f"{r.prompt_len} prompt tokens) {recompute:.2f} ms")
         sched.close()
+    if swap_times:
+        r = reqs[0]
+        out_ms, in_ms, recompute, _, leaves = lane_swap_ms(eng, lanes, r,
+                                                           padded(r))
+        log(f"cross {name}: one lane's swap-out (extract, crc32, put) "
+            f"{out_ms:.2f} ms and resume (get + verify, install) "
+            f"{in_ms:.2f} ms for {row:,} B; a recompute (its chunked "
+            f"prefill at batch 1, warm: the front end and {r.prompt_len} "
+            f"prompt tokens) {recompute:.2f} ms")
+        check_cross(f"{name} swap", {
+            "leaves not bit-exact after extract and resume": leaves})
     del eng, model
     torch.cuda.empty_cache()
     return launches_phased
@@ -3188,7 +3209,13 @@ def dense_config_phase():
     """qwen2.5-14b at full width (GQA group 5, qkv biases drawn from
     N(0, 0.5): its init leaves them 0) cut to 4 layers, bf16, through
     Engine.generate (generate_pairs at CROSS_SHAPE: exact launches,
-    graphs against eager). Returns its launch counts."""
+    graphs against eager); then gemma3-12b at full width (head dim 256,
+    GQA group 2) cut to one unit of its pattern (GEMMA3_LAYERS: 5 local
+    layers of window 1024, one global), bf16, seeded gate biases ~
+    U(2, 8), at budget 2048 (local M 1024, global M 2048): generate_pairs
+    at GEMMA3_SHAPE (a prompt of 2048, past the window) and
+    gemma3_stream. Returns (qwen2.5-14b's launch counts, gemma3-12b's:
+    its generate calls and phased stream)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.synthetic import make_batch
@@ -3215,7 +3242,26 @@ def dense_config_phase():
     launches = dict(ops.LAUNCHES)
     del eng, model
     torch.cuda.empty_cache()
-    return launches
+
+    cfg = dataclasses.replace(get_config("gemma3-12b"),
+                              num_layers=GEMMA3_LAYERS)
+    model = T.init_params(cfg, seed=64, device="cuda")
+    T.init_gate_params(model, cfg, seed=65)
+    perturb_gates(model, seed=66)
+    sh = GEMMA3_SHAPE
+    eng = build_engine(cfg, model, device="cuda", budget=sh["budget"],
+                       prefill_chunk=sh["chunk"])
+    tokens, _, _ = make_batch("copy", 0, sh["B"], sh["P"], cfg.vocab_size)
+    ops.reset_launches()
+    generate_pairs(eng, cfg, tokens, f"{cfg.name} {GEMMA3_LAYERS} layers",
+                   shape=sh)
+    g3 = dict(ops.LAUNCHES)
+    del eng
+    stream = gemma3_stream(cfg, model)
+    g3 = {k: g3[k] + stream[k] for k in g3}
+    del model
+    torch.cuda.empty_cache()
+    return launches, g3
 
 
 def cross_kernel_phase(g):
@@ -3505,33 +3551,26 @@ def moe_stream(cfg, model, n_requests=8, modes=("phased", "interleaved"),
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import poisson_requests
     from repro_torch.serve.engine import build_engine
-    from repro_torch.serve.request import Status, latency_percentiles
+    from repro_torch.serve.request import Status
     from repro_torch.serve.scheduler import Scheduler, warm_up
 
     if no_drop:
         cfg = dataclasses.replace(
             cfg, moe_capacity_factor=cfg.num_experts / cfg.experts_per_token)
-    L, lanes, tol = cfg.num_layers, 4, math.inf
+    lanes, oneshot, tol = 4, {}, math.inf
     eng = build_engine(cfg, model, device="cuda", budget=512,
                        prefill_chunk=512, decode_segment=16,
                        prefill_budget=1024, swap_preempt=False)
     reqs = poisson_requests(n_requests, 8.0, vocab=cfg.vocab_size,
                             prompt_lo=256, prompt_hi=1024, new_lo=16,
                             new_hi=48, seed=0)
-    name = (f"{cfg.name} {L} layers, capacity factor "
+    name = (f"{cfg.name} {cfg.num_layers} layers, capacity factor "
             f"{cfg.moe_capacity_factor:g}")
     log(f"moe stream {name}: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, max_new "
         f"{[r.max_new for r in reqs]}")
-    oneshot = ({r.rid: eng.generate(r.prompt[None], r.max_new, chunked=True)
-                for r in reqs} if no_drop else {})
     if no_drop:
-        top = max(o["logits"][0, :cfg.vocab_size].abs().max().item()
-                  for o in oneshot.values())
-        step = 2.0 ** (math.floor(math.log2(top)) - 7)
-        tol = math.nextafter(CROSS_MARGIN_STEPS * step, math.inf)
-        log(f"  one-shot largest |logit| {top:.3f}: one bf16 rounding step "
-            f"{step:g}; margin limit {CROSS_MARGIN_STEPS} steps")
+        oneshot, tol = oneshot_refs(eng, cfg, reqs)
     for mode in modes:
         warm_up(eng, lanes, reqs, interleaved=mode == "interleaved")
     launches_phased = None
@@ -3547,41 +3586,22 @@ def moe_stream(cfg, model, n_requests=8, modes=("phased", "interleaved"),
         launches = dict(ops.LAUNCHES)
         if mode == "phased":
             launches_phased = launches
-        steps = sched.steps_run
-        expect = dict.fromkeys(ops.KERNELS, 0)
-        expect["decode_attention"] = L * (steps["segment"] + steps["mixed"])
-        expect["chunk_attention"] = L * (steps["chunk"] + steps["mixed"])
-        formula = sched.n_prefill_rounds + sched.n_segments + sched.n_resets
-        margin, report = 0.0, []
-        for rid, ref in oneshot.items():
-            got = res[rid].tokens
-            diff = first_divergence(got, ref["ids"][0].tolist())
-            if diff is not None:
-                m = float(ref["margins"][0][:diff + 1].min())
-                margin = max(margin, m)
-                report.append(f"{rid}: at {diff} of {len(got)} (smallest "
-                              f"margin up to it {m:.3e})")
+        margin, report = (oneshot_margin(res, oneshot, reqs) if no_drop
+                          else (0.0, []))
         drops = layer_drops(model)
         violations = {
             "requests not DONE with max_new tokens": sum(
                 res[r.rid].status is not Status.DONE
                 or len(res[r.rid].tokens) != r.max_new for r in reqs),
             "dispatch_count off the formula": int(
-                eng.dispatch_count != formula),
-            "launches off the schedule": int(launches != expect),
+                eng.dispatch_count != dispatch_formula(sched)),
+            "launches off the schedule": int(
+                launches != step_launches(eng, sched.steps_run)),
             "drops at the no-drop factor": sum(drops) if no_drop else 0,
         }
-        n_tok = sum(len(res[r.rid].tokens) for r in reqs)
-        ttft = latency_percentiles([res[r.rid].ttft_sec for r in reqs])
-        tpot = latency_percentiles([res[r.rid].tpot_sec for r in reqs])
-        log(f"moe stream {name} {mode}: {n_tok} tokens in {wall:.3f} s = "
-            f"{n_tok / wall:.1f} output tok/s; TTFT p50 "
-            f"{ttft['p50'] * 1e3:.1f} ms p99 {ttft['p99'] * 1e3:.1f} ms; "
-            f"TPOT p50 {tpot['p50'] * 1e3:.2f} ms; segments "
-            f"{sched.n_segments}, prefill rounds {sched.n_prefill_rounds}, "
-            f"dispatches {eng.dispatch_count} (formula {formula}); steps "
-            f"{steps}; dropped choices by layer (the warm-up excluded) "
-            f"{drops}; launches {launches}")
+        stream_line(f"moe stream {name} {mode}", sched, eng, res, reqs,
+                    wall, launches)
+        log(f"  dropped choices by layer (the warm-up excluded) {drops}")
         if no_drop:
             log(f"  one-shot comparison: {len(report)} of {len(reqs)} "
                 f"requests differ; margin reading {margin:.3e} (limit "
@@ -4032,6 +4052,776 @@ def moe_phase():
 # -------------------------------------------------------------- train
 
 
+# --------------------------------------------------- the hybrid family
+
+
+def _retention_case(g, dt, B, Tq, Tk, Hq, Hkv, D, off, window, use_beta):
+    """Retention inputs (q, k, v, log_beta or None) and keywords."""
+    import torch
+    q = rnd(g, (B, Tq, Hq, D), dt)
+    k, v = rnd(g, (B, Tk, Hkv, D), dt), rnd(g, (B, Tk, Hkv, D), dt)
+    lb = (-torch.rand((B, Tk, Hkv), generator=g, device="cuda") * 0.01
+          if use_beta else None)
+    return (q, k, v, lb), dict(window=window, q_offset=off)
+
+
+def _chunk_case(g, dt, B, C, Hq, Hkv, D, M, t0, n_valid, empty=0.2,
+                first=False, keep_one=False, lo=0):
+    """Chunk inputs (q, k_c, v_c, cache_k, cache_v, cache_pos, chunk_pos):
+    cache positions drawn in [lo, t0), a share `empty` of them -1 (all
+    with first; one live slot, 300, with keep_one)."""
+    import torch
+    q = rnd(g, (B, C, Hq, D), dt)
+    kc, vc = rnd(g, (B, C, Hkv, D), dt), rnd(g, (B, C, Hkv, D), dt)
+    ck, cv = rnd(g, (B, Hkv, M, D), dt), rnd(g, (B, Hkv, M, D), dt)
+    cpos = torch.randint(lo, max(t0, lo + 1), (B, Hkv, M), generator=g,
+                         device="cuda", dtype=torch.int32)
+    drop = torch.rand((B, Hkv, M), generator=g, device="cuda") < empty
+    if first or keep_one:
+        drop[:] = True
+    if keep_one:
+        drop[..., 300] = False
+    cpos = torch.where(drop, torch.full_like(cpos, -1), cpos)
+    idx = torch.arange(C, device="cuda", dtype=torch.int32)
+    nv = torch.tensor(n_valid, dtype=torch.int32, device="cuda")
+    cp = torch.where(idx[None] < nv[:, None], t0 + idx[None],
+                     torch.full_like(idx[None], -1)).contiguous()
+    return q, kc, vc, ck, cv, cpos.contiguous(), cp
+
+
+# the hybrid phase's shape (recurrentgemma-2b: Hq 10, Hkv 1, D 256,
+# window 2048, lru width 2560): B lanes, a P-token prompt (single-shot,
+# and chunked in chunks of C), budget 512 (local M = min(512, 2048))
+HYBRID_SHAPE = dict(B=2, P=4096, N=32, chunk=512, budget=512)
+HYBRID_LAYERS = 26
+
+
+def hybrid_kernel_phase(g):
+    """The kernels at head dim 256 and the RG-LRU scan kernel, each
+    against its plain version on the card, then timed beside its bound
+    (and one scaled_dot_product_attention call for attention; the scan
+    has no library call). Attention at recurrentgemma-2b's shape (G 10:
+    Hq 10, Hkv 1; window 2048) and gemma3-12b's (G 2: Hq 16, Hkv 8;
+    window 1024): retention over T 4096 with the window binding, with
+    log_beta, Tq 1, Tk 65 (one key past a 64-key tile), a ragged q tile;
+    chunk at C 512, M 512 (a full cache, the window binding at t0 4096,
+    a ragged tail with probs, an empty cache, M 500, n_valid 1 / 64 /
+    65, one live slot) and at gemma3-12b's M (1024 with its window at
+    t0 1536; 2048, global, at t0 2560); decode at M 512 with and
+    without the window (G 10), and at gemma3-12b's M 1024 with window
+    1024 and M 2048 (G 2), with clocks past M and the window, empty
+    slots and probs out, each windowed case with pairs the window
+    masks; bf16 row by row (ROW_TOL), float32 element by element (TOL). The scan at T 1,
+    511 and 4096 from h0 != 0, and with ragged identity tails (a_log 0,
+    bx 0), within TOL. Returns the entries of the D-256 variants and of
+    the scan kernel (launches filled in by main)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.chunk_attention import (chunk_attention_cuda,
+                                                     chunk_attention_torch)
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_torch)
+    from repro_torch.kernels.retention_attention import (
+        retention_attention_cuda, retention_attention_torch)
+    from repro_torch.kernels.rg_lru import (rg_lru_scan_cuda,
+                                            rg_lru_scan_torch)
+
+    D, P = 256, HYBRID_SHAPE["P"]
+    ret_cases = [  # name, B, Tq, Tk, Hq, Hkv, q_offset, window, log_beta
+        (f"G 10, T {P}, window 2048 (binds)", 2, P, P, 10, 1, 0, 2048,
+         False),
+        ("G 10, T 2048, log_beta + window 512", 2, 2048, 2048, 10, 1, 0,
+         512, True),
+        (f"G 10, Tq 1 at q_offset {P - 1}, window 2048", 2, 1, P, 10, 1,
+         P - 1, 2048, False),
+        ("G 10, Tk 65 (one key past a tile) + log_beta", 2, 65, 65, 10, 1,
+         0, 0, True),
+        ("G 10, Tq 2047 at q_offset 1 (ragged q tile)", 2, 2047, 2048, 10,
+         1, 1, 0, False),
+        ("G 2 (Hq 16, Hkv 8), T 2048, window 1024", 2, 2048, 2048, 16, 8, 0,
+         1024, False),
+    ]
+    C, M = HYBRID_SHAPE["chunk"], HYBRID_SHAPE["budget"]
+    full = [C] * 4
+    chunk_cases = [  # name, Hq, Hkv, t0, n_valid, window, probs, extra
+        ("G 10, full cache, window 2048", 10, 1, 1024, full, 2048, False,
+         dict(empty=0.0)),
+        ("G 10, t0 4096, window 2048 binds + probs", 10, 1, 4096, full,
+         2048, True, dict(empty=0.1)),
+        ("G 10, ragged [B, C] tail + probs", 10, 1, 1024,
+         [512, 464, 300, 17], 2048, True, {}),
+        ("G 10, first chunk (empty cache)", 10, 1, 0, [512, 464, 512, 100],
+         2048, True, dict(first=True)),
+        ("G 10, M 500 (ragged tile) + probs", 10, 1, 1024, full, 0, True,
+         dict(M=500)),
+        ("G 10, n_valid [1, 64, 65, 512] + probs", 10, 1, 1024,
+         [1, 64, 65, 512], 0, True, {}),
+        ("G 10, one live cache slot + probs", 10, 1, 1024,
+         [512, 300, 512, 65], 0, True, dict(keep_one=True, empty=0.0)),
+        ("G 2 (Hq 16, Hkv 8), window 1024 + probs", 16, 8, 1500,
+         [512, 464, 300, 17], 1024, True, {}),
+        # gemma3-12b's own M: a local layer (M 1024, window 1024) at its
+        # prompt's last chunk, and the global layer (M 2048) past 2048
+        ("G 2 (Hq 16, Hkv 8), M 1024, window 1024, t0 1536 + probs", 16,
+         8, 1536, [512, 464, 300, 17], 1024, True, dict(M=1024)),
+        ("G 2 (Hq 16, Hkv 8), M 2048 (global), t0 2560 + probs", 16, 8,
+         2560, [512, 512, 300, 17], 0, True, dict(M=2048, empty=0.05)),
+    ]
+    decode_cases = [  # name, Hq, Hkv, M, lane clocks, window, empty share
+        ("G 10, M 512", 10, 1, M, [4096, 4103, 600, 2500], 0, 0.0),
+        ("G 10, M 512, window 2048", 10, 1, M, [4096, 4103, 600, 2500],
+         2048, 0.0),
+        ("G 2 (Hq 16, Hkv 8), M 1024, window 1024", 16, 8, 1024,
+         [2079, 3000, 1500, 1100], 1024, 0.05),
+        ("G 2 (Hq 16, Hkv 8), M 2048 (global)", 16, 8, 2048,
+         [2079, 2500, 4000, 2100], 0, 0.05),
+    ]
+    binds = {}
+    errs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        dn = str(dt).split(".")[1]
+        for name, B, Tq, Tk, Hq, Hkv, off, window, ub in ret_cases:
+            args, kw = _retention_case(g, dt, B, Tq, Tk, Hq, Hkv, D, off,
+                                       window, ub)
+            err = check_case(f"retention {dn} D 256 {name}",
+                             (retention_attention_cuda(*args, **kw),),
+                             (retention_attention_torch(*args, **kw),), dn)
+            errs[("retention", dt)] = max(errs.get(("retention", dt), 0.0),
+                                          err)
+            del args
+            torch.cuda.empty_cache()
+        for name, Hq, Hkv, t0, nv, window, probs, extra in chunk_cases:
+            extra = dict(extra)
+            Mi = extra.pop("M", M)
+            args = _chunk_case(g, dt, 4, C, Hq, Hkv, D, Mi, t0, nv, **extra)
+            kw = dict(window=window, need_probs=probs)
+            n = 2 if probs else 1
+            err = check_case(f"chunk {dn} D 256 C {C} M {Mi} {name}",
+                             chunk_attention_cuda(*args, **kw)[:n],
+                             chunk_attention_torch(*args, **kw)[:n], dn)
+            errs[("chunk", dt)] = max(errs.get(("chunk", dt), 0.0), err)
+            del args
+        for name, Hq, Hkv, Md, clocks, window, empty in decode_cases:
+            t = torch.tensor(clocks, dtype=torch.int32, device="cuda")
+            q = rnd(g, (4, Hq, D), dt)
+            ck, cv = rnd(g, (4, Hkv, Md, D), dt), rnd(g, (4, Hkv, Md, D), dt)
+            cpos = (torch.rand((4, Hkv, Md), generator=g, device="cuda")
+                    * t[:, None, None]).to(torch.int32)
+            drop = torch.rand((4, Hkv, Md), generator=g,
+                              device="cuda") < empty
+            cpos = torch.where(drop, torch.full_like(cpos, -1), cpos)
+            kn, vn = rnd(g, (4, Hkv, D), dt), rnd(g, (4, Hkv, D), dt)
+            kw = dict(window=window, new_kv=(kn, vn), return_probs=True)
+            name = f"decode {dn} D 256, {name} at t {clocks} + probs"
+            check_case(name,
+                       decode_attention_cuda(q, ck, cv, cpos, t, **kw)[:2],
+                       decode_attention_torch(q, ck, cv, cpos, t, **kw)[:2],
+                       dn)
+            if window:
+                binds[name] = int(((cpos >= 0) & (t[:, None, None] - cpos
+                                                  >= window)).sum())
+        torch.cuda.empty_cache()
+    for n, c in binds.items():
+        log(f"  {n}: {c} live (lane, kv head, slot) entries the window "
+            f"masks")
+    check_hybrid("decode kernel at D 256",
+                 {f"{n}: the window never binds": int(not c)
+                  for n, c in binds.items()})
+
+    # the RG-LRU scan: h0 != 0, a_log <= 0 as the block makes it
+    W = 2560
+
+    def scan_inputs(B, T, tails=None):
+        a_log = -8.0 * torch.rand((B, T, W), generator=g, device="cuda") \
+            * 0.05
+        bx = torch.randn((B, T, W), generator=g, device="cuda")
+        if tails is not None:
+            keep = (torch.arange(T, device="cuda")[None]
+                    < torch.tensor(tails, device="cuda")[:, None])[..., None]
+            a_log = torch.where(keep, a_log, torch.zeros_like(a_log))
+            bx = torch.where(keep, bx, torch.zeros_like(bx))
+        h0 = torch.randn((B, W), generator=g, device="cuda")
+        return a_log.contiguous(), bx.contiguous(), h0
+
+    scan_err = 0.0
+    for name, B, T, tails in (("T 1", 4, 1, None), ("T 511", 4, 511, None),
+                              (f"T {P}", 2, P, None),
+                              ("T 512, ragged identity tails [512, 300, 1, "
+                               "0]", 4, 512, [512, 300, 1, 0])):
+        args = scan_inputs(B, T, tails)
+        got = rg_lru_scan_cuda(*args)
+        want = rg_lru_scan_torch(*args)
+        scan_err = max(scan_err, check(f"rg_lru_scan float32 {name}", (got,),
+                                       (want,), "float32"))
+        if tails is not None:   # the identity steps carry h unchanged
+            last = got[torch.arange(B), torch.tensor(
+                [max(x - 1, 0) for x in tails], device="cuda")]
+            last[3] = args[2][3]
+            if not torch.equal(got[:, -1], last):
+                raise AssertionError("rg_lru_scan: a padded step changed h")
+        del args, got, want
+
+    # timing at the hybrid phase's shapes
+    out = []
+    B = HYBRID_SHAPE["B"]
+    for dt, name, src, fps in (
+            (torch.bfloat16, "retention_attention",
+             "retention_attention_tc.cu", BF16_FLOPS),
+            (torch.float32, "retention_attention_f32",
+             "retention_attention.cu", FP32_FLOPS)):
+        Hq, Hkv, G, window = 10, 1, 10, 2048
+        (q, k, v, _), kw = _retention_case(g, dt, B, P, P, Hq, Hkv, D, 0,
+                                           window, False)
+        ms = time_ms(lambda i=0: retention_attention_cuda(q, k, v, **kw),
+                     10 if dt == torch.bfloat16 else 3)
+        plain = time_ms(lambda i=0: retention_attention_torch(q, k, v, **kw),
+                        1, warmup=1)
+        dist = (torch.arange(P, device="cuda")[:, None]
+                - torch.arange(P, device="cuda")[None])
+        vis = (dist >= 0) & (dist < window)
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+        vh = v.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+        lib = time_ms(lambda i=0: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=vis), 5)
+        el = q.element_size()
+        n_bytes = 2 * B * P * Hq * D * el + 2 * B * P * Hkv * D * el
+        n_flops = 4 * B * Hq * D * int(vis.sum().item())
+        b_ms, b_by = bound_ms(n_bytes, n_flops, fps)
+        achieved(f"{name} D 256 (G 10, T {P}, window 2048)", ms, n_flops,
+                 b_ms, b_by, lib)
+        out.append({"name": f"{name}_d256", "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{src}",
+                    "replaces": "src/repro/kernels/retention_attention.py:79",
+                    "max_abs_err": errs[("retention", dt)], "ms": ms,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib})
+        del q, k, v, qh, kh, vh, vis, dist
+        torch.cuda.empty_cache()
+    Bc = 4
+    for dt, name, src, fps in (
+            (torch.bfloat16, "chunk_attention", "chunk_attention_tc.cu",
+             BF16_FLOPS),
+            (torch.float32, "chunk_attention_f32", "chunk_attention.cu",
+             FP32_FLOPS)):
+        Hq, Hkv, G, window, t0 = 10, 1, 10, 2048, 4096
+        args = _chunk_case(g, dt, Bc, C, Hq, Hkv, D, M, t0, full, empty=0.0,
+                           lo=t0 - M)
+        ms = time_ms(lambda i=0: chunk_attention_cuda(
+            *args, window=window, need_probs=False),
+            20 if dt == torch.bfloat16 else 10)
+        plain = time_ms(lambda i=0: chunk_attention_torch(
+            *args, window=window, need_probs=False), 3)
+        q, kc, vc, ck, cv, cpos, cp = args
+        keys = torch.cat([ck, kc.transpose(1, 2)], 2).repeat_interleave(G, 1)
+        vals = torch.cat([cv, vc.transpose(1, 2)], 2).repeat_interleave(G, 1)
+        kpos = torch.cat([cpos, cp[:, None].expand(Bc, Hkv, C)], 2)
+        dist = cp[:, None, :, None] - kpos[:, :, None, :]
+        vis = (kpos[:, :, None, :] >= 0) & (dist >= 0) & (dist < window)
+        qh = q.transpose(1, 2).contiguous()
+        mask = vis.repeat_interleave(G, 1)
+        lib = time_ms(lambda i=0: F.scaled_dot_product_attention(
+            qh, keys, vals, attn_mask=mask), 10)
+        el = q.element_size()
+        n_bytes = (2 * Bc * C * Hq * D * el + 2 * Bc * C * Hkv * D * el
+                   + 2 * Bc * Hkv * M * D * el + Bc * Hkv * M * 4 + Bc * C * 4)
+        n_flops = 4 * D * G * int(vis.sum().item())
+        b_ms, b_by = bound_ms(n_bytes, n_flops, fps)
+        achieved(f"{name} D 256 (G 10, B {Bc}, C {C}, M {M}, window 2048)",
+                 ms, n_flops, b_ms, b_by, lib)
+        out.append({"name": f"{name}_d256", "route": "cuda",
+                    "source": f"src/repro_torch/kernels/csrc/{src}",
+                    "replaces": "src/repro/kernels/chunk_attention.py:117",
+                    "max_abs_err": errs[("chunk", dt)], "ms": ms,
+                    "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+                    "library_ms": lib})
+        del args, q, keys, vals, mask, qh
+        torch.cuda.empty_cache()
+    for B, T in ((HYBRID_SHAPE["B"], P), (4, C)):
+        args = scan_inputs(B, T)
+        ms = time_graph_ms(lambda i=0: rg_lru_scan_cuda(*args), 20)
+        plain = time_ms(lambda i=0: rg_lru_scan_torch(*args), 1, warmup=1)
+        n_bytes = 3 * B * T * W * 4 + 2 * B * W * 4
+        b_ms, b_by = bound_ms(n_bytes, 6 * B * T * W, FP32_FLOPS)
+        log(f"  rg_lru_scan B {B}, T {T}, W {W} timing: {ms:.4f} ms = "
+            f"{n_bytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} ms ({b_by}); "
+            f"plain {plain:.3f} ms; library none")
+        if T == P:
+            out.append({"name": "rg_lru_scan", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/"
+                                  "rg_lru_scan.cu",
+                        "replaces": "none: src/repro/models/blocks.py:294 "
+                                    "_rg_lru_scan is an XLA "
+                                    "associative_scan, no Pallas kernel",
+                        "max_abs_err": scan_err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+        del args
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_hybrid(name, violations):
+    """Raise unless every count of the hybrid phase is 0."""
+    bad = {k: v for k, v in violations.items() if v}
+    if bad:
+        raise AssertionError(f"hybrid {name}: {bad}")
+
+
+def hybrid_model(dtype="bfloat16", num_layers=None, seed=90, device="cuda"):
+    """recurrentgemma-2b at full width (num_layers cuts the depth; 3
+    keeps one unit: recurrent, recurrent, local), seeded weights, gates
+    on the local layers with biases ~ U(2, 8), and every recurrent
+    block's conv_b ~ N(0, 0.1) (0 at init, where its path would hold
+    nothing). Returns (cfg, model)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), dtype=dtype)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=seed, device=device)
+    T.init_gate_params(model, cfg, seed=seed + 1)
+    perturb_gates(model, seed=seed + 2)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 3)
+    for block in model.layers:
+        if block.kind == "recurrent":
+            block.conv_b.copy_(0.1 * torch.randn(
+                block.conv_b.shape, generator=g, device=device))
+    kinds = cfg.layer_kinds()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"hybrid: {cfg.name} {cfg.num_layers} layers "
+        f"({kinds.count('recurrent')} recurrent, {kinds.count('local')} "
+        f"local, window {cfg.window}), {cfg.dtype}, {n_params / 1e9:.3f} B "
+        f"parameters, init {time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def step_launches(eng, steps, spec_k=0):
+    """The kernel launches a scheduler's step programs imply (bf16):
+    per replay each cache layer launches the decode kernel once a decode
+    position ((spec_k + 1) a verify round; a cross layer once more, over
+    its memory) and the chunk kernel once a chunk sub-step; each
+    recurrent layer the RG-LRU scan once a chunk sub-step. None on the
+    CPU (the plain versions count none)."""
+    from repro_torch.kernels import ops
+    kinds = eng.cfg.layer_kinds()
+    n_rec = kinds.count("recurrent")
+    n_attn = len(kinds) - n_rec
+    n_dec = n_attn + kinds.count("cross")
+    chunks = steps["chunk"] + steps["mixed"] + steps["spec_mixed"]
+    expect = dict.fromkeys(ops.KERNELS, 0)
+    if eng.device.type != "cuda":
+        return expect
+    expect["decode_attention"] = n_dec * (
+        steps["segment"] + steps["mixed"]
+        + (spec_k + 1) * (steps["spec_segment"] + steps["spec_mixed"]))
+    expect["chunk_attention"] = n_attn * chunks
+    expect["rg_lru_scan"] = n_rec * chunks
+    return expect
+
+
+def oneshot_refs(eng, cfg, reqs, extra_of=lambda r: None):
+    """Each request's one-shot chunked Engine.generate at batch 1 (with
+    extra_of(request) as its extra inputs), and the margin limit of the
+    streams' comparison: CROSS_MARGIN_STEPS bf16 rounding steps at the
+    runs' largest |logit| (MARGIN_TOL admits one at trimkv-paper-4b's
+    logits below 4; these logits may reach the next binade, where one
+    step is 2**-5). Returns (refs, limit)."""
+    oneshot = {r.rid: eng.generate(r.prompt[None], r.max_new, chunked=True,
+                                   extra_inputs=extra_of(r))
+               for r in reqs}
+    top = max(o["logits"][0, :cfg.vocab_size].abs().max().item()
+              for o in oneshot.values())
+    step = 2.0 ** (math.floor(math.log2(top)) - 7)
+    tol = math.nextafter(CROSS_MARGIN_STEPS * step, math.inf)
+    log(f"  one-shot largest |logit| {top:.3f}: one bf16 rounding step "
+        f"{step:g}; margin limit {CROSS_MARGIN_STEPS} steps")
+    return oneshot, tol
+
+
+def stream_line(label, sched, eng, res, reqs, wall, launches):
+    """Log a stream's output tok/s, TTFT, TPOT, counters and launches."""
+    from repro_torch.serve.request import latency_percentiles
+    n_tok = sum(len(res[r.rid].tokens) for r in reqs)
+    ttft = latency_percentiles([res[r.rid].ttft_sec for r in reqs])
+    tpot = latency_percentiles([res[r.rid].tpot_sec for r in reqs])
+    log(f"{label}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+        f"output tok/s; TTFT p50 {ttft['p50'] * 1e3:.1f} ms p99 "
+        f"{ttft['p99'] * 1e3:.1f} ms; TPOT p50 {tpot['p50'] * 1e3:.2f} ms; "
+        f"segments {sched.n_segments}, prefill rounds "
+        f"{sched.n_prefill_rounds}, verify rounds {sched.n_verify_rounds}, "
+        f"swaps {sched.n_swaps}, resumes {sched.n_resumes}, prefix hits "
+        f"{sched.n_prefix_hits}, dispatches {eng.dispatch_count}; steps "
+        f"{sched.steps_run}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+
+def lane_swap_ms(eng, n_lanes, r, extra_inputs=None):
+    """Request r (max_new 64) one step on a fresh scheduler of n_lanes;
+    every lane extracted, scrubbed and resumed (extract_resume_exact);
+    then r's lane swapped out (extract, crc32, put) and resumed (get +
+    verify, install), each timed, beside a recompute: r's chunked
+    prefill at batch 1, warm, median of 3. Returns (swap-out ms, resume
+    ms, recompute ms, the snapshot, the leaves extract -> resume
+    changed)."""
+    from repro_torch.serve.scheduler import Scheduler
+    sched = Scheduler(eng, n_lanes=n_lanes)
+    sched.submit(dataclasses.replace(r, max_new=64))
+    sched.step()
+    leaves = extract_resume_exact(sched.lanes)
+    lane = sched.results[r.rid].lane
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    sched._swap_out([lane])
+    t1 = time.perf_counter()
+    snap = sched.store.get(r.rid)
+    sched.lanes.resume([lane], [snap.state], [snap.tok], [snap.key])
+    _sync(eng.device)
+    t2 = time.perf_counter()
+    sched.close()
+    recompute = _median_ms(lambda: (eng.prefill(
+        r.prompt[None], chunked=True, extra_inputs=extra_inputs),
+        _sync(eng.device)), 3)
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3, recompute, snap, leaves
+
+
+def dispatch_formula(sched):
+    return (sched.n_prefill_rounds + sched.n_segments + sched.n_resets
+            + sched.n_swaps + sched.n_resumes + sched.n_prefix_installs
+            + sched.n_prefix_extracts)
+
+
+def hybrid_oneshot(cfg, model):
+    """recurrentgemma-2b through Engine.generate at HYBRID_SHAPE (a
+    prompt of 4096 past the local window of 2048: the window masks keys
+    in prefill), single-shot and chunked, fused and eager
+    (generate_pairs: exact launches, graphs against eager). Returns its
+    launch counts."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import build_engine
+    sh = HYBRID_SHAPE
+    eng = build_engine(cfg, model, device="cuda", budget=sh["budget"],
+                       prefill_chunk=sh["chunk"])
+    tokens, _, _ = make_batch("copy", 0, sh["B"], sh["P"], cfg.vocab_size)
+    ops.reset_launches()
+    res = generate_pairs(eng, cfg, tokens, f"{cfg.name} {cfg.num_layers} "
+                         f"layers", shape=sh)
+    launches = dict(ops.LAUNCHES)
+    a, b = (res[f"{m} fused"]["ids"] for m in ("single-shot", "chunked"))
+    log(f"{cfg.name}: single-shot and chunked ids (B {sh['B']}, prompt "
+        f"{sh['P']}): {int((a != b).sum())} of {a.size} differ (two kernel "
+        f"routes in bf16)")
+    del eng
+    return launches
+
+
+def hybrid_stream(cfg, model, n_requests=8):
+    """Continuous batching of recurrentgemma-2b in bf16: 4 lanes, budget
+    512, chunks 512, segments 16, prefill_budget 1024, n_requests from
+    poisson_requests (seed 0, prompts 256-2048, max_new 16-48, 8
+    requests/s), phased and interleaved, at spec_k 0 and spec_k 2: every
+    request DONE with its max_new tokens, dispatch_count on the formula,
+    the launches the steps imply (step_launches: the scan kernel once per
+    recurrent layer a chunk sub-step), ids against each request's
+    one-shot run up to CROSS_MARGIN_STEPS, and spec_k 2's ids identical
+    to spec_k 0's of the same mode. Then one lane's swap-out and resume,
+    timed, with extract -> resume bit-exact on every leaf. Returns the
+    phased spec_k 0 run's launch counts."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.graphs import host_row_template
+    from repro_torch.serve.prefix_cache import state_row_bytes
+    from repro_torch.serve.request import Status
+    from repro_torch.serve.scheduler import Scheduler, warm_up
+
+    lanes = 4
+    base = dict(device="cuda", budget=512, prefill_chunk=512,
+                decode_segment=16, prefill_budget=1024, swap_preempt=False)
+    eng = build_engine(cfg, model, **base)
+    reqs = poisson_requests(n_requests, 8.0, vocab=cfg.vocab_size,
+                            prompt_lo=256, prompt_hi=2048, new_lo=16,
+                            new_hi=48, seed=0)
+    row = state_row_bytes(host_row_template(cfg, 512))
+    name = f"{cfg.name} {cfg.num_layers} layers"
+    log(f"hybrid stream {name}: {len(reqs)} requests, prompts "
+        f"{[r.prompt_len for r in reqs]}, max_new "
+        f"{[r.max_new for r in reqs]}; a bf16 lane row {row:,} B")
+    oneshot, tol = oneshot_refs(eng, cfg, reqs)
+    ids, launches_phased = {}, None
+    for spec in (0, SPEC_K):
+        e = eng if spec == 0 else build_engine(cfg, model, spec_k=spec,
+                                               **base)
+        for mode in ("phased", "interleaved"):
+            warm_up(e, lanes, reqs, interleaved=mode == "interleaved")
+        for mode in ("phased", "interleaved"):
+            ops.reset_launches()
+            e.dispatch_count = 0
+            sched = Scheduler(e, n_lanes=lanes,
+                              interleaved=mode == "interleaved")
+            t0 = time.perf_counter()
+            res = sched.run(reqs, respect_arrivals=True)
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            if (spec, mode) == (0, "phased"):
+                launches_phased = launches
+            ids[spec, mode] = {r.rid: res[r.rid].tokens for r in reqs}
+            margin, report = oneshot_margin(res, oneshot, reqs)
+            violations = {
+                "requests not DONE with max_new tokens": sum(
+                    res[r.rid].status is not Status.DONE
+                    or len(res[r.rid].tokens) != r.max_new for r in reqs),
+                "dispatch_count off the formula": int(
+                    e.dispatch_count != dispatch_formula(sched)),
+                "launches off the schedule": int(
+                    launches != step_launches(e, sched.steps_run, spec)),
+                "spec_k 2 ids unlike spec_k 0's": sum(
+                    ids[spec, mode][r] != ids[0, mode][r]
+                    for r in ids[0, mode]),
+                "no verify round": int(spec > 0
+                                       and sched.n_verify_rounds == 0),
+            }
+            stream_line(f"hybrid stream {name} {mode} spec_k {spec}", sched,
+                        e, res, reqs, wall, launches)
+            log(f"  one-shot comparison: {len(report)} of {len(reqs)} "
+                f"requests differ; margin reading {margin:.3e} (limit "
+                f"{tol}): " + ("; ".join(report) if report else "none"))
+            check_stream(f"hybrid {name} {mode} spec_k {spec}", violations,
+                         margin, tol)
+            sched.close()
+        del e
+    # one lane's swap-out and resume, against recomputing its prefill
+    r = reqs[0]
+    out_ms, in_ms, recompute, snap, leaves = lane_swap_ms(eng, lanes, r)
+    rec_bytes = sum(v.nbytes for st in snap.state["layers"]
+                    for k, v in st.items() if k in ("h", "conv"))
+    log(f"hybrid {name}: one lane's swap-out (extract, crc32, put) "
+        f"{out_ms:.2f} ms and resume (get + verify, install) "
+        f"{in_ms:.2f} ms for {row:,} B (its recurrent layers' h "
+        f"and conv {rec_bytes:,} B); "
+        f"a recompute (its chunked prefill at batch 1, warm, "
+        f"{r.prompt_len} tokens) {recompute:.2f} ms")
+    check_hybrid(f"{name} swap", {
+        "leaves not bit-exact after extract and resume": leaves})
+    del eng
+    torch.cuda.empty_cache()
+    return launches_phased
+
+
+def hybrid_parity(num_layers=3):
+    """float32 recurrentgemma-2b at full width cut to one unit (recurrent,
+    recurrent, local), one set of weights on the card (kernels: the scan
+    and the float32 attention kernels at D 256, G 10) and on the CPU
+    (plain versions): Engine.generate at batch 2, a prompt of 300,
+    single-shot and chunked (chunks of 64), budget 64, then the lane
+    scheduler (3 lanes, priority order, swap preemption: 5 requests,
+    prompts 40-150, one better-ranked after the first step), phased and
+    interleaved (traced_drain): ids exact, slot positions equal after
+    every step, logits within TOL of the largest |logit|. Returns the
+    card's launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.request import Request
+
+    cfg, gpu = hybrid_model("float32", num_layers=num_layers, seed=95)
+    cpu = copy.deepcopy(gpu).to("cpu")
+    serve = dict(budget=64, prefill_chunk=64, decode_segment=4,
+                 sched_policy="priority")
+    total = dict.fromkeys(ops.KERNELS, 0)
+    tokens, _, _ = make_batch("copy", 1, 2, 300, cfg.vocab_size)
+    for chunked in (False, True):
+        outs = {}
+        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+            eng = build_engine(cfg, model, device=dev, **serve)
+            ops.reset_launches()
+            outs[dev] = eng.generate(tokens, 16, chunked=chunked)
+            if dev == "cuda":
+                total = {k: total[k] + ops.LAUNCHES[k] for k in total}
+        g, c = outs["cuda"], outs["cpu"]
+        gap = ((g["logits"].cpu() - c["logits"]).abs().max()
+               / c["logits"].abs().max()).item()
+        flips = sum(int((a["pos"].cpu() != b["pos"]).sum()) for a, b in zip(
+            cache_layers(g["state"]), cache_layers(c["state"])))
+        h_gap = max(((a["h"].cpu() - b["h"]).abs().max()
+                     / b["h"].abs().max()).item()
+                    for a, b in zip(g["state"]["layers"],
+                                    c["state"]["layers"]) if "h" in a)
+        label = (f"hybrid parity {cfg.name} {num_layers} layers float32 "
+                 f"{'chunked' if chunked else 'single-shot'}")
+        log(f"{label}: card vs CPU: {int((g['ids'] != c['ids']).sum())} ids "
+            f"and {flips} slot positions differ, logits |diff| / max |logit| "
+            f"{gap:.3e}, h |diff| / max |h| {h_gap:.3e} "
+            f"(tol {TOL['float32']})")
+        check_hybrid(label, {
+            "ids that differ": int((g["ids"] != c["ids"]).sum()),
+            "slot positions that differ": flips,
+            "logits beyond TOL": int(not gap <= TOL["float32"]),
+            "h beyond TOL": int(not h_gap <= TOL["float32"])})
+    rng = np.random.RandomState(6)
+    reqs = [Request(rid=i, prompt=rng.randint(0, cfg.vocab_size, n),
+                    max_new=m, seed=i, priority=pr)
+            for i, (n, m, pr) in enumerate([(150, 12, 0), (97, 10, 0),
+                                            (64, 9, 0), (40, 6, 3),
+                                            (120, 5, 0)])]
+    for mode, kw in (("phased", {}), ("interleaved", {"interleaved": True})):
+        runs = {}
+        for dev, model in (("cuda", gpu), ("cpu", cpu)):
+            eng = build_engine(cfg, model, device=dev, **serve)
+            ops.reset_launches()
+            with torch.no_grad():
+                runs[dev] = traced_drain(eng, 3, reqs[:3], kw, reqs[3:])
+            if dev == "cuda":
+                launches = dict(ops.LAUNCHES)
+                total = {k: total[k] + launches[k] for k in total}
+            del eng
+        res, trace = runs["cuda"]
+        runs["cuda"] = res, [([p.cpu() for p in pos], logits.cpu(),
+                              [a.cpu() for a in aux])
+                             for pos, logits, aux in trace]
+        twins = twin_readings(runs["cuda"], runs["cpu"], cfg.vocab_size)
+        label = f"hybrid parity {cfg.name} {num_layers} layers float32 {mode}"
+        log(f"{label}: card vs CPU over {len(runs['cpu'][1])} scheduler "
+            f"steps: {twins['ids differ']} requests' ids and "
+            f"{twins['slot positions differ']} slot positions differ, "
+            f"logits |diff| / max |logit| {twins['logit gap']:.3e} (tol "
+            f"{TOL['float32']}); card launches "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        check_hybrid(label, {
+            "requests whose ids differ": twins["ids differ"],
+            "slot positions that differ": twins["slot positions differ"],
+            "logits beyond TOL": int(not twins["logit gap"]
+                                     <= TOL["float32"]),
+            "no launch on the card": int(not launches["rg_lru_scan"]
+                                         or not launches[
+                                             "chunk_attention_f32"]),
+        })
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return total
+
+
+def hybrid_phase():
+    """The hybrid family: recurrentgemma-2b at full width and depth (26
+    layers, bf16) one-shot (hybrid_oneshot) and streamed
+    (hybrid_stream), then float32 card-vs-CPU parity at one unit
+    (hybrid_parity). Returns ({kernel: launches} of the one-shot calls
+    and the phased stream, of the float32 parity)."""
+    import torch
+    with timed("hybrid one-shot"):
+        cfg, model = hybrid_model()
+        launches = hybrid_oneshot(cfg, model)
+    with timed("hybrid stream"):
+        stream = hybrid_stream(cfg, model)
+    launches = {k: launches[k] + stream[k] for k in launches}
+    del model
+    torch.cuda.empty_cache()
+    with timed("hybrid parity"):
+        f32 = hybrid_parity()
+    return launches, f32
+
+
+# gemma3-12b: one whole unit of its pattern (5 local layers of window
+# 1024, one global), budget 2048 so the layers' M differ (1024 local,
+# 2048 global), prompts past the window
+GEMMA3_LAYERS = 6
+GEMMA3_SHAPE = dict(B=4, P=2048, N=32, chunk=512, budget=2048)
+
+
+def gemma3_stream(cfg, model, n_requests=6):
+    """gemma3-12b in bf16 with layers of two M (1024 local, 2048
+    global) through every lane buffer: 4 lanes, chunks 512, segments
+    16, the prefix cache on (1 GiB, prefix_min_tokens 512) and spec_k 2,
+    priority order with swap preemption; a shared-prefix trace
+    (poisson_requests seed 0, 2 pools of 1024 tokens, user turns 64-464,
+    max_new 16-48, 16 more for the first four): four priority-0
+    requests, one step, then the rest at priority 1, phased and
+    interleaved. Every request DONE with its max_new tokens,
+    dispatch_count on the formula, the launches the steps imply, a
+    prefix hit, ids against one-shot runs up to CROSS_MARGIN_STEPS; the
+    phased run swaps and resumes a lane, and extract -> resume is
+    bit-exact on every leaf (the CUDA graphs, the store's rows, the
+    prefix rows and the verify scratch all hold both M)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import poisson_requests
+    from repro_torch.serve.engine import build_engine
+    from repro_torch.serve.prefix_cache import PrefixCache
+    from repro_torch.serve.request import Status
+    from repro_torch.serve.scheduler import Scheduler, warm_up
+
+    sh = GEMMA3_SHAPE
+    eng = build_engine(cfg, model, device="cuda", budget=sh["budget"],
+                       prefill_chunk=sh["chunk"], decode_segment=16,
+                       spec_k=SPEC_K, prefix_cache_bytes=PREFIX_TRIE_BYTES,
+                       prefix_min_tokens=512, sched_policy="priority")
+    reqs = poisson_requests(n_requests, 8.0, vocab=cfg.vocab_size,
+                            prompt_lo=64, prompt_hi=464, new_lo=16,
+                            new_hi=48, seed=0, prefix_pools=2,
+                            prefix_len=1024)
+    # the first four still decode after the first step's segment of 16
+    # (max_new over 16), so a priority-1 arrival preempts a lane
+    reqs = [dataclasses.replace(r, priority=int(i >= 4),
+                                max_new=r.max_new + 16 * int(i < 4))
+            for i, r in enumerate(reqs)]
+    name = f"{cfg.name} {cfg.num_layers} layers"
+    Ms = sorted({st["pos"].shape[-1] for st in cache_layers(
+        eng.fresh_state(1))})
+    log(f"gemma3 stream {name}: layer M {Ms}, {len(reqs)} requests, "
+        f"prompts {[r.prompt_len for r in reqs]}, max_new "
+        f"{[r.max_new for r in reqs]}")
+    oneshot, tol = oneshot_refs(eng, cfg, reqs)
+    for mode in ("phased", "interleaved"):
+        warm_up(eng, 4, reqs, interleaved=mode == "interleaved")
+    launches_phased = None
+    for mode in ("phased", "interleaved"):
+        eng.prefix_cache = PrefixCache(PREFIX_TRIE_BYTES)      # cold
+        ops.reset_launches()
+        eng.dispatch_count = 0
+        sched = Scheduler(eng, n_lanes=4, interleaved=mode == "interleaved")
+        t0 = time.perf_counter()
+        for r in reqs[:4]:
+            sched.submit(r)
+        sched.step()
+        leaves = extract_resume_exact(sched.lanes)
+        for r in reqs[4:]:
+            sched.submit(r)
+        res = sched.run()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        if mode == "phased":
+            launches_phased = launches
+        margin, report = oneshot_margin(res, oneshot, reqs)
+        violations = {
+            "requests not DONE with max_new tokens": sum(
+                res[r.rid].status is not Status.DONE
+                or len(res[r.rid].tokens) != r.max_new for r in reqs),
+            "dispatch_count off the formula": int(
+                eng.dispatch_count != dispatch_formula(sched)),
+            "launches off the schedule": int(
+                launches != step_launches(eng, sched.steps_run, SPEC_K)),
+            "no prefix hit": int(sched.n_prefix_hits == 0),
+            "no verify round": int(sched.n_verify_rounds == 0),
+            "no swap and resume": int(mode == "phased" and (
+                sched.n_swaps == 0 or sched.n_resumes == 0)),
+            "leaves not bit-exact after extract and resume": leaves,
+        }
+        stream_line(f"gemma3 stream {name} {mode}", sched, eng, res, reqs,
+                    wall, launches)
+        log(f"  one-shot comparison: {len(report)} of {len(reqs)} requests "
+            f"differ; margin reading {margin:.3e} (limit {tol}): "
+            + ("; ".join(report) if report else "none"))
+        check_stream(f"gemma3 {name} {mode}", violations, margin, tol)
+        sched.close()
+    return launches_phased
+
+
 def train_phase(kernel_ms):
     """Three distillation steps of trimkv-paper-4b at full width on the
     card. Returns the launch counts of the run."""
@@ -4215,6 +5005,10 @@ def main() -> int:
         moe_kernel_phase(g)
         log("kernels at mixtral-8x7b's shape (D 128, G 4, window 4096):")
         mixtral_kernel_cases(g)
+        torch.cuda.empty_cache()
+        log("kernels at head dim 256 (recurrentgemma-2b G 10, gemma3-12b "
+            "G 2) and the RG-LRU scan:")
+        kernels += hybrid_kernel_phase(g)
     with timed("capacity"):
         kernels += capacity_phase(g)
     torch.cuda.empty_cache()
@@ -4250,12 +5044,27 @@ def main() -> int:
         for k in ("decode_attention", "chunk_attention",
                   "chunk_attention_f32"):
             launches[k] += life[k]
-        # a dense config of another width and GQA group, with qkv biases
-        with timed("qwen2.5-14b"):
-            dense = dense_config_phase()
+        # dense configs of other widths and GQA groups: qkv biases, and
+        # gemma3-12b's head dim 256 with layers of two M
+        with timed("qwen2.5-14b, gemma3-12b"):
+            dense, gemma3 = dense_config_phase()
         for k in ("decode_attention", "chunk_attention",
                   "retention_attention"):
-            launches[k] += dense[k]
+            launches[k] += dense[k] + gemma3[k]
+        # the hybrid family (recurrentgemma-2b): the RG-LRU scan kernel,
+        # the attention kernels at head dim 256
+        hybrid, hybrid_f32 = hybrid_phase()
+        for k in ("decode_attention", "chunk_attention",
+                  "retention_attention", "rg_lru_scan"):
+            launches[k] += hybrid[k]
+        for k in ("decode_attention", "chunk_attention_f32",
+                  "retention_attention_f32", "rg_lru_scan"):
+            launches[k] += hybrid_f32[k]
+        # the D-256 variants' main paths: gemma3-12b and the hybrid phase
+        for k in ("chunk_attention", "retention_attention"):
+            launches[k + "_d256"] = gemma3[k] + hybrid[k]
+        for k in ("chunk_attention_f32", "retention_attention_f32"):
+            launches[k + "_d256"] = hybrid_f32[k]
         # the cross-memory families (vlm, encdec)
         cross = cross_phase()
         for k in ("decode_attention", "chunk_attention",

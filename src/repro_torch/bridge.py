@@ -13,7 +13,11 @@ block's ``normx``, ``xattn`` and ``xgate``. An MoE block's ``ffn`` is
 {"router": {"w": [d, E]}, "gate_w", "up_w": [E, d, f], "down_w":
 [E, f, d]}, the port's layout too (nothing is transposed). A cross
 layer's memory slab is [B, S, Hkv, D] in the JAX decode state and
-[B, Hkv, S, D] in the port's.
+[B, Hkv, S, D] in the port's. A recurrent block (hybrid family) holds
+in_x, in_gate, lru_wa, lru_wx and out as dense layers, conv_w
+[conv_width, W], conv_b and the float32 lru_lam as they are, and no
+gate (its gates subtree is None); its state {h, conv} has one layout
+in both.
 """
 from __future__ import annotations
 
@@ -87,6 +91,14 @@ def params_from_jax(np_tree, cfg, *, device="cuda") -> Transformer:
 def _copy_block(block, p):
     _copy(block.norm1.scale, p["norm1"]["scale"])
     _copy(block.norm2.scale, p["norm2"]["scale"])
+    if block.kind == "recurrent":
+        for name in ("in_x", "in_gate", "lru_wa", "lru_wx", "out"):
+            _copy_dense(getattr(block, name), p[name])
+        for name in ("conv_w", "conv_b", "lru_lam"):
+            _copy(getattr(block, name), p[name])
+        for name in ("gate", "up", "down"):
+            _copy_dense(getattr(block.ffn, name), p["ffn"][name])
+        return
     for name in ("wq", "wk", "wv", "wo"):
         _copy_dense(getattr(block.attn, name), p["attn"][name])
     if "router" in p["ffn"]:

@@ -204,28 +204,21 @@ ARCH_IDS = (
 )
 
 # architectures whose config module the port carries: the dense GQA
-# configs of head dim 128, the two cross-memory families and the two
-# MoE configs
+# configs, the two cross-memory families, the two MoE configs and the
+# hybrid (RG-LRU + local attention) config
 PORTED_ARCHS = ("trimkv-paper-4b", "qwen2.5-14b", "codeqwen1.5-7b",
-                "minitron-8b", "llama-3.2-vision-90b",
+                "minitron-8b", "gemma3-12b", "llama-3.2-vision-90b",
                 "seamless-m4t-large-v2", "granite-moe-3b-a800m",
-                "mixtral-8x7b")
-# why an architecture the port carries no config of is refused
-_REFUSED = {
-    "gemma3-12b": "its head dim 256 exceeds what the prefill kernels take "
-                  "(the tensor-core kernels 64 or 128, the float32 ones "
-                  "at most 128)",
-}
+                "mixtral-8x7b", "recurrentgemma-2b")
 
 
 def _module(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in PORTED_ARCHS:
-        why = _REFUSED.get(arch_id)
         raise NotImplementedError(
-            f"arch {arch_id!r} is not ported to repro_torch yet"
-            + (f": {why}" if why else "") + f"; ported: {PORTED_ARCHS}")
+            f"arch {arch_id!r} is not ported to repro_torch yet; "
+            f"ported: {PORTED_ARCHS}")
     name = arch_id.replace("-", "_").replace(".", "_")
     return importlib.import_module(f"repro_torch.configs.{name}")
 

@@ -8,7 +8,9 @@ Unlike the JAX original, ``cache_insert`` updates the cache IN PLACE:
 it writes the victim slot of each (lane, kv head) and nothing else, and
 returns the same dict; so do ``reset_lanes``, ``scrub_lanes`` and
 ``cache_replay`` (speculative decoding's commit). ``cache_topm_merge``
-builds new tensors.
+builds new tensors. ``reset_lanes`` and ``scrub_lanes`` take any layer
+state (a slot cache, with a cross layer's memory, or a recurrent
+layer's {h, conv}).
 """
 from __future__ import annotations
 
@@ -59,39 +61,48 @@ def _first_argmin(scores):
     return idx, low
 
 
-# the leaves a quarantine zeroes besides the reset's metadata: the bulk
-# K/V bytes of the slot cache and of a cross layer's memory slab (the
-# JAX package's LANE_PAYLOAD_LEAVES)
+# a retired lane's fill of each layer-state leaf (the JAX package's
+# LANE_RESET_FILLS): slot metadata invalidated (pos -1 makes a slot
+# invisible everywhere; mem_len 0 makes a cross layer's memory slab
+# unreadable), a recurrent layer's h and conv zeroed
+LANE_RESET_FILLS = {"pos": -1, "beta": 1.0, "aux": 0.0, "h": 0.0,
+                    "conv": 0.0, "mem_len": 0}
+# the leaves a quarantine zeroes besides the reset's: the bulk K/V bytes
+# of the slot cache and of a cross layer's memory slab (the JAX
+# package's LANE_PAYLOAD_LEAVES)
 PAYLOAD_LEAVES = ("k", "v", "xk", "xv")
 
 
-def reset_lanes(cache, lane_mask):
-    """Clear the masked lanes' slots in place: pos := -1, beta := 1,
-    aux := 0, and a cross layer's memory length mem_len := 0 (its slab
-    becomes unreadable). K/V and memory bytes stay: a slot with pos < 0
-    is invisible to every attention read and scores -1e30 in eviction.
+def _fill_lanes(state, lane_mask, fills):
+    """state[name][lanes of lane_mask] := fill for each (name, fill) the
+    state holds, in place."""
+    for name, fill in fills:
+        if name in state:
+            v = state[name]
+            v.masked_fill_(lane_mask.reshape((-1,) + (1,) * (v.ndim - 1)),
+                           fill)
+
+
+def reset_lanes(state, lane_mask):
+    """Retire the masked lanes of one layer state in place, with
+    LANE_RESET_FILLS: a slot cache's pos := -1, beta := 1, aux := 0, a
+    cross layer's memory length mem_len := 0, a recurrent layer's h and
+    conv := 0. K/V and memory bytes stay: a slot with pos < 0 is
+    invisible to every attention read and scores -1e30 in eviction.
     lane_mask: [B] bool. Other lanes are untouched. Returns the same
     dict."""
-    m = lane_mask[:, None, None]
-    cache["pos"].masked_fill_(m, -1)
-    cache["beta"].masked_fill_(m, 1.0)
-    cache["aux"].masked_fill_(m, 0.0)
-    if "mem_len" in cache:
-        cache["mem_len"].masked_fill_(lane_mask, 0)
-    return cache
+    _fill_lanes(state, lane_mask, LANE_RESET_FILLS.items())
+    return state
 
 
-def scrub_lanes(cache, lane_mask):
+def scrub_lanes(state, lane_mask):
     """reset_lanes plus zeroed K/V (and memory slab) in the masked lanes
     (the quarantine primitive: a NaN payload byte would survive the
-    metadata reset, since 0 x NaN = NaN in the p @ v product). In
-    place."""
-    reset_lanes(cache, lane_mask)
-    m = lane_mask[:, None, None, None]
-    for name in PAYLOAD_LEAVES:
-        if name in cache:
-            cache[name].masked_fill_(m, 0)
-    return cache
+    metadata reset, since 0 x NaN = NaN in the p @ v product; a NaN h is
+    zeroed by the reset itself). In place."""
+    reset_lanes(state, lane_mask)
+    _fill_lanes(state, lane_mask, ((n, 0) for n in PAYLOAD_LEAVES))
+    return state
 
 
 def memory_pos(mem_len, S: int):

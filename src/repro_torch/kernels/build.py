@@ -29,7 +29,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # head dims of the tensor-core (bfloat16) attention kernels
-TC_HEAD_DIMS = (64, 128)
+TC_HEAD_DIMS = (64, 128, 256)
+# the largest head dim of the float32 attention kernels (held as 128 or
+# 256, f32_flash.cuh)
+F32_MAX_HEAD_DIM = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types; each returns cudaError_t
@@ -41,6 +44,7 @@ SIGNATURES = {
     "retention_attention_tc_launch": [_P] * 5 + [_I] * 9 + [_P],
     "capacity_loss_fwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "rg_lru_scan_launch": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 _lib = None
@@ -163,7 +167,18 @@ def check_tc(D, **tensors):
     pointers 16-byte aligned, as TMA needs."""
     if D not in TC_HEAD_DIMS:
         raise ValueError(f"the bfloat16 kernels take head dim "
-                         f"{' or '.join(map(str, TC_HEAD_DIMS))}, got {D}")
+                         f"{', '.join(map(str, TC_HEAD_DIMS))}, got {D}")
+    check_aligned(**tensors)
+
+
+def check_f32(name, D, **tensors):
+    """Raise unless the float32 attention kernel ``name`` takes these
+    (contiguous, already checked) tensors: a head dim of at most
+    F32_MAX_HEAD_DIM in multiples of 4, base pointers 16-byte aligned,
+    as cp.async copies them."""
+    if D > F32_MAX_HEAD_DIM or D % 4:
+        raise ValueError(f"the float32 {name} kernel takes head dim <= "
+                         f"{F32_MAX_HEAD_DIM} in multiples of 4, got {D}")
     check_aligned(**tensors)
 
 

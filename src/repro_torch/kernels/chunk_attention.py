@@ -4,11 +4,11 @@ wrapper and its plain PyTorch version.
 Replaces the Pallas kernel ``chunk_attention_pallas``
 (``repro/kernels/chunk_attention.py``) with two CUDA kernels, one per
 dtype: bfloat16 runs ``csrc/chunk_attention_tc.cu`` (wgmma and TMA on
-the tensor cores, head dim 64 or 128), float32 runs
+the tensor cores, head dim 64, 128 or 256), float32 runs
 ``csrc/chunk_attention.cu`` (full float32 FMAs on the CUDA cores,
 register-blocked like an SGEMM on the tile step of the float32
 retention kernel; one CTA serves the q heads of a kv head together;
-head dim at most 128). The C queries of a
+head dim at most 256). The C queries of a
 prefill chunk attend over the M cache slots (per-head positions, -1
 empty) and causally over the chunk's own keys. A key is visible iff
 its position is >= 0 and 0 <= q_pos - k_pos (< window when windowed);
@@ -28,15 +28,23 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-# query rows a CTA of the float32 kernel holds (csrc/chunk_attention.cu)
+# query rows a CTA of the float32 kernel holds at head dim <= 128
+# (csrc/f32_flash.cuh, Tile<128>)
 F32_ROWS = 128
 
 
-def row_plan(C: int, G: int) -> tuple[int, int]:
+def f32_tile(D: int) -> tuple[int, int]:
+    """(query rows a CTA holds, keys a tile) of the float32 kernels at
+    head dim D: the tile step holds 128 dims (128 rows, 64 keys) or, for
+    D > 128, 256 (64 rows, 32 keys)."""
+    return (F32_ROWS, 64) if D <= 128 else (64, 32)
+
+
+def row_plan(C: int, G: int, D: int = 128) -> tuple[int, int]:
     """(positions per CTA, row tiles) of the float32 kernel for a chunk
-    of C positions and G q heads per kv head: a CTA holds the G heads of
-    BQ = F32_ROWS // G positions, as F32_ROWS rows."""
-    bq = F32_ROWS // G
+    of C positions, G q heads per kv head and head dim D: a CTA holds the
+    G heads of BQ = rows // G positions (f32_tile)."""
+    bq = f32_tile(D)[0] // G
     return bq, -(-C // bq)
 
 
@@ -81,12 +89,13 @@ def chunk_attention_torch(q, k_c, v_c, cache_k, cache_v, cache_pos,
 def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
                          chunk_pos, *, window=0, need_probs=True):
     """Launch the kernel of q's dtype: bfloat16
-    ``csrc/chunk_attention_tc.cu`` (head dim 64 or 128, 16-byte-aligned
-    tensors, as TMA reads them; M + C up to ~8,000 keys, the positions
-    it keeps in shared memory), float32 ``csrc/chunk_attention.cu``
-    (head dim at most 128 and a multiple of 4, 16-byte-aligned tensors,
-    as cp.async copies them; M + C up to ~225,000 keys, a flag and a
-    list entry per 64-key tile in shared memory). Same contract as the
+    ``csrc/chunk_attention_tc.cu`` (head dim 64, 128 or 256,
+    16-byte-aligned tensors, as TMA reads them; M + C up to ~8,000 keys
+    at D 128, the positions it keeps in shared memory), float32
+    ``csrc/chunk_attention.cu`` (head dim at most 256 and a multiple of
+    4, 16-byte-aligned tensors, as cp.async copies them; M + C up to
+    ~225,000 keys at D 128, a flag and a list entry per key tile in
+    shared memory). Same contract as the
     plain version; every tensor must be a contiguous CUDA tensor, q/k/v
     and the cache in one dtype, positions int32."""
     build.check_device(q)
@@ -118,19 +127,19 @@ def chunk_attention_cuda(q, k_c, v_c, cache_k, cache_v, cache_pos,
         err = build.library().chunk_attention_tc_launch(
             *ptrs, B, C, Hq, Hkv, M, D, int(window), stream)
     else:
-        if D > 128 or D % 4 or Hq // Hkv > F32_ROWS:
-            raise ValueError(f"the float32 chunk kernel takes head dim "
-                             f"<= 128 in multiples of 4 and at most "
-                             f"{F32_ROWS} q heads per kv head, got D={D}, "
+        rows, keys = f32_tile(D)
+        if Hq // Hkv > rows:
+            raise ValueError(f"the float32 chunk kernel takes at most "
+                             f"{rows} q heads per kv head at D={D}, got "
                              f"Hq={Hq}, Hkv={Hkv}")
-        build.check_aligned(**tensors)
+        build.check_f32("chunk", D, **tensors)
         # the running max of each row after each cache tile, for the
         # probabilities' final rescale
-        pmax = (torch.empty((B, Hq, C, -(-M // 64)), dtype=torch.float32,
+        pmax = (torch.empty((B, Hq, C, -(-M // keys)), dtype=torch.float32,
                             device=dev) if need_probs else None)
         err = build.library().chunk_attention_launch(
             *ptrs, None if pmax is None else pmax.data_ptr(), B, C, Hq, Hkv,
-            M, D, row_plan(C, Hq // Hkv)[0], int(window), stream)
+            M, D, row_plan(C, Hq // Hkv, D)[0], int(window), stream)
     build.check(err, "chunk_attention")
     if not need_probs:
         return out, None

@@ -11,7 +11,8 @@
 // when windowed); padded queries (chunk_pos = -1) see nothing and give
 // zero. Optional normalized probabilities over the cache slots, per q
 // head [B, Hq, C, M]; the wrapper averages them over each GQA group.
-// Head dim D <= 128, a multiple of 4; any G = Hq / Hkv up to 128.
+// Head dim D <= 256, a multiple of 4 (the tile step holds 128 or 256
+// dims); any G = Hq / Hkv up to the tile's rows (128, or 64 at D > 128).
 //
 // Bound on the H100: operations. At the main-path shape (B=4, C=512,
 // Hq=32, Hkv=8, M=512, D=128) a full cache and a causal chunk give
@@ -44,6 +45,10 @@
 // rescales them by exp2(m_tile - m_final) / l and writes 0 for the
 // tiles never loaded.
 //
+// At head dim 256 (recurrentgemma-2b, gemma3-12b) the step holds 256
+// dims, the CTA 64 rows (BQ = 64 / G positions) and the tiles 32 keys
+// (f32_flash.cuh, Tile<256>); pmax then has ceil(M / 32) columns.
+//
 // What it leaves on the table: the float32 retention kernel's limits
 // (one CTA of 8 warps per SM, so barriers and shared-memory latency idle
 // the FFMA pipes); the diagonal chunk tile of a row tile computes its
@@ -59,9 +64,11 @@ using namespace f32flash;
 // denominators and maxima, and (as ints) the tile's key positions,
 // double-buffered, and the query positions; the tile flags and the walk
 // list follow, (2 n_tiles + 1) ints
-constexpr size_t SMEM_FIXED = TILE_FLOATS + 3 * BR + 2 * BK + BR;
+template <class K>
+constexpr size_t SMEM_FIXED = K::TILE_FLOATS + 3 * K::BR + 2 * K::BK + K::BR;
 constexpr int VISIBLE = 1, WHOLE = 2;
 
+template <int DP>
 __global__ void __launch_bounds__(NTH, 1)
 chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
                  const float *__restrict__ v_c,
@@ -72,6 +79,9 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
                  float *__restrict__ probs, float *__restrict__ pmax, int C,
                  int Hq, int Hkv, int M, int D, int BQ, int window,
                  float scale) {
+  using K = Tile<DP>;
+  constexpr int BR = K::BR, BK = K::BK, QLD = K::QLD, PLD = K::PLD,
+                RI = K::RI, SJ = K::SJ, OC = K::OC;
   extern __shared__ __align__(16) float smem_f[];
   float *sq = smem_f;               // [BR][QLD]
   float *sk0 = sq + BR * QLD;       // [2][BK][QLD]  K, double-buffered
@@ -102,7 +112,7 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
   const int *cpos = cache_pos + (long)bh * M;
   const int *kpos_c = chunk_pos + (long)b * C;
 
-  load_q(sq, q, b, C, c0, Hq, kvh, G, n_rows, D);
+  load_q<K>(sq, q, b, C, c0, Hq, kvh, G, n_rows, D);
   flash::cp_async_commit();
 
   // which tiles any row sees, and which every row sees whole
@@ -156,7 +166,7 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
   auto load_k = [&](int n) {
     const int t = s_list[n];
     const Tile x = tile(t);
-    load_keys(sk0 + (n & 1) * BK * QLD, QLD, (t < n_mt ? cache_k : k_c) + x.row0,
+    load_keys<K>(sk0 + (n & 1) * BK * QLD, QLD, (t < n_mt ? cache_k : k_c) + x.row0,
               x.ld, x.valid, D);
     if (tid < BK)
       cp_async4(s_kp0 + (n & 1) * BK + tid, x.pos + (tid < x.valid ? tid : 0),
@@ -166,13 +176,13 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
   flash::cp_async_commit();             // the first K
 
   const int srg = warp * 2 + (lane >> 4), skg = lane & 15;
-  float m[8], l[8], o[8][8];
+  float m[RI], l[RI], o[RI][OC];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < OC; ++c) o[i][c] = 0.f;
   }
   // the probability row of row r: probs / pmax [b, kvh * G + r % G, c0 + r / G]
   auto prow = [&](int r) {
@@ -189,29 +199,29 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
     // every warp is done with S(n - 1) (K's other buffer) and with
     // P.V(n - 1) (V and P^T)
     __syncthreads();
-    load_keys(sv, DP, (is_cache ? cache_v : v_c) + x.row0, x.ld, x.valid, D);
+    load_keys<K>(sv, DP, (is_cache ? cache_v : v_c) + x.row0, x.ld, x.valid, D);
     flash::cp_async_commit();
     if (n + 1 < n_vis) load_k(n + 1);
     flash::cp_async_commit();
 
-    float s[8][4];
-    qk(sq, sk, srg, skg, s);
+    float s[RI][SJ];
+    qk<K>(sq, sk, srg, skg, s);
 
     const bool edge = !(s_flag[t] & WHOLE);
-    float alpha[8];
+    float alpha[RI];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float xs[4];
-      unsigned ok = 0xfu;
+    for (int i = 0; i < RI; ++i) {
+      float xs[SJ];
+      unsigned ok = (1u << SJ) - 1;
       if (!edge) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) xs[j] = s[i][j] * scale2;
+        for (int j = 0; j < SJ; ++j) xs[j] = s[i][j] * scale2;
       } else {
         const int r = srg + 16 * i;
         const int qp = r < n_rows ? s_qpos[r / G] : -1;
         ok = 0u;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < SJ; ++j) {
           const int key = skg + 16 * j;
           const int kp = s_kp[key];
           const int dist = qp - kp;
@@ -223,17 +233,17 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
       }
       alpha[i] = softmax_row(xs, ok, s[i], m[i], l[i]);
     }
-    store_p(sp, s_alpha, s, alpha, srg, skg);
+    store_p<K>(sp, s_alpha, s, alpha, srg, skg);
     if (want_probs && is_cache && skg == 0) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const int r = srg + 16 * i;
         if (r < n_rows) pmax[prow(r) * n_mt + t] = m[i];
       }
     }
     flash::cp_async_wait<1>();  // V(n); K(n + 1) may be in flight
     __syncthreads();
-    pv(o, sp, sv, s_alpha, srg, skg);
+    pv<K>(o, sp, sv, s_alpha, srg, skg);
     if (want_probs && is_cache) {  // raw exp2(x - m_tile), rescaled below
       for (int e = tid; e < BR * BK; e += NTH) {
         const int r = e / BK, j = e - r * BK;
@@ -246,13 +256,13 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
 
   if (skg == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RI; ++i) {
       s_l[srg + 16 * i] = l[i];
       s_m[srg + 16 * i] = m[i];
     }
   }
   __syncthreads();
-  store_out(out, o, s_l, b, C, c0, Hq, kvh, G, n_rows, D, srg, skg);
+  store_out<K>(out, o, s_l, b, C, c0, Hq, kvh, G, n_rows, D, srg, skg);
   if (want_probs) {
     for (int e = tid; e < n_rows * M; e += NTH) {
       const int r = e / M, key = e - r * M, t = key / BK;
@@ -266,27 +276,51 @@ chunk_f32_kernel(const float *__restrict__ q, const float *__restrict__ k_c,
   }
 }
 
+template <int DP>
+cudaError_t launch(const void *q, const void *k_c, const void *v_c,
+                   const void *cache_k, const void *cache_v,
+                   const void *cache_pos, const void *chunk_pos, void *out,
+                   void *probs, void *pmax, int B, int C, int Hq, int Hkv,
+                   int M, int D, int bq, int window, cudaStream_t stream) {
+  using K = Tile<DP>;
+  if (bq * (Hq / Hkv) > K::BR) return cudaErrorInvalidValue;
+  const int n_tiles = (M + K::BK - 1) / K::BK + (C + K::BK - 1) / K::BK;
+  const size_t smem =
+      SMEM_FIXED<K> * sizeof(float) + (2 * n_tiles + 1) * sizeof(int);
+  if (smem > 232448) return cudaErrorInvalidValue;
+  const int grid = B * Hkv * ((C + bq - 1) / bq);
+  if (grid == 0) return cudaSuccess;
+  cudaError_t err = flash::allow_smem((const void *)chunk_f32_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  chunk_f32_kernel<DP><<<grid, NTH, smem, stream>>>(
+      (const float *)q, (const float *)k_c, (const float *)v_c,
+      (const float *)cache_k, (const float *)cache_v, (const int *)cache_pos,
+      (const int *)chunk_pos, (float *)out, (float *)probs, (float *)pmax, C,
+      Hq, Hkv, M, D, bq, window, 1.0f / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// q, k_c, v_c float32 [B, C, H*, D]; cache_k, cache_v [B, Hkv, M, D];
+// D <= 256 a multiple of 4 (held as 128 or 256); all contiguous and
+// 16-byte aligned; bq chunk positions a CTA (row_plan); probs [B, Hq, C,
+// M] and pmax [B, Hq, C, ceil(M / BK)] (BK 64, or 32 at D > 128) or
+// both null. Returns a cudaError_t.
 extern "C" int chunk_attention_launch(
     const void *q, const void *k_c, const void *v_c, const void *cache_k,
     const void *cache_v, const void *cache_pos, const void *chunk_pos,
     void *out, void *probs, void *pmax, int B, int C, int Hq, int Hkv, int M,
     int D, int bq, int window, void *stream) {
-  if (D > DP || D % 4 != 0 || Hq % Hkv != 0 || bq < 1 ||
-      bq * (Hq / Hkv) > BR || (probs != nullptr && pmax == nullptr))
+  if (D > 256 || D % 4 != 0 || Hq % Hkv != 0 || bq < 1 ||
+      (probs != nullptr && pmax == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int n_tiles = (M + BK - 1) / BK + (C + BK - 1) / BK;
-  const size_t smem = SMEM_FIXED * sizeof(float) + (2 * n_tiles + 1) * sizeof(int);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  const int grid = B * Hkv * ((C + bq - 1) / bq);
-  if (grid == 0) return (int)cudaSuccess;
-  cudaError_t err = flash::allow_smem((const void *)chunk_f32_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  chunk_f32_kernel<<<grid, NTH, smem, (cudaStream_t)stream>>>(
-      (const float *)q, (const float *)k_c, (const float *)v_c,
-      (const float *)cache_k, (const float *)cache_v, (const int *)cache_pos,
-      (const int *)chunk_pos, (float *)out, (float *)probs, (float *)pmax, C,
-      Hq, Hkv, M, D, bq, window, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 128)
+    return (int)launch<128>(q, k_c, v_c, cache_k, cache_v, cache_pos,
+                            chunk_pos, out, probs, pmax, B, C, Hq, Hkv, M, D,
+                            bq, window, st);
+  return (int)launch<256>(q, k_c, v_c, cache_k, cache_v, cache_pos, chunk_pos,
+                          out, probs, pmax, B, C, Hq, Hkv, M, D, bq, window,
+                          st);
 }

@@ -1,5 +1,5 @@
 // Flash chunk-query attention over (slot cache ∪ chunk) on Hopper's
-// tensor cores (sm_90a), bf16, head dim D = 64 or 128.
+// tensor cores (sm_90a), bf16, head dim D = 64, 128 or 256.
 //
 // Replaces the Pallas TPU kernel `chunk_attention_pallas`
 // (src/repro/kernels/chunk_attention.py, body `_chunk_kernel`) on the
@@ -15,9 +15,9 @@
 //
 // Design (hopper_flash.cuh): one CTA per (lane, q head, 128-row q
 // tile), two consumer warpgroups of 64 rows on wgmma, taking turns at
-// the tensor cores, one producer thread feeding 128-key tiles by TMA
-// through a 2-stage mbarrier ring (4 stages at D = 64, in the same
-// room) —
+// the tensor cores, one producer thread feeding 128-key tiles (64-key
+// tiles at D = 256) by TMA through a 2-stage mbarrier ring (4 stages
+// at D = 64, in the same room) —
 // first the cache tiles (4-D map over [B, Hkv, M, D]), then the chunk
 // tiles (4-D map over [B, C, Hkv, D]). Before the roles split, the CTA
 // loads every tile's key positions and its own query positions into
@@ -42,7 +42,8 @@
 using namespace hf;
 
 // a 2-stage ring at D = 128: a third would leave no room for the
-// positions; at D = 64 a stage takes half, and 4 fit the same room
+// positions; at D = 64 a stage takes half, and 4 fit the same room; at
+// D = 256 a stage of 64 keys takes 64 KB, and 2 take 192 KB with Q
 template <int D> constexpr int STAGES = D == 64 ? 4 : 2;
 template <int D> using KVRing = Ring<STAGES<D>, D>;
 
@@ -61,11 +62,11 @@ struct PosMask {
   const int *qpos;  // the warpgroup's 64 query positions
   const int *kpos;  // the tile's BN key positions
   int window;
-  __device__ void operator()(float (&s)[64]) const {
+  template <int NS> __device__ void operator()(float (&s)[NS]) const {
     const int c0 = frag_col0();
     const int q[2] = {qpos[frag_row()], qpos[frag_row() + 8]};
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int kp = kpos[8 * j + c0 + e];
@@ -106,13 +107,14 @@ struct ProbsHook {
   float *rows[2];   // probs row of the thread's two rows, or null
   float *mblk[2];   // m_tile slot of the two rows for this tile
   int key0, M;
-  __device__ void operator()(const float (&p)[64], const float (&m)[2]) const {
+  template <int NS>
+  __device__ void operator()(const float (&p)[NS], const float (&m)[2]) const {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] == nullptr) continue;
       *mblk[r] = m[r];
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int key = key0 + 8 * j + frag_col0() + e;
@@ -124,7 +126,8 @@ struct ProbsHook {
 
 // A consumer warpgroup's tiles: the CTA's loaded tiles list[0 .. n),
 // with the cache tiles' raw probabilities written when probs is set.
-struct ChunkTiles {
+template <int D> struct ChunkTiles {
+  static constexpr int BN = Dims<D>::BN;
   int n, n_mt, window, M;
   const int *list, *qpos_wg, *kpos;
   const Span *spans;
@@ -133,7 +136,7 @@ struct ChunkTiles {
   bool probs;
   float *prow[2], *mrow[2];
   __device__ int count() const { return n; }
-  __device__ void softmax(int it, float (&s)[64], Rows &st,
+  __device__ void softmax(int it, float (&s)[Dims<D>::SN], Rows &st,
                           float (&alpha)[2]) const {
     const int t = list[it];
     // a tile this warpgroup cannot see runs masked: all its p are 0
@@ -162,7 +165,7 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   using R = KVRing<D>;
-  constexpr int S = STAGES<D>;
+  constexpr int S = STAGES<D>, BN = Dims<D>::BN, SN = Dims<D>::SN;
   const R ring = R::carve(smem_raw);
   const int n_qt = (C + BM - 1) / BM;
   const int n_mt = (M + BN - 1) / BN, n_ct = (C + BN - 1) / BN;
@@ -252,12 +255,16 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(&ring.empty[s], ((it / S) & 1) ^ 1);
         mbar_expect_tx(&ring.full[s], 2 * R::KV_BYTES);
         if (t < n_mt) {
-          tma_tile<D>(ring.k(s), KV_BOX, &ck_map, &ring.full[s], t * BN, kvh, b);
-          tma_tile<D>(ring.v(s), KV_BOX, &cv_map, &ring.full[s], t * BN, kvh, b);
+          tma_tile<D>(ring.k(s), Dims<D>::KV_BOX, &ck_map, &ring.full[s], t * BN,
+                      kvh, b);
+          tma_tile<D>(ring.v(s), Dims<D>::KV_BOX, &cv_map, &ring.full[s], t * BN,
+                      kvh, b);
         } else {
           const int j0 = (t - n_mt) * BN;
-          tma_tile<D>(ring.k(s), KV_BOX, &kc_map, &ring.full[s], kvh, j0, b);
-          tma_tile<D>(ring.v(s), KV_BOX, &vc_map, &ring.full[s], kvh, j0, b);
+          tma_tile<D>(ring.k(s), Dims<D>::KV_BOX, &kc_map, &ring.full[s], kvh, j0,
+                      b);
+          tma_tile<D>(ring.v(s), Dims<D>::KV_BOX, &vc_map, &ring.full[s], kvh, j0,
+                      b);
         }
       }
     }
@@ -282,15 +289,15 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     // zeros for the cache tiles no pair of the CTA can see (not loaded)
     if (want_probs) {
-      float zero[64];
+      float zero[SN];
 #pragma unroll
-      for (int i = 0; i < 64; ++i) zero[i] = 0.f;
+      for (int i = 0; i < SN; ++i) zero[i] = 0.f;
       for (int t = 0; t < n_mt; ++t)
         if (!vis[t])
           ProbsHook{{prow[0], prow[1]}, {mrow[0] + t, mrow[1] + t}, t * BN,
                     M}(zero, st.m);
     }
-    const ChunkTiles walk{n_load, n_mt, window, M, list, qpos_wg, kpos, tiles,
+    const ChunkTiles<D> walk{n_load, n_mt, window, M, list, qpos_wg, kpos, tiles,
                           qs, scale_log2, want_probs, {prow[0], prow[1]},
                           {mrow[0], mrow[1]}};
     mbar_wait(ring.qbar, 0);
@@ -309,7 +316,7 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int t = 0; t < n_mt; ++t) {
           const float sc = fast_exp2(mrow[r][t] - st.m[r]) * inv;
 #pragma unroll
-          for (int j = 0; j < 16; ++j)
+          for (int j = 0; j < SN / 4; ++j)
 #pragma unroll
             for (int e = 0; e < 2; ++e) {
               const int key = t * BN + 8 * j + frag_col0() + e;
@@ -323,6 +330,7 @@ chunk_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int D>
 size_t chunk_smem(int C, int M, bool probs) {
+  constexpr int BN = Dims<D>::BN;
   const int n_mt = (M + BN - 1) / BN, n_ct = (C + BN - 1) / BN;
   const int n_tiles = n_mt + n_ct;
   return KVRing<D>::bytes() + BM * 4 + (size_t)n_tiles * BN * 4 +
@@ -338,6 +346,7 @@ cudaError_t launch(const void *q, const void *k_c, const void *v_c,
                    int window, cudaStream_t stream) {
   CUtensorMap qmap, kc_map, vc_map, ck_map, cv_map;
   cudaError_t err;
+  constexpr int BN = Dims<D>::BN;
   if ((err = map_bthd(&qmap, q, B, C, Hq, D, BM)) != cudaSuccess) return err;
   if ((err = map_bthd(&kc_map, k_c, B, C, Hkv, D, BN)) != cudaSuccess) return err;
   if ((err = map_bthd(&vc_map, v_c, B, C, Hkv, D, BN)) != cudaSuccess) return err;
@@ -358,7 +367,7 @@ cudaError_t launch(const void *q, const void *k_c, const void *v_c,
 }  // namespace
 
 // q, k_c, v_c bf16 [B, C, H*, D]; cache_k, cache_v bf16 [B, Hkv, M, D]
-// with D 64 or 128; all contiguous and 16-byte aligned; cache_pos int32
+// with D 64, 128 or 256; all contiguous and 16-byte aligned; cache_pos int32
 // [B, Hkv, M]; chunk_pos int32 [B, C]; probs float32 [B, Hq, C, M] or
 // null. Returns a cudaError_t (cudaErrorInvalidValue when M + C needs
 // more shared memory than a block has).
@@ -378,5 +387,9 @@ extern "C" int chunk_attention_tc_launch(
     return (int)launch<64>(q, k_c, v_c, cache_k, cache_v, cache_pos,
                            chunk_pos, out, probs, B, C, Hq, Hkv, M, window,
                            st);
+  if (D == 256)
+    return (int)launch<256>(q, k_c, v_c, cache_k, cache_v, cache_pos,
+                            chunk_pos, out, probs, B, C, Hq, Hkv, M, window,
+                            st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,11 @@
 // Shared machinery of the two tensor-core flash-attention kernels
 // (retention_attention_tc.cu, chunk_attention_tc.cu), for Hopper
-// (sm_90a), bf16 only, head dim D = 64 or 128 (a template parameter).
+// (sm_90a), bf16 only, head dim D = 64, 128 or 256 (a template
+// parameter).
 //
 // A CTA owns BM = 128 query rows of one (lane, q head) and walks its
-// key tiles of BN = 128 keys x D. Three warpgroups:
+// key tiles of BN keys x D (BN = 128, or 64 at D = 256; Dims<D>). Three
+// warpgroups:
 //
 //   * warpgroups 0 and 1 consume: each owns 64 query rows, computes
 //     S = Q.K^T with wgmma (Q and K from shared memory, float32
@@ -30,6 +32,14 @@
 // product (32 accumulator registers a thread), and a stage takes 32 KB,
 // so the kernels keep 4 stages in the room of 2 (Dims<D>::BOXES).
 //
+// D = 256 takes tiles of BN = 64 keys. At 128 keys a K + V stage would
+// take 128 KB beside Q's 64 KB (one stage in the 227 KB), and S (64
+// registers a thread) beside O (128) would not fit a consumer's 232.
+// At 64 keys a stage takes 64 KB, so two stages fit beside Q (192 KB),
+// S is an N = 64 product of 32 registers, P 16, and the P.V product is
+// two N = 128 wgmma a k16 step, over V's boxes 0-1 and 2-3, into the
+// two halves of O's 128 registers.
+//
 // Every masked logit is set to -inf before the max, so its probability
 // is exactly 0 even while the row's running max is still NEG_INF (the
 // initial -1e30, where exp(s - m) of a finite masked score would be 1);
@@ -45,18 +55,20 @@
 namespace hf {
 
 constexpr int BM = 128;          // query rows per CTA
-constexpr int BN = 128;          // keys per tile
 constexpr int NCONS = 256;       // consumer threads (two warpgroups)
 constexpr int NTHREADS = 384;    // + one producer warpgroup
 constexpr int BOX_COLS = 64;     // bf16 columns per 128-byte-swizzled box
 constexpr uint32_t Q_BOX = BM * BOX_COLS * 2;      // bytes of one Q box
-constexpr uint32_t KV_BOX = BN * BOX_COLS * 2;     // bytes of one K/V box
 
-// The sizes that follow from the head dim D (64 or 128): boxes per
-// tile, the Q tile and one K or V tile in bytes.
+// The sizes that follow from the head dim D (64, 128 or 256): keys per
+// tile, S registers a consumer thread, boxes per tile, one K/V box, the
+// Q tile and one K or V tile in bytes.
 template <int D> struct Dims {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  static constexpr int BN = D == 256 ? 64 : 128;
+  static constexpr int SN = BN / 2;
   static constexpr int BOXES = D / BOX_COLS;
+  static constexpr uint32_t KV_BOX = BN * BOX_COLS * 2;
   static constexpr uint32_t Q_BYTES = BOXES * Q_BOX;
   static constexpr uint32_t KV_BYTES = BOXES * KV_BOX;
 };
@@ -294,6 +306,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d (+)= A * B as wgmma_ss at N = 64 (S of a 64-key tile at head dim
+// 256): 64 x 64 float32 accumulator, 32 registers a thread
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // d += A * B, A bf16 in registers (a[0..3], the m64k16 fragment), B bf16
 // in shared memory, MN-major (transposed), 128-byte swizzle
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
@@ -368,45 +395,57 @@ struct Rows {
 };
 
 struct NoHook {
-  __device__ void operator()(const float (&)[64], const float (&)[2]) const {}
+  template <int NS>
+  __device__ void operator()(const float (&)[NS], const float (&)[2]) const {}
 };
 
-__device__ __forceinline__ void fence_frag(uint32_t (&pa)[BN / 16][4]) {
+template <int KT>
+__device__ __forceinline__ void fence_frag(uint32_t (&pa)[KT][4]) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
+  for (int kk = 0; kk < KT; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(pa[kk][j])::"memory");
 }
 
-// Issue S = Q_wg K^T (D / 16 wgmma of k16 over the head dim: 8 at
-// D = 128, 4 at D = 64) as one wgmma group.
+// Issue S = Q_wg K^T (D / 16 wgmma of k16 over the head dim: 16 at
+// D = 256, 8 at D = 128, 4 at D = 64; N = BN) as one wgmma group.
 template <int D>
 __device__ __forceinline__ void qk_issue(uint32_t q_wg, uint32_t k_s,
-                                         float (&s)[64]) {
+                                         float (&s)[Dims<D>::SN]) {
   fence_regs(s);
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t off = (kk & 3) * 32;  // 16 columns = 32 bytes
     wgmma_ss(s, desc_kmajor(q_wg + (kk >> 2) * Q_BOX + off),
-             desc_kmajor(k_s + (kk >> 2) * KV_BOX + off), kk > 0);
+             desc_kmajor(k_s + (kk >> 2) * Dims<D>::KV_BOX + off), kk > 0);
   }
   wgmma_commit();
   fence_regs(s);
 }
 
-// Issue O += P V (8 wgmma of k16 over the BN keys, N = D) as one wgmma
-// group.
-template <int N>
-__device__ __forceinline__ void pv_issue(float (&o)[N],
-                                         uint32_t (&pa)[BN / 16][4],
+// Issue O += P V (BN / 16 k16 steps over the tile's keys, N = D) as one
+// wgmma group; at D = 256 each step is two N = 128 products, over V's
+// columns 0-127 into o[0..63] and 128-255 into o[64..127].
+template <int D>
+__device__ __forceinline__ void pv_issue(float (&o)[D / 2],
+                                         uint32_t (&pa)[Dims<D>::BN / 16][4],
                                          uint32_t v_s) {
+  constexpr uint32_t box = Dims<D>::KV_BOX;
   fence_frag(pa);
   fence_regs(o);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
-    wgmma_rs(o, pa[kk], desc_mnmajor(v_s + kk * 16 * 128, KV_BOX));
+  for (int kk = 0; kk < Dims<D>::BN / 16; ++kk) {
+    if constexpr (D == 256) {
+      float(&lo)[64] = *reinterpret_cast<float(*)[64]>(&o[0]);
+      float(&hi)[64] = *reinterpret_cast<float(*)[64]>(&o[64]);
+      wgmma_rs(lo, pa[kk], desc_mnmajor(v_s + kk * 16 * 128, box));
+      wgmma_rs(hi, pa[kk], desc_mnmajor(v_s + 2 * box + kk * 16 * 128, box));
+    } else {
+      wgmma_rs(o, pa[kk], desc_mnmajor(v_s + kk * 16 * 128, box));
+    }
+  }
   wgmma_commit();
   fence_regs(o);
   fence_frag(pa);
@@ -416,28 +455,29 @@ template <int N> __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// The online-softmax update of one tile's scores s (in place: on return
-// s holds the probabilities exp2(x - m_new)): the scale, then, when
-// masked, mask(s) (sets the invisible entries to -inf and adds any bias,
-// in log2 units), the new row max, the rescale factor alpha of the
-// rows' earlier sums, the denominators, and hook(p, m_new).
-template <class Mask, class Hook>
-__device__ __forceinline__ void softmax_step(float (&s)[64], Rows &st,
+// The online-softmax update of one tile's scores s (NS = BN / 2 a
+// thread; in place: on return s holds the probabilities exp2(x -
+// m_new)): the scale, then, when masked, mask(s) (sets the invisible
+// entries to -inf and adds any bias, in log2 units), the new row max,
+// the rescale factor alpha of the rows' earlier sums, the denominators,
+// and hook(p, m_new).
+template <int NS, class Mask, class Hook>
+__device__ __forceinline__ void softmax_step(float (&s)[NS], Rows &st,
                                              float (&alpha)[2],
                                              float scale_log2, bool masked,
                                              const Mask &mask, const Hook &hook) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) s[i] *= scale_log2;
+  for (int i = 0; i < NS; ++i) s[i] *= scale_log2;
   // a branch around the whole mask: predicated per element, its
   // instructions would take issue slots on every unmasked tile too
   if (masked) mask(s);
-  // row max and sum over the thread's 32 entries of each row in two
+  // row max and sum over the thread's NS / 2 entries of each row in two
   // interleaved chains (register i of row r: (i >> 1) & 1 == r)
   float mx[2][2], sum[2][2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) mx[r][0] = mx[r][1] = st.m[r];
 #pragma unroll
-  for (int i = 0; i < 64; ++i)
+  for (int i = 0; i < NS; ++i)
     mx[(i >> 1) & 1][(i >> 2) & 1] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 1], s[i]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -447,7 +487,7 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], Rows &st,
     sum[r][0] = sum[r][1] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < NS; ++i) {
     const int r = (i >> 1) & 1;
     s[i] = fast_exp2(s[i] - st.m[r]);
     sum[r][(i >> 2) & 1] += s[i];
@@ -461,10 +501,11 @@ __device__ __forceinline__ void softmax_step(float (&s)[64], Rows &st,
 // P as the A fragments of the P.V product: for the k16 step kk, the
 // accumulator registers 8 kk .. 8 kk + 7 (columns 16 kk .. 16 kk + 15)
 // are, pairwise, the fragment's four bf16x2 registers.
-__device__ __forceinline__ void to_frag(const float (&s)[64],
-                                        uint32_t (&pa)[BN / 16][4]) {
+template <int KT>
+__device__ __forceinline__ void to_frag(const float (&s)[8 * KT],
+                                        uint32_t (&pa)[KT][4]) {
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk)
+  for (int kk = 0; kk < KT; ++kk)
 #pragma unroll
     for (int j = 0; j < 4; ++j)
       pa[kk][j] = pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
@@ -508,8 +549,8 @@ __device__ __forceinline__ void consume(const Ring<S, D> &ring, uint32_t q_wg,
   const int n = tiles.count();
   if (n == 0) return;
   if (wg == 1) turn_pass(1);  // warpgroup 0 first
-  float s[64];
-  uint32_t pa[BN / 16][4];
+  float s[Dims<D>::SN];
+  uint32_t pa[Dims<D>::BN / 16][4];
   float alpha[2];
   mbar_wait(&ring.full[0], 0);
   turn_wait(wg);
@@ -524,7 +565,7 @@ __device__ __forceinline__ void consume(const Ring<S, D> &ring, uint32_t q_wg,
     mbar_wait(&ring.full[s1], ((it + 1) / S) & 1);
     turn_wait(wg);
     qk_issue<D>(q_wg, ring.k(s1), s);
-    pv_issue(o, pa, ring.v(stage));
+    pv_issue<D>(o, pa, ring.v(stage));
     turn_pass(wg);
     wgmma_wait<1>();  // S of tile it + 1 has landed; P.V runs on
     fence_regs(s);
@@ -537,7 +578,7 @@ __device__ __forceinline__ void consume(const Ring<S, D> &ring, uint32_t q_wg,
     to_frag(s, pa);
   }
   turn_wait(wg);
-  pv_issue(o, pa, ring.v((n - 1) % S));
+  pv_issue<D>(o, pa, ring.v((n - 1) % S));
   if (wg == 0) turn_pass(0);
   wgmma_wait<0>();
   fence_regs(o);

@@ -8,10 +8,10 @@
 // from the absolute query position q_offset + row, and an optional
 // retention bias (q_pos - i) * log_beta_i added to the logits of
 // visible keys (log_beta [B, Tk, Hkv] float32). A float32 model's
-// single-shot prefill runs it causal with no bias. Head dim D <= 128,
-// a multiple of 4; rows whose keys are all masked give zero (the
-// Pallas kernel returns the mean of the masked values there; no caller
-// produces such a row).
+// single-shot prefill runs it causal with no bias. Head dim D <= 256,
+// a multiple of 4 (the tile step holds 128 or 256 dims); rows whose
+// keys are all masked give zero (the Pallas kernel returns the mean of
+// the masked values there; no caller produces such a row).
 //
 // Bound on the H100: operations. At the main-path shape (B=4, T=2000,
 // Hq=32, D=128, causal) the visible pairs need
@@ -42,6 +42,10 @@
 // inside them skip the per-element mask. The heaviest (last) query
 // tiles are launched first.
 //
+// At head dim 256 (recurrentgemma-2b, gemma3-12b) the step holds 256
+// dims and the CTA 64 rows (64 / G positions) with key tiles of 32, so
+// Q, K, V and P^T fit in 175 KB (f32_flash.cuh, Tile<256>).
+//
 // What it leaves on the table: one CTA of 8 warps per SM (202 KB of
 // shared memory, 220 registers a thread), so a barrier or a
 // shared-memory latency idles the FFMA pipes: the kernel runs at about
@@ -55,8 +59,10 @@ using namespace f32flash;
 
 // Q, K, V, P^T (f32_flash.cuh), then the rescale factors and
 // denominators of the rows and the tile's log beta, double-buffered
-constexpr size_t SMEM_FLOATS = TILE_FLOATS + 2 * BR + 2 * BK;
+template <class K>
+constexpr size_t SMEM_FLOATS = K::TILE_FLOATS + 2 * K::BR + 2 * K::BK;
 
+template <int DP>
 __global__ void __launch_bounds__(NTH, 1)
 retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
                      const float *__restrict__ v,
@@ -64,6 +70,9 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
                      float *__restrict__ out, int Tq, int Tk, int Hq, int Hkv,
                      int D, int causal, int window, int q_offset,
                      float scale) {
+  using K = Tile<DP>;
+  constexpr int BR = K::BR, BK = K::BK, QLD = K::QLD, PLD = K::PLD,
+                RI = K::RI, SJ = K::SJ, OC = K::OC;
   extern __shared__ __align__(16) float smem_f[];
   float *sq = smem_f;               // [BR][QLD]
   float *sk0 = sq + BR * QLD;       // [2][BK][QLD]  K, double-buffered
@@ -85,7 +94,7 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
   // the softmax runs in base 2: logits times log2(e), exp2f
   const float scale2 = scale * LOG2E;
 
-  load_q(sq, q, b, Tq, r0, Hq, kvh, G, n_rows, D);
+  load_q<K>(sq, q, b, Tq, r0, Hq, kvh, G, n_rows, D);
 
   // the keys the tile's rows can see
   const int q_lo = q_offset + r0, q_hi = q_lo + n_rows / G - 1;
@@ -98,7 +107,7 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
 
   auto load_k = [&](int t) {
     const int j0 = t * BK;
-    load_keys(sk0 + (t & 1) * BK * QLD, QLD, k + kv_row(j0), kv_ld,
+    load_keys<K>(sk0 + (t & 1) * BK * QLD, QLD, k + kv_row(j0), kv_ld,
               min(BK, Tk - j0), D);
     if (use_beta && tid < BK) {
       const bool ok = j0 + tid < Tk;
@@ -112,13 +121,13 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
   // S roles: rows srg + 16 i, keys skg + 16 j. O roles: rows 8 srg + i,
   // dims 4 skg + {0..3} and 64 + 4 skg + {0..3}.
   const int srg = warp * 2 + (lane >> 4), skg = lane & 15;
-  float m[8], l[8], o[8][8];
+  float m[RI], l[RI], o[RI][OC];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 8; ++c) o[i][c] = 0.f;
+    for (int c = 0; c < OC; ++c) o[i][c] = 0.f;
   }
 
   for (int t = t_begin; t < t_end; ++t) {
@@ -130,33 +139,33 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
     // P.V(t - 1) (V and P^T): V(t) streams in during S(t), K(t + 1)
     // during the whole tile
     __syncthreads();
-    load_keys(sv, DP, v + kv_row(j0), kv_ld, min(BK, Tk - j0), D);
+    load_keys<K>(sv, DP, v + kv_row(j0), kv_ld, min(BK, Tk - j0), D);
     flash::cp_async_commit();
     if (t + 1 < t_end) load_k(t + 1);
     flash::cp_async_commit();
 
-    float s[8][4];
-    qk(sq, sk, srg, skg, s);
+    float s[RI][SJ];
+    qk<K>(sq, sk, srg, skg, s);
 
     // online softmax in registers; a tile the mask, window and Tk leave
     // whole for every row skips the per-element mask
     const bool edge = use_beta || j0 + BK > Tk ||
                       (causal && j0 + BK - 1 > q_lo) ||
                       (window > 0 && q_hi - j0 >= window);
-    float alpha[8];
+    float alpha[RI];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float x[4];
-      unsigned ok = 0xfu;
+    for (int i = 0; i < RI; ++i) {
+      float x[SJ];
+      unsigned ok = (1u << SJ) - 1;
       if (!edge) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) x[j] = s[i][j] * scale2;
+        for (int j = 0; j < SJ; ++j) x[j] = s[i][j] * scale2;
       } else {
         const int r = srg + 16 * i;
         const int qp = q_lo + r / G;
         ok = 0u;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < SJ; ++j) {
           const int key = j0 + skg + 16 * j;
           const int dist = qp - key;
           const bool vis = r < n_rows && key < Tk && (!causal || dist >= 0) &&
@@ -168,38 +177,57 @@ retention_f32_kernel(const float *__restrict__ q, const float *__restrict__ k,
       }
       alpha[i] = softmax_row(x, ok, s[i], m[i], l[i]);
     }
-    store_p(sp, s_alpha, s, alpha, srg, skg);
+    store_p<K>(sp, s_alpha, s, alpha, srg, skg);
     flash::cp_async_wait<1>();  // V(t); K(t + 1) may be in flight
     __syncthreads();
-    pv(o, sp, sv, s_alpha, srg, skg);
+    pv<K>(o, sp, sv, s_alpha, srg, skg);
   }
   flash::cp_async_wait<0>();
 
   if (skg == 0) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) s_l[srg + 16 * i] = l[i];
+    for (int i = 0; i < RI; ++i) s_l[srg + 16 * i] = l[i];
   }
   __syncthreads();
-  store_out(out, o, s_l, b, Tq, r0, Hq, kvh, G, n_rows, D, srg, skg);
+  store_out<K>(out, o, s_l, b, Tq, r0, Hq, kvh, G, n_rows, D, srg, skg);
+}
+
+template <int DP>
+cudaError_t launch(const void *q, const void *k, const void *v,
+                   const void *log_beta, void *out, int B, int Tq, int Tk,
+                   int Hq, int Hkv, int D, int causal, int window,
+                   int q_offset, cudaStream_t stream) {
+  using K = Tile<DP>;
+  if (Hq / Hkv > K::BR) return cudaErrorInvalidValue;
+  const int BQ = K::BR / (Hq / Hkv);
+  const int grid = B * Hkv * ((Tq + BQ - 1) / BQ);
+  if (grid == 0) return cudaSuccess;
+  const size_t smem = SMEM_FLOATS<K> * sizeof(float);
+  cudaError_t err =
+      flash::allow_smem((const void *)retention_f32_kernel<DP>, smem);
+  if (err != cudaSuccess) return err;
+  retention_f32_kernel<DP><<<grid, NTH, smem, stream>>>(
+      (const float *)q, (const float *)k, (const float *)v,
+      (const float *)log_beta, (float *)out, Tq, Tk, Hq, Hkv, D, causal,
+      window, q_offset, 1.0f / sqrtf((float)D));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
+// q, k, v float32 [B, T*, H*, D], D <= 256 a multiple of 4 (held as 128
+// or 256), contiguous, 16-byte aligned; log_beta float32 [B, Tk, Hkv]
+// or null. Returns a cudaError_t.
 extern "C" int retention_attention_launch(
     const void *q, const void *k, const void *v, const void *log_beta,
     void *out, int B, int Tq, int Tk, int Hq, int Hkv, int D, int causal,
     int window, int q_offset, void *stream) {
-  if (D > DP || D % 4 != 0 || Hq % Hkv != 0 || Hq / Hkv > BR)
+  if (D > 256 || D % 4 != 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
-  const int BQ = BR / (Hq / Hkv);
-  const int grid = B * Hkv * ((Tq + BQ - 1) / BQ);
-  if (grid == 0) return (int)cudaSuccess;
-  const size_t smem = SMEM_FLOATS * sizeof(float);
-  cudaError_t err = flash::allow_smem((const void *)retention_f32_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  retention_f32_kernel<<<grid, NTH, smem, (cudaStream_t)stream>>>(
-      (const float *)q, (const float *)k, (const float *)v,
-      (const float *)log_beta, (float *)out, Tq, Tk, Hq, Hkv, D, causal,
-      window, q_offset, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (D <= 128)
+    return (int)launch<128>(q, k, v, log_beta, out, B, Tq, Tk, Hq, Hkv, D,
+                            causal, window, q_offset, st);
+  return (int)launch<256>(q, k, v, log_beta, out, B, Tq, Tk, Hq, Hkv, D,
+                          causal, window, q_offset, st);
 }

@@ -1,5 +1,5 @@
 // Retention-gated causal flash attention on Hopper's tensor cores
-// (sm_90a), bf16, head dim D = 64 or 128.
+// (sm_90a), bf16, head dim D = 64, 128 or 256.
 //
 // Replaces the Pallas TPU kernel `retention_attention_pallas`
 // (src/repro/kernels/retention_attention.py, body `_flash_kernel`) on
@@ -13,8 +13,8 @@
 // Design (hopper_flash.cuh): one CTA per (lane, q head, 128-row q
 // tile), two consumer warpgroups of 64 rows on wgmma, taking turns at
 // the tensor cores, one producer thread feeding K/V tiles of 128 keys
-// by TMA through a 3-stage mbarrier ring (4 stages at D = 64, in less
-// room); each warpgroup runs the
+// (64 at D = 256) by TMA through a 3-stage mbarrier ring (4 stages at
+// D = 64, in less room; 2 at D = 256, in 192 KB); each warpgroup runs the
 // softmax of one tile while the P.V of the one before is in flight.
 // The CTA walks only the key tiles its rows can see under the causal
 // mask and the window; a warpgroup masks and biases only on tiles that
@@ -35,8 +35,9 @@
 using namespace hf;
 
 // a 3-stage ring at D = 128: 224 KB of shared memory with Q; at D = 64
-// a stage takes half, and 4 stages take 144 KB
-template <int D> constexpr int STAGES = D == 64 ? 4 : 3;
+// a stage takes half, and 4 stages take 144 KB; at D = 256 a stage of
+// 64 keys takes 64 KB beside Q's 64 KB, and 2 stages take 192 KB
+template <int D> constexpr int STAGES = D == 64 ? 4 : D == 256 ? 2 : 3;
 template <int D> using KVRing = Ring<STAGES<D>, D>;
 
 namespace {
@@ -50,7 +51,7 @@ struct RetentionMask {
   int rows, cols;  // rows < Tq - row0 and columns < Tk - j0 exist
   int causal, window, Hkv;
   const float *lb;  // log_beta[b, j0:, kvh] (stride Hkv) or null
-  __device__ void operator()(float (&s)[64]) const {
+  template <int NS> __device__ void operator()(float (&s)[NS]) const {
     const int c0 = frag_col0();
     int d[2];  // distance at column c0 of the thread's two rows
 #pragma unroll
@@ -63,7 +64,7 @@ struct RetentionMask {
       if (window > 0) lo = max(lo, d[r] - window + 1);
       if (row >= rows) hi = lo - 1;
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int c = 8 * j + e;
@@ -72,7 +73,7 @@ struct RetentionMask {
     }
     if (lb == nullptr) return;
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < NS / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * j + e;
@@ -88,6 +89,7 @@ struct RetentionMask {
 // Whether every (row, key) pair of rows [row0, row0 + nrows) of a
 // warpgroup (nrows == 64) and keys [j0, j0 + BN) is visible with no
 // bias, so the tile needs no mask.
+template <int BN>
 __device__ __forceinline__ bool fully_visible(int row0, int nrows, int j0,
                                               int Tk, int causal, int window,
                                               int q_offset, bool bias) {
@@ -97,17 +99,18 @@ __device__ __forceinline__ bool fully_visible(int row0, int nrows, int j0,
 }
 
 // A consumer warpgroup's tiles: rows [row0, row0 + nrows) of q, key
-// tiles t_begin .. t_begin + n - 1.
-struct RetentionTiles {
+// tiles t_begin .. t_begin + n - 1 of Dims<D>::BN keys.
+template <int D> struct RetentionTiles {
+  static constexpr int BN = Dims<D>::BN;
   int n, t_begin, row0, nrows, Tq, Tk, causal, window, q_offset, Hkv;
   const float *lb;
   float scale_log2;
   __device__ int count() const { return n; }
-  __device__ void softmax(int it, float (&s)[64], Rows &st,
+  __device__ void softmax(int it, float (&s)[Dims<D>::SN], Rows &st,
                           float (&alpha)[2]) const {
     const int j0 = (t_begin + it) * BN;
     // a tile this warpgroup cannot see runs masked: all its p are 0
-    const bool masked = !fully_visible(row0, nrows, j0, Tk, causal, window,
+    const bool masked = !fully_visible<BN>(row0, nrows, j0, Tk, causal, window,
                                        q_offset, lb != nullptr);
     const RetentionMask mask{q_offset + row0 - j0, Tq - row0, Tk - j0,
                              causal, window, Hkv,
@@ -127,7 +130,7 @@ retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                     float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   using R = KVRing<D>;
-  constexpr int S = STAGES<D>;
+  constexpr int S = STAGES<D>, BN = Dims<D>::BN;
   const R ring = R::carve(smem_raw);
   const int n_qt = (Tq + BM - 1) / BM;
   const int bh = blockIdx.x % (B * Hq);
@@ -157,8 +160,8 @@ retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
         mbar_wait(&ring.empty[s], ((it / S) & 1) ^ 1);
         mbar_expect_tx(&ring.full[s], 2 * R::KV_BYTES);
         const int j0 = (t_begin + it) * BN;
-        tma_tile<D>(ring.k(s), KV_BOX, &kmap, &ring.full[s], kvh, j0, b);
-        tma_tile<D>(ring.v(s), KV_BOX, &vmap, &ring.full[s], kvh, j0, b);
+        tma_tile<D>(ring.k(s), Dims<D>::KV_BOX, &kmap, &ring.full[s], kvh, j0, b);
+        tma_tile<D>(ring.v(s), Dims<D>::KV_BOX, &vmap, &ring.full[s], kvh, j0, b);
       }
     }
   } else {
@@ -166,7 +169,7 @@ retention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     const int row0 = r0 + 64 * wg;
     const float *lb =
         log_beta != nullptr ? log_beta + (long)b * Tk * Hkv + kvh : nullptr;
-    const RetentionTiles tiles{n_tiles, t_begin, row0, min(64, Tq - row0),
+    const RetentionTiles<D> tiles{n_tiles, t_begin, row0, min(64, Tq - row0),
                                Tq, Tk, causal, window, q_offset, Hkv, lb,
                                scale_log2};
     float o[D / 2];
@@ -192,6 +195,7 @@ cudaError_t launch(const void *q, const void *k, const void *v,
   CUtensorMap qmap, kmap, vmap;
   cudaError_t err;
   if ((err = map_bthd(&qmap, q, B, Tq, Hq, D, BM)) != cudaSuccess) return err;
+  constexpr int BN = Dims<D>::BN;
   if ((err = map_bthd(&kmap, k, B, Tk, Hkv, D, BN)) != cudaSuccess) return err;
   if ((err = map_bthd(&vmap, v, B, Tk, Hkv, D, BN)) != cudaSuccess) return err;
   const size_t smem = KVRing<D>::bytes();
@@ -208,7 +212,7 @@ cudaError_t launch(const void *q, const void *k, const void *v,
 
 }  // namespace
 
-// q, k, v bf16 [B, T*, H*, D] with D 64 or 128, contiguous, 16-byte
+// q, k, v bf16 [B, T*, H*, D] with D 64, 128 or 256, contiguous, 16-byte
 // aligned; log_beta float32 [B, Tk, Hkv] or null. Returns a cudaError_t.
 extern "C" int retention_attention_tc_launch(
     const void *q, const void *k, const void *v, const void *log_beta,
@@ -223,5 +227,8 @@ extern "C" int retention_attention_tc_launch(
   if (D == 64)
     return (int)launch<64>(q, k, v, log_beta, out, B, Tq, Tk, Hq, Hkv,
                            causal, window, q_offset, st);
+  if (D == 256)
+    return (int)launch<256>(q, k, v, log_beta, out, B, Tq, Tk, Hq, Hkv,
+                            causal, window, q_offset, st);
   return (int)cudaErrorInvalidValue;
 }

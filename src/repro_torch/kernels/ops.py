@@ -10,7 +10,8 @@ retention and chunk attention run the tensor-core kernels
 kernels (``retention_attention_f32``, ``chunk_attention_f32``). The
 capacity loss counts its forward kernel under ``capacity_loss`` and,
 when autograd runs its backward, the backward kernel under
-``capacity_loss_bwd``. CPU calls count nothing.
+``capacity_loss_bwd``; the hybrid family's RG-LRU scan under
+``rg_lru_scan``. CPU calls count nothing.
 """
 from __future__ import annotations
 
@@ -24,10 +25,11 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
                                                   decode_attention_torch)
 from repro_torch.kernels.retention_attention import (
     retention_attention_cuda, retention_attention_torch)
+from repro_torch.kernels.rg_lru import rg_lru_scan_cuda, rg_lru_scan_torch
 
 KERNELS = ("decode_attention", "chunk_attention", "retention_attention",
            "chunk_attention_f32", "retention_attention_f32",
-           "capacity_loss", "capacity_loss_bwd")
+           "capacity_loss", "capacity_loss_bwd", "rg_lru_scan")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -90,6 +92,15 @@ def retention_attention(q, k, v, log_beta=None, *, causal=True, window=0,
     LAUNCHES[_route("retention_attention", q)] += 1
     return retention_attention_cuda(q, k, v, log_beta, causal=causal,
                                     window=window, q_offset=q_offset)
+
+
+def rg_lru_scan(a_log, bx, h0):
+    """The RG-LRU recurrence over a_log, bx [B, T, W] from h0 [B, W]
+    (float32): every h_t, [B, T, W]. See kernels/rg_lru.py."""
+    if _on_cpu(a_log):
+        return rg_lru_scan_torch(a_log, bx, h0)
+    LAUNCHES["rg_lru_scan"] += 1
+    return rg_lru_scan_cuda(a_log, bx, h0)
 
 
 def capacity_loss_log(log_beta, M: float):

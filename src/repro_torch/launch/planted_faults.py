@@ -16,6 +16,8 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --moe
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --hybrid
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
 kernel source), LANE_FAULTS (one to the lane layer; --lanes runs the
@@ -28,7 +30,9 @@ runs the sound build and these alone) and CROSS_FAULTS (one to the head
 dim 64 tensor-core kernels or the cross lanes' reset; --cross runs the
 sound build and these alone) and MOE_FAULTS (one to the MoE FFN's
 routing or to the lanes under the no-drop MoE stream; --moe runs the
-sound build and these alone) it
+sound build and these alone) and HYBRID_FAULTS (one to the RG-LRU scan
+kernel, the head-dim-256 P.V or a recurrent lane's reset; --hybrid runs
+the sound build and these alone) it
 copies src/repro_torch and chip_smoke.py into a temporary directory,
 applies the change, and runs,
 in a fresh process that builds that copy's kernels, the chip_smoke
@@ -232,9 +236,9 @@ REUSE_FAULTS = [
     ("reuse: phase A of a verify round writes the durable cache (no "
      "scratch copy)", "models/blocks.py",
      "    if scratch is None:\n"
-     "        scratch = {k: state[k].clone() for k in CACHE_LEAVES}\n"
+     "        scratch = {k: state[k].clone() for k in scratch_leaves(state)}\n"
      "    else:\n"
-     "        for k in CACHE_LEAVES:\n"
+     "        for k in scratch_leaves(state):\n"
      "            scratch[k].copy_(state[k])\n"
      "    scratch = {**scratch, **_memory(state)}\n",
      "    scratch = state\n", ("reuse",)),
@@ -264,9 +268,7 @@ CROSS_FAULTS = [
      "o[i] *= alpha[(i >> 1) & 1];", ("cross-kernels",)),
     ("cross: a reset leaves mem_len unchanged (the next occupant reads "
      "the old memory)", "core/cache.py",
-     "    if \"mem_len\" in cache:\n"
-     "        cache[\"mem_len\"].masked_fill_(lane_mask, 0)\n", "",
-     ("cross",)),
+     "\"conv\": 0.0, \"mem_len\": 0}", "\"conv\": 0.0}", ("cross",)),
 ]
 # faults in the MoE FFN's routing (models/blocks.py, read by
 # chip_smoke.moe_apply_phase: moe_apply against the JAX package's
@@ -303,9 +305,29 @@ MOE_FAULTS = [
      "self.cnv)\n"
      "                self.cnv = nv_dev[i].clone()\n", ("moe-stream",)),
 ]
+# faults in the hybrid family's paths: the RG-LRU scan kernel and the
+# head-dim-256 tensor-core P.V (read by chip_smoke.hybrid_kernel_phase),
+# and the lane reset of a recurrent state (read by the bf16 hybrid
+# stream's one-shot margin); --hybrid runs the sound build and these
+HYBRID_FAULTS = [
+    ("hybrid: the scan kernel starts every lane from h = 0, not h0",
+     "rg_lru_scan.cu", "  float h = h0[(long)b * W + w];",
+     "  float h = 0.f * h0[(long)b * W + w];", ("hybrid-kernels",)),
+    ("hybrid: the D-256 P.V reads V's columns 0-127 into both halves of O",
+     "hopper_flash.cuh",
+     "wgmma_rs(hi, pa[kk], desc_mnmajor(v_s + 2 * box + kk * 16 * 128, "
+     "box));",
+     "wgmma_rs(hi, pa[kk], desc_mnmajor(v_s + kk * 16 * 128, box));",
+     ("hybrid-kernels",)),
+    ("hybrid: a lane reset leaves a recurrent layer's h and conv (the next "
+     "request starts from the last one's recurrence)", "core/cache.py",
+     "\"aux\": 0.0, \"h\": 0.0,\n                    \"conv\": 0.0, ",
+     "\"aux\": 0.0,\n                    ", ("hybrid-stream",)),
+]
 SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
          "serve", "policy", "stream-policies", "lifecycle", "reuse",
-         "cross-kernels", "cross", "moe", "moe-stream")
+         "cross-kernels", "cross", "moe", "moe-stream", "hybrid-kernels",
+         "hybrid-stream")
 
 
 def child(phases):
@@ -517,6 +539,39 @@ def child(phases):
                 print(json.dumps(readings), flush=True)
                 os._exit(0)
         torch.cuda.empty_cache()
+    if "hybrid-kernels" in phases:
+        g.manual_seed(0)
+        try:
+            with torch.no_grad():
+                cs.hybrid_kernel_phase(g)
+        except AssertionError as e:   # a padded scan step that moved h
+            print(f"hybrid kernels: {str(e).splitlines()[0]}")
+            readings.append({"case": "hybrid kernel phase", "kind": "raised",
+                             "reading": math.inf, "limit": 0.0})
+        torch.cuda.empty_cache()
+    if "hybrid-stream" in phases:
+        def record_hybrid_stream(name, violations, margin=0.0,
+                                 tol=math.inf):
+            for kind, n in violations.items():
+                readings.append({"case": f"stream {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+            readings.append({"case": f"stream {name}", "kind": "margin",
+                             "reading": margin, "limit": tol})
+
+        cs.check_stream = record_hybrid_stream
+        cs.check_hybrid = lambda name, violations: record_aux(
+            f"hybrid {name}", violations)
+        try:
+            with torch.no_grad():
+                cs.hybrid_stream(*cs.hybrid_model())
+        except (AssertionError, RuntimeError) as e:
+            print(f"stream hybrid: {str(e).splitlines()[0]}")
+            readings.append({"case": "stream hybrid phase", "kind": "raised",
+                             "reading": math.inf, "limit": 0.0})
+            if not isinstance(e, AssertionError):
+                print(json.dumps(readings), flush=True)
+                os._exit(0)
+        torch.cuda.empty_cache()
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -567,17 +622,19 @@ def run(fault, phases):
 
 def main(only: str | None = None) -> int:
     """only: None (every fault), "--lanes", "--policies", "--lifecycle",
-    "--reuse", "--cross" or "--moe"."""
+    "--reuse", "--cross", "--moe" or "--hybrid"."""
     ok = True
     faults, sound = {
         None: (FAULTS + LANE_FAULTS + POLICY_FAULTS + LIFECYCLE_FAULTS
-               + REUSE_FAULTS + CROSS_FAULTS + MOE_FAULTS, SOUND),
+               + REUSE_FAULTS + CROSS_FAULTS + MOE_FAULTS + HYBRID_FAULTS,
+               SOUND),
         "--lanes": (LANE_FAULTS, ("stream", "serve")),
         "--policies": (POLICY_FAULTS, ("policy", "stream-policies")),
         "--lifecycle": (LIFECYCLE_FAULTS, ("lifecycle",)),
         "--reuse": (REUSE_FAULTS, ("reuse",)),
         "--cross": (CROSS_FAULTS, ("cross-kernels", "cross")),
         "--moe": (MOE_FAULTS, ("moe", "moe-stream")),
+        "--hybrid": (HYBRID_FAULTS, ("hybrid-kernels", "hybrid-stream")),
     }[only]
     for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"

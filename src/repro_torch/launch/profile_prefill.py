@@ -4,8 +4,8 @@ time, and the operators that take it.
     PYTHONPATH=src python3 -m repro_torch.launch.profile_prefill \
         [--arch granite-moe-3b-a800m] [--smoke] [--layers 8]
 
-Needs one CUDA card. Builds --arch (default trimkv-paper-4b; a dense
-or MoE architecture, its smoke config with --smoke, cut to --layers)
+Needs one CUDA card. Builds --arch (default trimkv-paper-4b; a dense,
+MoE or hybrid architecture, its smoke config with --smoke, cut to --layers)
 at full width (bf16, random weights from a seed) and, for single-shot
 prefill and for
 chunked prefill (chunks of 512) eager and as the chunk program's CUDA
@@ -24,7 +24,9 @@ batch 4 x 2000 tokens under budget 512:
    read from CUDA events around the call instead (an upper bound), and
    the script says so.
 
-For an MoE architecture it then prints layer 0's FFN over a chunk's
+For a hybrid architecture the RG-LRU scan kernel's device time is
+printed beside the top operators. For an MoE architecture it then
+prints layer 0's FFN over a chunk's
 [4, 512, d] and over the single-shot [4, 2000, d], split into router,
 dispatch, experts and combine (profiling.print_moe_stages).
 """
@@ -93,6 +95,11 @@ def profile_mode(eng, tokens, chunked: bool, fused: bool):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:10.3f} ms {ms / busy * 100:6.2f} %  {e.count:6d} x  "
               f"{e.key[:100]}")
+    scan = [e for e in kernels if "rg_lru_scan_kernel" in e.key]
+    if scan:
+        ms = sum(e.self_device_time_total for e in scan) / 1e3
+        print(f"  the RG-LRU scan kernel: {ms:.3f} ms "
+              f"({sum(e.count for e in scan)} launches)")
     return wall, busy
 
 

@@ -1,5 +1,6 @@
-"""Transformer blocks of the dense, MoE and cross-memory families: init,
-state and apply in prefill, chunked-prefill, decode and training modes.
+"""Transformer blocks of the dense, MoE, cross-memory and hybrid
+families: init, state and apply in prefill, chunked-prefill, decode and
+training modes.
 
 Ported from ``repro/models/blocks.py`` for the kinds "global" and
 "local" (self-attention + FFN, ``DenseBlock``; the FFN is the SwiGLU
@@ -7,10 +8,13 @@ Ported from ``repro/models/blocks.py`` for the kinds "global" and
 ``moe_apply``) and "cross"
 (self-attention + tanh-gated cross-attention to a memory + FFN,
 ``CrossBlock``: the vision layers of the vlm family and the decoder
-layers of the encdec family). A block is an ``nn.Module`` holding its
-retention gate (or None); the apply functions are plain functions over
-it. Self-attention goes through ``kernels.ops``, which runs the CUDA
-kernels on the card and their plain versions on the CPU; so does the
+layers of the encdec family) and "recurrent" (the hybrid family's
+RG-LRU block, ``RecurrentBlock``: a gated causal conv and the RG-LRU
+recurrence + FFN, no KV cache and no gate). A block is an
+``nn.Module`` holding its retention gate (or None); the apply
+functions are plain functions over it. Self-attention goes through
+``kernels.ops``, which runs the CUDA kernels on the card and their
+plain versions on the CPU; so does the
 decode-time cross-attention (the decode kernel over the memory slab,
 as the JAX package's Pallas path runs it). The prefill-time
 cross-attention and the encoder's bidirectional attention are the plain
@@ -22,12 +26,16 @@ A block's state is one flat dict per layer: the slot cache (k, v
 memory slab xk, xv [B, Hkv, S, D] (the JAX package keeps
 [B, S, Hkv, D]; this is the decode kernel's layout, so no step moves an
 axis) and mem_len [B] int32 (slots >= mem_len are masked; 0 = no
-memory).
+memory); a recurrent layer's is {h [B, lru_width] float32 (in a bf16
+model too), conv [B, conv_width - 1, lru_width] in the model dtype: the
+last pre-conv inputs, oldest first}. The RG-LRU scan over a prompt goes
+through ``kernels.ops.rg_lru_scan`` (the CUDA kernel on the card).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import gates as gates_lib
@@ -36,16 +44,19 @@ from repro_torch.core.cache import (cache_insert, cache_replay,
                                    memory_attend, memory_pos)
 from repro_torch.core.gates import Gate
 from repro_torch.kernels import ops
+from repro_torch.kernels.rg_lru import rg_lru_gates
 from repro_torch.models.common import (NEG_INF, MLP, RMSNorm, apply_rope,
                                        chunked_attention, dense,
                                        dense_apply, mlp_apply,
                                        rmsnorm_apply, to_dtype)
 
 DENSE_KINDS = ("global", "local")
-PORTED_KINDS = DENSE_KINDS + ("cross",)
-# a layer state's slot-cache leaves and a cross layer's memory leaves
-CACHE_LEAVES = ("k", "v", "beta", "pos", "aux")
+ATTENTION_KINDS = DENSE_KINDS + ("cross",)
+PORTED_KINDS = ATTENTION_KINDS + ("recurrent",)
+# a cross layer's memory leaves and a recurrent layer's state
 MEMORY_LEAVES = ("xk", "xv", "mem_len")
+RECURRENT_LEAVES = ("h", "conv")
+RG_LRU_C = 8.0  # Griffin's fixed recurrence-sharpness constant
 
 
 class MoE(nn.Module):
@@ -262,15 +273,55 @@ class CrossBlock(DenseBlock):
                                               device=device))
 
 
-def init_block(cfg, kind: str, *, device, generator) -> DenseBlock:
-    cls = CrossBlock if kind == "cross" else DenseBlock
+class RecurrentBlock(nn.Module):
+    """The hybrid family's RG-LRU block (Griffin), as ``init_block``
+    lays it out: norm1, the input branch in_x and the gate branch
+    in_gate [d, W], a depthwise causal conv conv_w [conv_width, W] and
+    conv_b, the recurrence's gates lru_wa, lru_wx [W, W] and its float32
+    decay parameter lru_lam [W] (a = exp(-8 softplus(lam)) spread over
+    (0.9, 0.999), from the JAX package's fixed numpy seed), the output
+    projection out [W, d], norm2 and the FFN. No KV cache, so no
+    retention gate (``gate`` stays None)."""
+
+    def __init__(self, cfg, kind: str, *, device, generator):
+        super().__init__()
+        dtype = to_dtype(cfg.dtype)
+        w = cfg.lru_width
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.kind = kind
+        self.norm1 = RMSNorm(cfg.d_model, device=device)
+        self.in_x = dense(cfg.d_model, w, **kw)
+        self.in_gate = dense(cfg.d_model, w, **kw)
+        conv = torch.empty((cfg.conv_width, w), dtype=torch.float32,
+                           device=device)
+        conv.normal_(0.0, 1.0, generator=generator)
+        self.conv_w = nn.Parameter((conv * 0.1).to(dtype))
+        self.conv_b = nn.Parameter(torch.zeros((w,), dtype=dtype,
+                                               device=device))
+        self.lru_wa = dense(w, w, **kw)
+        self.lru_wx = dense(w, w, **kw)
+        lam = np.log(np.expm1(-np.log(np.random.RandomState(0).uniform(
+            0.9, 0.999, size=(w,))) / RG_LRU_C))
+        self.lru_lam = nn.Parameter(torch.as_tensor(lam, dtype=torch.float32,
+                                                    device=device))
+        self.out = dense(w, cfg.d_model, **kw)
+        self.norm2 = RMSNorm(cfg.d_model, device=device)
+        self.ffn = MLP(cfg.d_model, cfg.d_ff, **kw)
+        self.gate = None
+
+
+def init_block(cfg, kind: str, *, device, generator) -> nn.Module:
+    _require_ported(kind)
+    cls = {"cross": CrossBlock, "recurrent": RecurrentBlock}.get(kind,
+                                                                 DenseBlock)
     return cls(cfg, kind, device=device, generator=generator)
 
 
 def init_block_gate(cfg, kind: str, *, device, generator):
-    """Retention gate for a block that owns a growing KV cache."""
+    """Retention gate for a block that owns a growing KV cache (None for
+    a recurrent block)."""
     _require_ported(kind)
-    if not cfg.trimkv:
+    if not cfg.trimkv or kind not in ATTENTION_KINDS:
         return None
     return Gate(cfg.d_model, cfg.gate_hidden, cfg.num_kv_heads,
                 cfg.gate_bias_init, device=device, generator=generator)
@@ -279,8 +330,15 @@ def init_block_gate(cfg, kind: str, *, device, generator):
 def init_block_state(cfg, kind: str, batch: int, budget: int, dtype,
                      device, slab_len: int | None = None):
     """A layer's state: the slot cache, and for a cross layer its memory
-    slab of slab_len (default memory_len(cfg)) slots, all masked."""
+    slab of slab_len (default memory_len(cfg)) slots, all masked; for a
+    recurrent layer h (float32) and conv (dtype), zero."""
     _require_ported(kind)
+    if kind == "recurrent":
+        w = cfg.lru_width
+        return {"h": torch.zeros((batch, w), dtype=torch.float32,
+                                 device=device),
+                "conv": torch.zeros((batch, cfg.conv_width - 1, w),
+                                    dtype=dtype, device=device)}
     M = (min(budget, cfg.window) if (kind == "local" and cfg.window > 0)
          else budget)
     cache = init_cache(batch, cfg.num_kv_heads, M, cfg.head_dim, dtype,
@@ -298,6 +356,20 @@ def init_block_state(cfg, kind: str, batch: int, budget: int, dtype,
 def _memory(state):
     """A cross layer state's memory leaves ({} for a dense layer)."""
     return {k: state[k] for k in MEMORY_LEAVES if k in state}
+
+
+def scratch_leaves(state):
+    """The leaves of a layer state that a decode step writes (all but a
+    cross layer's read-only memory): what a verify round's scratch
+    copies."""
+    return tuple(k for k in state if k not in MEMORY_LEAVES)
+
+
+def scratch_key(state):
+    """The names, shapes and dtypes of a layer state's scratch leaves:
+    layers with equal keys share one verify scratch."""
+    return tuple((k, tuple(state[k].shape), state[k].dtype)
+                 for k in scratch_leaves(state))
 
 
 def make_memory_kv(attn: Attention, cfg, memory):
@@ -405,6 +477,109 @@ def _select_rows(mask, new, old):
     return {k: sel(new[k], old[k]) for k in new}
 
 
+# ================================================== block: recurrent
+#
+# The hybrid family's RG-LRU block (the JAX package's "recurrent"
+# branches): x + out(h * gelu(in_gate(n))) with n = norm1(x) and h the
+# RG-LRU recurrence over the depthwise causal conv of in_x(n), then the
+# FFN residual. Its state is {h, conv}; decode writes it in place (the
+# step programs keep it as static buffers), prefill builds it anew.
+
+
+def _softplus(x):
+    """jax.nn.softplus: log(1 + exp(x)) as logaddexp(x, 0), with no
+    threshold (F.softplus returns x above 20)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _recurrent_in(block: RecurrentBlock, cfg, x):
+    """(the conv's input in_x(n), the gate gelu(in_gate(n))) of
+    n = norm1(x); gelu in its tanh form, jax.nn.gelu's default."""
+    normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
+    return (dense_apply(block.in_x, normed),
+            F.gelu(dense_apply(block.in_gate, normed), approximate="tanh"))
+
+
+def _rg_lru_inputs(block: RecurrentBlock, xb):
+    """(a_log, bx) float32 of the conv output xb [..., W]: a_log =
+    -8 softplus(lam) * sigmoid(wa xb), bx = sigmoid(wx xb) * xb."""
+    r = torch.sigmoid(dense_apply(block.lru_wa, xb).float())
+    i = torch.sigmoid(dense_apply(block.lru_wx, xb).float())
+    return -RG_LRU_C * _softplus(block.lru_lam) * r, i * xb.float()
+
+
+def _recurrent_out(block: RecurrentBlock, cfg, x, h, gate):
+    """x + out(h * gate) (h cast to x's dtype), then the FFN residual."""
+    x = x + dense_apply(block.out, h.to(x.dtype) * gate)
+    return _ffn_residual(block, cfg, x)[0]
+
+
+def _causal_conv(ext, w, b, C: int):
+    """The depthwise causal conv of the C inputs after the W - 1 history
+    rows of ext [B, W - 1 + C, ch] (w [W, ch]): [B, C, ch], summed tap
+    by tap in the JAX package's order."""
+    out = sum(ext[:, i:i + C] * w[i] for i in range(w.shape[0]))
+    return out + b
+
+
+def _conv_tail(ext, W: int, n_valid):
+    """The conv state after a (possibly padded) chunk: the W - 1 rows of
+    ext [B, W - 1 + C, ch] ending at each row's last real input
+    (ext[:, n : n + W - 1] for n = n_valid [B]), gathered on the
+    device."""
+    B, _, ch = ext.shape
+    idx = (n_valid.long()[:, None]
+           + torch.arange(W - 1, device=ext.device)[None])
+    return torch.gather(ext, 1, idx[..., None].expand(B, W - 1, ch))
+
+
+def _recurrent_decode(block: RecurrentBlock, cfg, x_t, state, active,
+                      return_sig):
+    """One decode step of a recurrent block (x_t [B, d]). Writes h and
+    conv into ``state`` in place (lanes outside ``active`` keep theirs
+    bit-identically) and returns (x_out, state, {h, conv} of this step,
+    unmasked, or None)."""
+    xb, gate = _recurrent_in(block, cfg, x_t)
+    full = torch.cat([state["conv"], xb[:, None]], dim=1)     # [B,W,ch]
+    xb = torch.einsum("bwc,wc->bc", full, block.conv_w) + block.conv_b
+    a_log, bx = _rg_lru_inputs(block, xb)
+    a, g = rg_lru_gates(a_log, bx)
+    h = a * state["h"] + g
+    sig = {"h": h, "conv": full[:, 1:]}
+    new = sig if active is None else _select_rows(active, sig, state)
+    for k in RECURRENT_LEAVES:
+        state[k].copy_(new[k])
+    return (_recurrent_out(block, cfg, x_t, h, gate), state,
+            sig if return_sig else None)
+
+
+def _recurrent_prefill(block: RecurrentBlock, cfg, x, state, n_valid=None):
+    """A recurrent block over x [B, C, d] continuing ``state``: the conv
+    sees the state's W - 1 history rows, the scan starts from its h
+    (ops.rg_lru_scan). n_valid ([B] tensor, or None for all C): steps
+    past a row's count are padding, made the identity (a_log 0, bx 0),
+    so h after C steps is h at its last real input; a row with 0 keeps
+    its state bit-identically. Returns (x_out, new state)."""
+    B, C, _ = x.shape
+    W = cfg.conv_width
+    xb_raw, gate = _recurrent_in(block, cfg, x)
+    ext = torch.cat([state["conv"], xb_raw], dim=1)
+    xb = _causal_conv(ext, block.conv_w, block.conv_b, C)
+    a_log, bx = _rg_lru_inputs(block, xb)
+    nvb = valid_counts(n_valid, B, C, x.device)
+    if n_valid is not None:
+        valid = (torch.arange(C, device=x.device)[None]
+                 < nvb[:, None])[..., None]
+        a_log = torch.where(valid, a_log, torch.zeros_like(a_log))
+        bx = torch.where(valid, bx, torch.zeros_like(bx))
+    h_seq = ops.rg_lru_scan(a_log.contiguous(), bx.contiguous(),
+                            state["h"].contiguous())
+    new = {"h": h_seq[:, -1].contiguous(), "conv": _conv_tail(ext, W, nvb)}
+    if torch.is_tensor(n_valid) and n_valid.ndim == 1:
+        new = _select_rows(nvb > 0, new, state)
+    return _recurrent_out(block, cfg, x, h_seq, gate), new
+
+
 def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
                        active=None, return_sig=False):
     """x_t: [B, d]; state: the block's slot cache; t: [B] per-lane
@@ -418,7 +593,11 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
     eviction transaction; pkv (the probs folded to kv heads) and auxn
     (p_new folded) are None for a policy that reads no attention, whose
     replay needs neither. The signal is made of values the step
-    computes anyway, so asking for it changes nothing else."""
+    computes anyway, so asking for it changes nothing else. A recurrent
+    block writes its {h, conv} in place and its signal is this step's
+    {h, conv} (unmasked), as the JAX package's."""
+    if block.kind == "recurrent":
+        return _recurrent_decode(block, cfg, x_t, state, active, return_sig)
     cache = state
     B = x_t.shape[0]
     normed = rmsnorm_apply(block.norm1.scale, x_t, cfg.norm_eps)
@@ -482,13 +661,14 @@ def apply_block_verify(block: DenseBlock, cfg, x, state, t, *, policy,
     """Phase A of a verify round. x: [B, C, d] residual stream of the C
     candidate positions; state: the layer's round-entry cache (not
     written); t: round-entry per-lane clock [B]; live: [B] bool lanes in
-    the round. ``scratch`` (a cache of the same shapes, or None for a
-    new one) receives a copy of ``state`` and carries the positions'
-    evolving cache; the serving step programs pass one static scratch
-    for every layer. Returns (x_out [B, C, d], sig), sig's leaves
-    stacked on axis 1 (see apply_block_decode's return_sig). The scratch
-    holds the slot cache only: a cross layer's memory is read-only at
-    decode, so its positions read the state's slab."""
+    the round. ``scratch`` (the state's scratch_leaves at the same
+    shapes, or None for new ones) receives a copy of ``state`` and
+    carries the positions' evolving cache or recurrence; the serving
+    step programs pass one static scratch for every layer of a
+    scratch_key. Returns (x_out [B, C, d], sig), sig's leaves stacked on
+    axis 1 (see apply_block_decode's return_sig). A cross layer's
+    memory is read-only at decode, so its positions read the state's
+    slab."""
     B, C, _ = x.shape
     if is_moe(cfg):
         raise ValueError(
@@ -498,9 +678,9 @@ def apply_block_verify(block: DenseBlock, cfg, x, state, t, *, policy,
     if live is None:
         live = torch.ones((B,), dtype=torch.bool, device=x.device)
     if scratch is None:
-        scratch = {k: state[k].clone() for k in CACHE_LEAVES}
+        scratch = {k: state[k].clone() for k in scratch_leaves(state)}
     else:
-        for k in CACHE_LEAVES:
+        for k in scratch_leaves(state):
             scratch[k].copy_(state[k])
     scratch = {**scratch, **_memory(state)}
     tb = torch.as_tensor(t, dtype=torch.int32, device=x.device).expand(B)
@@ -524,10 +704,20 @@ def apply_block_verify_commit(cfg, kind, state, sig, t, n_commit, live,
     sig: apply_block_verify's signals; n_commit: [B] accepted-prefix
     length (0..C, 0 for non-live lanes); t: round-entry clock. Returns
     the same cache, bit-identical to having decoded only the accepted
-    prefix; a cross layer's memory is left as it is. (The recurrent and
-    mamba kinds select a stacked snapshot in the JAX package; they come
-    with their families.)"""
+    prefix; a cross layer's memory is left as it is. A recurrent layer
+    takes the stacked {h, conv} of position n_commit - 1 (a lane that
+    commits nothing keeps its own)."""
     _require_ported(kind)
+    if kind == "recurrent":
+        B = n_commit.shape[0]
+        take = live & (n_commit > 0)
+        idx = (n_commit - 1).clamp(min=0).long()
+        lanes = torch.arange(B, device=n_commit.device)
+        picked = {k: sig[k][lanes, idx] for k in RECURRENT_LEAVES}
+        new = _select_rows(take, picked, state)
+        for k in RECURRENT_LEAVES:
+            state[k].copy_(new[k])
+        return state
     inc = 1.0 if policy.name == "trimkv" else None
     return cache_replay(state, sig["k"], sig["v"], sig["beta"], sig["pkv"],
                         sig["auxn"], t, n_commit, live, policy,
@@ -541,8 +731,11 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
     prompt's keys by keep score at t = q_offset + T - 1. A needs_attn
     policy's chunk aux is the mean attention of the last obs_window
     queries over the prompt (_obs_probs). A cross layer reads the memory
-    installed in ``state`` (transformer.install_memory) and keeps it."""
+    installed in ``state`` (transformer.install_memory) and keeps it. A
+    recurrent block runs its recurrence from the (fresh) state."""
     del budget  # the cache carries M
+    if block.kind == "recurrent":
+        return (*_recurrent_prefill(block, cfg, x, state), None)
     B, T, _ = x.shape
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
     positions = (q_offset + torch.arange(T, device=x.device))[None].expand(
@@ -587,7 +780,12 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
     their sum over the chunk's queries is added to the cache's aux (on
     a new tensor: the rows of ``state`` stay intact for the ragged
     select), and the chunk tokens' aux is the mean attention of each
-    row's last obs_window real queries (_obs_probs_chunk_lanes)."""
+    row's last obs_window real queries (_obs_probs_chunk_lanes).
+
+    A recurrent block continues its conv and recurrence over the chunk's
+    real steps (_recurrent_prefill)."""
+    if block.kind == "recurrent":
+        return (*_recurrent_prefill(block, cfg, x, state, n_valid), None)
     B, C, _ = x.shape
     dev = x.device
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
@@ -726,13 +924,13 @@ def apply_block_train(block: DenseBlock, cfg, x, *, gated=False,
     """Training forward of a dense or MoE block over x [B, T, d] (with
     causal=False and kv_positions: an encoder layer). Returns (x_out,
     cap, router): the block's capacity loss, zero when not gated, and
-    its MoE router aux, zero without experts. Cross blocks train with
-    their family (ROADMAP queue 1)."""
+    its MoE router aux, zero without experts. Cross and recurrent blocks
+    train with their families (ROADMAP queue 1 item 7)."""
     if block.kind not in DENSE_KINDS:
         raise NotImplementedError(
             f"training a {block.kind!r} block is not ported to repro_torch "
-            f"yet; see ROADMAP queue 1, gate training for the cross "
-            f"families")
+            f"yet; see ROADMAP queue 1 item 7, gate training for the "
+            f"cross and hybrid families")
     attn_out, cap = self_attn_train(block, cfg, x, gated=gated, cap_M=cap_M,
                                     causal=causal,
                                     kv_positions=kv_positions)

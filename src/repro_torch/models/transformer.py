@@ -1,18 +1,20 @@
-"""The model stack of the dense, MoE and cross-memory families: init,
-logits, decode state, the cross-attention memory (vision projection or
-encoder, install_memory), single-shot and chunked prefill, decode,
-sampling, speculative verify rounds, the token loops and the training
-forward.
+"""The model stack of the dense, MoE, cross-memory and hybrid families:
+init, logits, decode state, the cross-attention memory (vision
+projection or encoder, install_memory), single-shot and chunked
+prefill, decode, sampling, speculative verify rounds, the token loops
+and the training forward.
 
-Ported from ``repro/models/transformer.py`` (the dense, moe, vlm and
-encdec families). The model is a ``Transformer`` module holding its blocks in
-order (and, for encdec, its encoder); the JAX package's scans over
+Ported from ``repro/models/transformer.py`` (the dense, moe, vlm,
+encdec and hybrid families). The model is a ``Transformer`` module
+holding its blocks in order (and, for encdec, its encoder); the JAX
+package's scans over
 layers become Python loops, and its scans over tokens and chunks become
 loops over step functions (``serve.graphs`` captures the steps as CUDA
 graphs). The decode state is {"t": [B] int32 per-lane clock, "layers":
 [one flat state dict per layer]} (blocks.init_block_state: a slot
-cache, plus a cross layer's memory slab); ``bridge.state_to_numpy``
-gives it the JAX package's layout. Decode updates the caches in place.
+cache, plus a cross layer's memory slab; a recurrent layer's {h,
+conv}); ``bridge.state_to_numpy`` gives it the JAX package's layout.
+Decode updates the caches in place.
 """
 from __future__ import annotations
 
@@ -70,7 +72,7 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
-FAMILIES = ("dense", "moe", "vlm", "encdec")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid")
 # the extra_inputs key that carries a cross family's memory
 MEM_KEYS = {"vlm": "vision_embeds", "encdec": "source_embeds"}
 
@@ -114,7 +116,7 @@ def init_gate_params(model: Transformer, cfg, *, seed: int = 1):
 
 def num_gate_layers(cfg) -> int:
     return sum(1 for k in cfg.layer_kinds()
-               if cfg.trimkv and k in ("global", "local", "cross"))
+               if cfg.trimkv and k in blocks.ATTENTION_KINDS)
 
 
 def gate_parameters(model: Transformer):
@@ -506,17 +508,18 @@ def _verify_forward(model: Transformer, cfg, state, fed, live, policy,
     """Phase A of a verify round: score the C candidate positions (fed
     [B, C]) through the stack WITHOUT writing ``state``: each block runs
     the decode recipe per position over a scratch copy of its cache
-    (blocks.apply_block_verify). ``scratch`` maps a cache's pos shape to
-    a static scratch cache (None: new ones). The final norm and the
-    logits run per position at the decode shape [B, d], as decode_step
-    runs them, since a GEMM at another shape may round otherwise.
+    (blocks.apply_block_verify). ``scratch`` maps a layer state's
+    blocks.scratch_key to its static scratch (None: new ones). The final
+    norm and the logits run per position at the decode shape [B, d], as
+    decode_step runs them, since a GEMM at another shape may round
+    otherwise.
     Returns (logits [B, C, Vp] float32, sigs: one signal dict per
     layer)."""
     x = _embed(model, fed)                                   # [B,C,d]
     t = state["t"]
     sigs = []
     for block, st in zip(model.layers, state["layers"]):
-        sc = None if scratch is None else scratch[tuple(st["pos"].shape)]
+        sc = None if scratch is None else scratch[blocks.scratch_key(st)]
         x, sig = blocks.apply_block_verify(block, cfg, x, st, t,
                                            policy=policy, live=live,
                                            scratch=sc)
@@ -781,10 +784,11 @@ def _memory_upload(cfg, mem_inputs, mem_install):
 def reset_lanes(state, lane_mask):
     """Retire lanes in place: the masked lanes' slot metadata is cleared
     (core.cache.reset_lanes: pos -1, beta 1, aux 0; a cross layer's
-    mem_len 0, so the next occupant never reads this memory) and their
-    clock set to 0; K/V and memory bytes stay (invisible once masked).
-    Other lanes are untouched. lane_mask: [B] bool. Returns the same
-    state."""
+    mem_len 0, so the next occupant never reads this memory; a recurrent
+    layer's h and conv 0, so none of this request's recurrence reaches
+    the next) and their clock set to 0; K/V and memory bytes stay
+    (invisible once masked). Other lanes are untouched. lane_mask: [B]
+    bool. Returns the same state."""
     state["t"].masked_fill_(lane_mask, 0)
     for st in state["layers"]:
         cache_reset_lanes(st, lane_mask)
@@ -852,12 +856,13 @@ def forward_train(model: Transformer, cfg, tokens, *, gated=False,
     residual stream between blocks; backward recomputes the block, its
     L_cap forward included. Without autograd (the teacher under
     ``torch.no_grad``) nothing is checkpointed. The dense and moe
-    families: the cross families' gate training is ROADMAP queue 1."""
+    families: the cross and hybrid families' gate training is ROADMAP
+    queue 1 item 7."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported to "
-            f"repro_torch yet; see ROADMAP queue 1, gate training for the "
-            f"cross families")
+            f"repro_torch yet; see ROADMAP queue 1 item 7, gate training "
+            f"for the cross and hybrid families")
     h = _embed(model, tokens)
     cap_total = torch.zeros((), dtype=torch.float32, device=h.device)
     router_total = torch.zeros((), dtype=torch.float32, device=h.device)

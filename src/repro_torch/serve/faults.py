@@ -55,8 +55,9 @@ def poison_lanes(state, lane_mask):
     lane_mask: [B] bool on the state's device. Returns the state."""
     m = lane_mask[:, None, None, None]
     for st in state["layers"]:
-        st["k"].masked_fill_(m, float("nan"))
-        st["v"].masked_fill_(m, float("nan"))
+        if "k" in st:   # a recurrent layer has no K/V (JAX poisons "k" only)
+            st["k"].masked_fill_(m, float("nan"))
+            st["v"].masked_fill_(m, float("nan"))
     return state
 
 

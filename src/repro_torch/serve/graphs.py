@@ -47,8 +47,8 @@ emitted buffers widened to W * (spec_k + 1) columns:
 
 - ``spec_segment``: one verify round (transformer.spec_segment_step:
   phase A scores the spec_k + 1 positions over a static scratch cache,
-  one per cache shape, phase B replays the accepted ones into the
-  static state in place);
+  one per layer-state shape (a recurrent layer's {h, conv} included),
+  phase B replays the accepted ones into the static state in place);
 - ``spec_mixed`` and ``spec_mixed_first``: one verify round plus one
   chunk sub-step, without and with the first-token logits.
 
@@ -98,7 +98,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.kernels import ops
 from repro_torch.models import transformer as T
-from repro_torch.models.blocks import CACHE_LEAVES
+from repro_torch.models.blocks import scratch_key, scratch_leaves
 
 # rows of LanePrograms.io, the per-lane carries a dispatch uploads once
 # and the segment / mixed programs update in place (the last two: the
@@ -264,7 +264,8 @@ class LanePrograms:
         self.emitted = torch.zeros((B, W * Cs), dtype=torch.bool,
                                    device=dev)
         # speculative decoding: the drafter history, and one scratch
-        # cache per cache shape, which phase A of every layer reuses
+        # per layer-state shape (blocks.scratch_key), which phase A of
+        # every layer of that shape reuses
         # (made at a speculative program's first run, its warm-up, so it
         # is a static buffer of the captured graph)
         self.hist = torch.full((B, T.SPEC_HISTORY), -1, dtype=torch.int64,
@@ -393,10 +394,10 @@ class LanePrograms:
         if self.scratch is None:
             self.scratch = {}
             for st in self.state["layers"]:
-                key = tuple(st["pos"].shape)
+                key = scratch_key(st)
                 if key not in self.scratch:
                     self.scratch[key] = {k: torch.empty_like(st[k])
-                                         for k in CACHE_LEAVES}
+                                         for k in scratch_leaves(st)}
         return self.scratch
 
     def _spec_segment(self):

@@ -11,6 +11,8 @@ the capacity loss rtol 1e-5 (atol 1e-7) on the value and rtol 1e-4
 capacity tests there. The CUDA kernels themselves run only on a card:
 chip_smoke.py holds each against these plain versions there.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +45,13 @@ def _one_torch_thread():
 
 def _np(x):
     return np.asarray(x, np.float32)
+
+
+def _jit(fn, **options):
+    """fn with its keyword options bound, jitted: one compile of the
+    whole call, where an eager call runs each operation around the
+    interpreted kernel on its own."""
+    return jax.jit(functools.partial(fn, **options))
 
 
 def _close(got, want, msg=""):
@@ -82,10 +91,10 @@ def test_decode_attention_matches_pallas(window, with_new, return_probs,
     pos = _slot_positions(rng, B, Hkv, M, 55)
     new_j = (jnp.asarray(kn), jnp.asarray(vn)) if with_new else None
     new_t = (torch.as_tensor(kn), torch.as_tensor(vn)) if with_new else None
-    want = jops.decode_attention(
+    want = _jit(jops.decode_attention, window=window,
+                return_probs=return_probs, impl="pallas")(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(pos),
-        jnp.asarray(t), window=window, new_kv=new_j,
-        return_probs=return_probs, impl="pallas")
+        jnp.asarray(t), new_kv=new_j)
     got = ops.decode_attention(
         torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
         torch.as_tensor(pos), torch.as_tensor(t), window=window,
@@ -212,10 +221,10 @@ def test_chunk_attention_matches_pallas(Hq, Hkv, need_probs, window, shape):
     idx = np.arange(C)
     chunk_pos = np.where(idx[None] < n_valid[:, None], t0[:, None] + idx,
                          -1).astype(np.int32)
-    want = jops.chunk_attention(
+    want = _jit(jops.chunk_attention, window=window, need_probs=need_probs,
+                impl="pallas")(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
-        {k: jnp.asarray(v) for k, v in cache.items()}, jnp.asarray(chunk_pos),
-        window=window, need_probs=need_probs, impl="pallas")
+        {k: jnp.asarray(v) for k, v in cache.items()}, jnp.asarray(chunk_pos))
     got = ops.chunk_attention(
         torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
         {k: torch.as_tensor(v) for k, v in cache.items()},
@@ -241,10 +250,9 @@ def test_chunk_attention_empty_cache_first_chunk():
              "v": np.zeros((B, Hkv, M, D), np.float32),
              "pos": np.full((B, Hkv, M), -1, np.int32)}
     chunk_pos = np.arange(C, dtype=np.int32)
-    want = jops.chunk_attention(
+    want = _jit(jops.chunk_attention, impl="pallas")(
         jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
-        {k: jnp.asarray(v) for k, v in cache.items()}, jnp.asarray(chunk_pos),
-        impl="pallas")
+        {k: jnp.asarray(v) for k, v in cache.items()}, jnp.asarray(chunk_pos))
     got = ops.chunk_attention(
         torch.as_tensor(q), torch.as_tensor(kc), torch.as_tensor(vc),
         {k: torch.as_tensor(v) for k, v in cache.items()},
@@ -277,10 +285,10 @@ def test_retention_attention_matches_pallas(use_beta, q_offset, window,
     k = rng.randn(B, Tk, Hkv, D).astype(np.float32)
     v = rng.randn(B, Tk, Hkv, D).astype(np.float32)
     lb = (-np.abs(rng.randn(B, Tk, Hkv)) * 0.05).astype(np.float32)
-    want = jops.retention_attention(
+    want = _jit(jops.retention_attention, window=window, q_offset=q_offset,
+                impl="pallas")(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-        jnp.asarray(lb) if use_beta else None, window=window,
-        q_offset=q_offset, impl="pallas")
+        jnp.asarray(lb) if use_beta else None)
     got = ops.retention_attention(
         torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
         torch.as_tensor(lb) if use_beta else None, window=window,
@@ -304,7 +312,8 @@ def test_capacity_loss_matches_jax(impl, B, H, T, M):
     oracle against the JAX package's."""
     rng = np.random.RandomState(10)
     beta = _sigmoid(2.0 * rng.randn(B, T, H)).astype(np.float32)
-    want = jops.capacity_loss(jnp.asarray(beta), float(M), impl=impl)
+    want = _jit(jops.capacity_loss, M=float(M), impl=impl)(
+        jnp.asarray(beta))
     if impl == "ref":
         got = capacity_loss_ref(torch.as_tensor(beta), M)
     else:
@@ -361,8 +370,8 @@ def test_capacity_loss_bwd_closed_form(case):
     got = capacity_loss_bwd_torch(lbt, S, M, torch.tensor(g))
     x = lbt.clone().requires_grad_(True)
     (auto,) = torch.autograd.grad(ops.capacity_loss_log(x, M) * g, x)
-    j_grad = jax.grad(lambda x: g * jax_capacity_chunked(
-        jnp.exp(x), float(M), log_beta=x))(jnp.asarray(lb))
+    j_grad = jax.jit(jax.grad(lambda x: g * jax_capacity_chunked(
+        jnp.exp(x), float(M), log_beta=x)))(jnp.asarray(lb))
     np.testing.assert_allclose(got.numpy(), auto.numpy(), rtol=1e-4,
                                atol=1e-7)
     np.testing.assert_allclose(got.numpy(), np.asarray(j_grad), rtol=1e-4,

@@ -124,16 +124,27 @@ def _grid(prompts):
 
 
 @functools.lru_cache(maxsize=None)
+def _jax_prefill_chunk_loop():
+    """The JAX prefill_chunk_loop from a fresh B-lane state under
+    TRIM-KV, jitted once for the grids of one shape (an eager call
+    compiles its scan anew each time): (chunks, n_valid) -> (state,
+    h_last)."""
+    cfg_j, params, gates, _, _ = _setup()
+    sj, _ = _serve()
+    return jax.jit(lambda chunks, nv: JT.prefill_chunk_loop(
+        params, gates, cfg_j, chunks, nv,
+        JT.init_decode_state(cfg_j, B, BUDGET), JTrimKV(), sj))
+
+
+@functools.lru_cache(maxsize=None)
 def _ragged_prefill():
     """Both sides' ragged chunked prefill of three prompts of 21, 9 and
     3 tokens from fresh states: (port state, port h_last, JAX state,
     JAX h_last)."""
-    cfg_j, params, gates, cfg, model = _setup()
-    sj, st = _serve()
+    _, _, _, cfg, model = _setup()
+    _, st = _serve()
     chunks, nv = _grid(_prompts([21, 9, 3]))
-    js, jh = JT.prefill_chunk_loop(
-        params, gates, cfg_j, jnp.asarray(chunks), jnp.asarray(nv),
-        JT.init_decode_state(cfg_j, B, BUDGET), JTrimKV(), sj)
+    js, jh = _jax_prefill_chunk_loop()(jnp.asarray(chunks), jnp.asarray(nv))
     ts, th = T.prefill_chunk_loop(model, cfg, torch.as_tensor(chunks),
                                   torch.as_tensor(nv),
                                   T.init_decode_state(cfg, B, BUDGET, "cpu"),
@@ -208,6 +219,19 @@ def _assert_segment(got, want):
     _assert_states(ts, js)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_segment_loop(n_steps):
+    """The JAX decode_segment_loop of n_steps under TRIM-KV, jitted once
+    for the cases that call it (an eager call compiles its scan anew
+    each time); n_real is an argument."""
+    cfg_j = _setup()[0]
+    return jax.jit(lambda params, gates, state, tok, keys, active,
+                   n_emitted, max_new, eos, n_real: JT.decode_segment_loop(
+                       params, gates, cfg_j, state, tok, keys, active,
+                       n_emitted, max_new, eos, n_steps, JTrimKV(),
+                       n_real=n_real))
+
+
 def test_decode_segment_loop_matches_jax():
     """A 6-step segment with n_real 4 over three lanes: lane 0 stops on
     its eos (its carried token), lane 1 at max_new, lane 2 is inactive
@@ -223,11 +247,11 @@ def test_decode_segment_loop_matches_jax():
     got = T.decode_segment_loop(model, cfg, ts, tok, np.zeros((B, 2)),
                                 active, n_emitted, max_new, eos, 6,
                                 TrimKV(), n_real=4)
-    want = JT.decode_segment_loop(
-        params, gates, cfg_j, js, jnp.asarray(tok.numpy(), jnp.int32),
+    want = _jax_segment_loop(6)(
+        params, gates, js, jnp.asarray(tok.numpy(), jnp.int32),
         jnp.zeros((B, 2), jnp.uint32), jnp.asarray(active),
-        jnp.asarray(n_emitted), jnp.asarray(max_new), jnp.asarray(eos), 6,
-        JTrimKV(), n_real=jnp.int32(4))
+        jnp.asarray(n_emitted), jnp.asarray(max_new), jnp.asarray(eos),
+        jnp.int32(4))
     _assert_segment(got, want)
     _assert_lanes_frozen(got[0], before, [2])
     assert got[6].numpy()[:, 4:].sum() == 0
@@ -296,11 +320,11 @@ def test_decode_segment_loop_n_real_edges_match_jax(n_real):
     got = T.decode_segment_loop(model, cfg, ts, tok, np.zeros((B, 2)),
                                 active, n_emitted, max_new, eos, 6,
                                 TrimKV(), n_real=n_real)
-    want = JT.decode_segment_loop(
-        params, gates, cfg_j, js, jnp.asarray(tok.numpy(), jnp.int32),
+    want = _jax_segment_loop(6)(
+        params, gates, js, jnp.asarray(tok.numpy(), jnp.int32),
         jnp.zeros((B, 2), jnp.uint32), jnp.asarray(active),
-        jnp.asarray(n_emitted), jnp.asarray(max_new), jnp.asarray(eos), 6,
-        JTrimKV(), n_real=jnp.int32(n_real))
+        jnp.asarray(n_emitted), jnp.asarray(max_new), jnp.asarray(eos),
+        jnp.int32(n_real))
     _assert_segment(got, want)
     _assert_lanes_frozen(got[0], before, [1] if n_real else [0, 1, 2])
 
@@ -314,7 +338,7 @@ def test_phased_admission_matches_jax_install():
     K/V bytes are gone in both; lane 1 is bit-identical, and the
     admitted lanes' first tokens are equal."""
     cfg_j, params, gates, cfg, model = _setup()
-    sj, st = _serve()
+    _, st = _serve()
     ts, th, js, _ = _ragged_prefill()
     mask = np.array([True, False, True])
     prompts = _prompts([13, 1, 20], seed=4)
@@ -326,9 +350,8 @@ def test_phased_admission_matches_jax_install():
     tok_before = lanes.tok.clone()
     lanes.reset(torch.as_tensor(mask))
     lanes.admit(chunks, nv, mask)
-    sub, jh = JT.prefill_chunk_loop(
-        params, gates, cfg_j, jnp.asarray(chunks), jnp.asarray(nv),
-        JT.init_decode_state(cfg_j, B, BUDGET), JTrimKV(), sj)
+    sub, jh = _jax_prefill_chunk_loop()(jnp.asarray(chunks),
+                                        jnp.asarray(nv))
     want = JT.install_lanes(JT.reset_lanes(js, jnp.asarray(mask)), sub,
                             jnp.asarray(mask))
     first = np.asarray(jnp.argmax(JT.compute_logits(params, cfg_j, jh),

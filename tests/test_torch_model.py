@@ -114,6 +114,14 @@ def test_prefill_matches_jax(gates_mode, chunked):
     _assert_states(ts, js)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_decode_step():
+    """The JAX decode step with the weights as arguments, jitted once for
+    both gate modes."""
+    return jax.jit(lambda p, g, s, tok: JT.decode_step(
+        p, g, jax_smoke_config(ARCH), s, tok, JTrimKV(), attn_impl="pallas"))
+
+
 @pytest.mark.parametrize("gates_mode", ["default", "perturbed"])
 def test_decode_step_matches_jax(gates_mode):
     """Four decode steps from the same prefilled state: logits and the
@@ -124,11 +132,10 @@ def test_decode_step_matches_jax(gates_mode):
     tokens, _, _ = _tokens(2, 40, seed=1)
     js, _ = je.prefill(tokens)
     ts, _ = te.prefill(tokens)
-    step = jax.jit(lambda s, tok: JT.decode_step(
-        params, gates, cfg_j, s, tok, JTrimKV(), attn_impl="pallas"))
+    step = _jax_decode_step()
     for i in range(4):
         tok = tokens[:, i]
-        js, jl = step(js, jnp.asarray(tok))
+        js, jl = step(params, gates, js, jnp.asarray(tok))
         ts, tl = T.decode_step(model, cfg, ts, torch.as_tensor(tok),
                                TrimKV())
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)

@@ -165,6 +165,7 @@ def test_key_diversity_matches_jax_on_lone_and_empty_slots():
 
 
 @functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=None)
 def _layer():
     """Layer 0 of the smoke config, perturbed gate biases: (cfg_j, JAX
     params and gate of the layer, cfg, the port's block)."""
@@ -206,8 +207,24 @@ def _assert_block(got, want):
         np.testing.assert_allclose(gs[k].numpy(), ws[k], err_msg=k, **TOL)
 
 
-def _policies(name):
-    return jpol.POLICIES[name](**KW), tpol.POLICIES[name](**KW)
+@functools.lru_cache(maxsize=None)
+def _jax_block(mode, name):
+    """The JAX block of the smoke config in one mode ("decode",
+    "prefill", "chunk") under the policy `name`, with attn_impl="pallas",
+    jitted: one compile of the whole call, where an eager call runs each
+    operation and each step of the interpreted kernels on its own."""
+    cfg_j, jp = _layer()[0], jpol.POLICIES[name](**KW)
+    if mode == "decode":
+        return jax.jit(lambda p, g, x, c, t, active: JB.apply_block_decode(
+            p, g, cfg_j, "global", x, c, t, policy=jp, attn_impl="pallas",
+            active=active))
+    if mode == "prefill":
+        return jax.jit(lambda p, g, x, c: JB.apply_block_prefill(
+            p, g, cfg_j, "global", x, c, policy=jp, budget=16, obs_window=8,
+            attn_impl="pallas"))
+    return jax.jit(lambda p, g, x, c, t0, nv: JB.apply_block_prefill_chunk(
+        p, g, cfg_j, "global", x, c, t0, policy=jp, obs_window=8,
+        n_valid=nv, attn_impl="pallas"))
 
 
 @pytest.mark.parametrize("name", ATTN_POLICIES)
@@ -215,16 +232,15 @@ def test_block_decode_matches_jax(name):
     """One decode step of 3 lanes on their own clocks, lane 1 inactive:
     the kernel's probs feed decode_update before the insert and p_new
     is the new token's aux; the inactive lane's cache is bit-identical."""
-    cfg_j, p, g, cfg, block = _layer()
-    jp, tp = _policies(name)
+    _, p, g, cfg, block = _layer()
+    tp = tpol.POLICIES[name](**KW)
     rng = np.random.RandomState(10)
     t = np.array([30, 25, 41], np.int32)
     c = _block_cache(rng, cfg, 3, 16, t)
     x = rng.randn(3, cfg.d_model).astype(np.float32)
     active = np.array([True, False, True])
-    wx, ws, _ = JB.apply_block_decode(
-        p, g, cfg_j, "global", jnp.asarray(x), _jax(c), jnp.asarray(t),
-        policy=jp, attn_impl="pallas", active=jnp.asarray(active))
+    wx, ws, _ = _jax_block("decode", name)(
+        p, g, jnp.asarray(x), _jax(c), jnp.asarray(t), jnp.asarray(active))
     gx, gs, _ = TB.apply_block_decode(
         block, cfg, torch.as_tensor(x), _torch(c), torch.as_tensor(t),
         policy=tp, active=torch.as_tensor(active))
@@ -263,8 +279,8 @@ def test_block_decode_refuses_an_aux_not_written_in_place(policy_cls):
 def test_block_prefill_matches_jax(name):
     """Single-shot prefill of 24 tokens into 16 empty slots: the chunk
     aux is the obs-window (8 queries) attention."""
-    cfg_j, p, g, cfg, block = _layer()
-    jp, tp = _policies(name)
+    _, p, g, cfg, block = _layer()
+    tp = tpol.POLICIES[name](**KW)
     rng = np.random.RandomState(11)
     x = rng.randn(2, 24, cfg.d_model).astype(np.float32)
     empty = {"k": np.zeros((2, cfg.num_kv_heads, 16, cfg.head_dim),
@@ -274,9 +290,8 @@ def test_block_prefill_matches_jax(name):
              "beta": np.ones((2, cfg.num_kv_heads, 16), np.float32),
              "pos": np.full((2, cfg.num_kv_heads, 16), -1, np.int32),
              "aux": np.zeros((2, cfg.num_kv_heads, 16), np.float32)}
-    wx, ws, _ = JB.apply_block_prefill(
-        p, g, cfg_j, "global", jnp.asarray(x), _jax(empty), policy=jp,
-        budget=16, obs_window=8, attn_impl="pallas")
+    wx, ws, _ = _jax_block("prefill", name)(p, g, jnp.asarray(x),
+                                            _jax(empty))
     gx, gs, _ = TB.apply_block_prefill(
         block, cfg, torch.as_tensor(x), _torch(empty), policy=tp, budget=16,
         obs_window=8)
@@ -290,17 +305,15 @@ def test_block_prefill_chunk_matches_jax(name):
     8), per-lane start positions. The cache's aux gains the chunk
     queries' attention mass, the chunk tokens take the obs-window mean,
     and the frozen row keeps its cache bit-identically."""
-    cfg_j, p, g, cfg, block = _layer()
-    jp, tp = _policies(name)
+    _, p, g, cfg, block = _layer()
+    tp = tpol.POLICIES[name](**KW)
     rng = np.random.RandomState(12)
     t0 = np.array([40, 30, 33, 50], np.int32)
     c = _block_cache(rng, cfg, 4, 16, t0)
     x = rng.randn(4, 16, cfg.d_model).astype(np.float32)
     nv = np.array([16, 0, 5, 12], np.int32)
-    wx, ws, _ = JB.apply_block_prefill_chunk(
-        p, g, cfg_j, "global", jnp.asarray(x), _jax(c), jnp.asarray(t0),
-        policy=jp, obs_window=8, n_valid=jnp.asarray(nv),
-        attn_impl="pallas")
+    wx, ws, _ = _jax_block("chunk", name)(p, g, jnp.asarray(x), _jax(c),
+                                          jnp.asarray(t0), jnp.asarray(nv))
     state = _torch(c)
     aux = state["aux"].clone()
     gx, gs, _ = TB.apply_block_prefill_chunk(

@@ -169,11 +169,16 @@ def _prefilled(budget=8):
         nv[:, b] = np.clip(p.size - np.arange(n) * C, 0, C)
         hist[b, -p.size:] = p
     sj = JServeConfig(budget=budget, prefill_chunk=C)
-    js, jh = JT.prefill_chunk_loop(
-        params, gates, cfg_j, jnp.asarray(chunks), jnp.asarray(nv),
-        JT.init_decode_state(cfg_j, 3, budget), jax_make_policy(sj), sj)
-    tok = np.asarray(jnp.argmax(JT.compute_logits(params, cfg_j, jh), -1),
-                     np.int32)
+
+    def jax_prefill(p, g, c, n):      # jitted: one compile of the scan
+        js, jh = JT.prefill_chunk_loop(
+            p, g, cfg_j, c, n, JT.init_decode_state(cfg_j, 3, budget),
+            jax_make_policy(sj), sj)
+        return js, jnp.argmax(JT.compute_logits(p, cfg_j, jh), -1)
+
+    js, tok = jax.jit(jax_prefill)(params, gates, jnp.asarray(chunks),
+                                   jnp.asarray(nv))
+    tok = np.asarray(tok, np.int32)
     st = ServeConfig(budget=budget, prefill_chunk=C)
     ts, _ = T.prefill_chunk_loop(model, cfg, torch.as_tensor(chunks),
                                  torch.as_tensor(nv),
@@ -186,6 +191,27 @@ def _clone(state):
     return {"t": state["t"].clone(),
             "layers": [{k: v.clone() for k, v in st.items()}
                        for st in state["layers"]]}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_verify(policy, spec_k):
+    """The JAX package's verify_round and _verify_forward for a policy,
+    jitted once and shared by the cases (drafts an argument; the eager
+    calls would compile their scans anew each time): (round, forward)."""
+    cfg_j = _models()[0]
+    jpol = jax_make_policy(JServeConfig(policy=policy, budget=8))
+
+    def round_(params, gates, state, tok, hist, active, live, n_emitted,
+               max_new, eos, drafts):
+        return JT.verify_round(params, gates, cfg_j, state, tok, hist,
+                               active, live, n_emitted, max_new, eos,
+                               spec_k, jpol,
+                               draft_fn=lambda h, t, k: drafts)
+
+    def forward(params, gates, state, fed, live):
+        return JT._verify_forward(params, gates, cfg_j, state, fed, live,
+                                  jpol)[0]
+    return jax.jit(round_), jax.jit(forward)
 
 
 def _greedy_run(model, cfg, state, tok, n, policy):
@@ -209,7 +235,6 @@ def test_verify_round_matches_jax(policy, case):
     cfg_j, params, gates, cfg, model = _models()
     js, ts, tok, hist = _prefilled()
     spec_k, Cc = 3, 4
-    jpol = jax_make_policy(JServeConfig(policy=policy, budget=8))
     tpol = make_policy(ServeConfig(policy=policy, budget=8))
     greedy = _greedy_run(model, cfg, ts, tok, spec_k, tpol)
     drafts = greedy.copy()
@@ -223,16 +248,16 @@ def test_verify_round_matches_jax(policy, case):
         max_new[0] = n_emitted[0] + 3              # stops at position 2
         eos[1] = drafts[1, 0]                      # emitted at position 1
         live[2] = False
-    jd = lambda h, t, k: jnp.asarray(drafts)       # noqa: E731
     td = lambda h, t, k: torch.as_tensor(drafts, dtype=torch.int64)  # noqa
-    j_args = (jnp.asarray(tok), jnp.asarray(hist), jnp.ones((3,), bool),
-              jnp.asarray(live), jnp.asarray(n_emitted),
-              jnp.asarray(max_new), jnp.asarray(eos), spec_k, jpol)
-    want = JT.verify_round(params, gates, cfg_j, js, *j_args, draft_fn=jd)
-    j_logits, _ = JT._verify_forward(
-        params, gates, cfg_j, js,
+    j_round, j_forward = _jax_verify(policy, spec_k)
+    want = j_round(params, gates, js, jnp.asarray(tok), jnp.asarray(hist),
+                   jnp.ones((3,), bool), jnp.asarray(live),
+                   jnp.asarray(n_emitted), jnp.asarray(max_new),
+                   jnp.asarray(eos), jnp.asarray(drafts))
+    j_logits = j_forward(
+        params, gates, js,
         jnp.concatenate([jnp.asarray(tok)[:, None], jnp.asarray(drafts)], 1),
-        jnp.asarray(live), jpol)
+        jnp.asarray(live))
     entry = _clone(ts)
     state = _clone(ts)
     t_args = (torch.as_tensor(np.array(tok), dtype=torch.int64),
