@@ -4111,10 +4111,9 @@ def hybrid_kernel_phase(g):
     without the window (G 10), and at gemma3-12b's M 1024 with window
     1024 and M 2048 (G 2), with clocks past M and the window, empty
     slots and probs out, each windowed case with pairs the window
-    masks; bf16 row by row (ROW_TOL), float32 element by element (TOL). The scan at T 1,
-    511 and 4096 from h0 != 0, and with ragged identity tails (a_log 0,
-    bx 0), within TOL. Returns the entries of the D-256 variants and of
-    the scan kernel (launches filled in by main)."""
+    masks; bf16 row by row (ROW_TOL), float32 element by element (TOL).
+    Then scan_kernel_phase. Returns the entries of the D-256 variants
+    and of the scan kernel (launches filled in by main)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.chunk_attention import (chunk_attention_cuda,
@@ -4123,8 +4122,6 @@ def hybrid_kernel_phase(g):
                                                       decode_attention_torch)
     from repro_torch.kernels.retention_attention import (
         retention_attention_cuda, retention_attention_torch)
-    from repro_torch.kernels.rg_lru import (rg_lru_scan_cuda,
-                                            rg_lru_scan_torch)
 
     D, P = 256, HYBRID_SHAPE["P"]
     ret_cases = [  # name, B, Tq, Tk, Hq, Hkv, q_offset, window, log_beta
@@ -4228,39 +4225,6 @@ def hybrid_kernel_phase(g):
                  {f"{n}: the window never binds": int(not c)
                   for n, c in binds.items()})
 
-    # the RG-LRU scan: h0 != 0, a_log <= 0 as the block makes it
-    W = 2560
-
-    def scan_inputs(B, T, tails=None):
-        a_log = -8.0 * torch.rand((B, T, W), generator=g, device="cuda") \
-            * 0.05
-        bx = torch.randn((B, T, W), generator=g, device="cuda")
-        if tails is not None:
-            keep = (torch.arange(T, device="cuda")[None]
-                    < torch.tensor(tails, device="cuda")[:, None])[..., None]
-            a_log = torch.where(keep, a_log, torch.zeros_like(a_log))
-            bx = torch.where(keep, bx, torch.zeros_like(bx))
-        h0 = torch.randn((B, W), generator=g, device="cuda")
-        return a_log.contiguous(), bx.contiguous(), h0
-
-    scan_err = 0.0
-    for name, B, T, tails in (("T 1", 4, 1, None), ("T 511", 4, 511, None),
-                              (f"T {P}", 2, P, None),
-                              ("T 512, ragged identity tails [512, 300, 1, "
-                               "0]", 4, 512, [512, 300, 1, 0])):
-        args = scan_inputs(B, T, tails)
-        got = rg_lru_scan_cuda(*args)
-        want = rg_lru_scan_torch(*args)
-        scan_err = max(scan_err, check(f"rg_lru_scan float32 {name}", (got,),
-                                       (want,), "float32"))
-        if tails is not None:   # the identity steps carry h unchanged
-            last = got[torch.arange(B), torch.tensor(
-                [max(x - 1, 0) for x in tails], device="cuda")]
-            last[3] = args[2][3]
-            if not torch.equal(got[:, -1], last):
-                raise AssertionError("rg_lru_scan: a padded step changed h")
-        del args, got, want
-
     # timing at the hybrid phase's shapes
     out = []
     B = HYBRID_SHAPE["B"]
@@ -4337,15 +4301,93 @@ def hybrid_kernel_phase(g):
                     "library_ms": lib})
         del args, q, keys, vals, mask, qh
         torch.cuda.empty_cache()
+    return out + scan_kernel_phase(g)
+
+
+def scan_kernel_phase(g):
+    """The RG-LRU scan kernel against its plain version (the sequential
+    loop) on the card, from h0 != 0, at the edges of scan_plan, within
+    TOL; ragged identity tails (a_log 0, bx 0) repeat h at the last real
+    step bit for bit, and a second launch returns the same bits. Then
+    timed at the hybrid phase's prefill (B 2, T 4096) and at a chunk
+    sub-step (B 4, T 512) beside its bound (the scan has no library
+    call). Returns its entry (launches filled in by main)."""
+    import torch
+    from repro_torch.kernels.rg_lru import (CHUNK, SUBS, rg_lru_scan_cuda,
+                                            rg_lru_scan_torch)
+    P, C = HYBRID_SHAPE["P"], HYBRID_SHAPE["chunk"]
+    # h0 != 0, a_log <= 0 as the block makes it. The cases reach every
+    # edge of scan_plan: T about one chunk (L) and one tile (SUBS * L), a
+    # verify round (T 3 at B 8), every channel tile (cw 8 at B 1, 16 at
+    # B 2, 32 at B 4 and 8), a W that no channel tile divides (nor 4),
+    # and ragged identity tails that end inside a chunk, on a chunk's or
+    # a tile's edge, and before the first step
+
+    def scan_inputs(B, T, W, tails=None):
+        a_log = -8.0 * torch.rand((B, T, W), generator=g, device="cuda") \
+            * 0.05
+        bx = torch.randn((B, T, W), generator=g, device="cuda")
+        if tails is not None:
+            keep = (torch.arange(T, device="cuda")[None]
+                    < torch.tensor(tails, device="cuda")[:, None])[..., None]
+            a_log = torch.where(keep, a_log, torch.zeros_like(a_log))
+            bx = torch.where(keep, bx, torch.zeros_like(bx))
+        h0 = torch.randn((B, W), generator=g, device="cuda")
+        return a_log.contiguous(), bx.contiguous(), h0
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    L, tile, W, Wodd = CHUNK, SUBS * CHUNK, 2560, 2555
+    scan_cases = [("B 4, T 1", 4, 1, W, None),
+                  ("B 8, T 3 (a verify round at spec_k 2)", 8, 3, W, None),
+                  *[(f"B 2, T {T}", 2, T, W, None)
+                    for T in (L - 1, L, L + 1)],
+                  *[(f"B 1, T {T}", 1, T, W, None)
+                    for T in (tile - 1, tile, tile + 1)],
+                  ("B 4, T 511", 4, 511, W, None),
+                  (f"B 2, T {P}", 2, P, W, None),
+                  (f"B 8, T {P}", 8, P, W, None),
+                  ("B 1, T 16384", 1, 16384, W, None),
+                  (f"B 2, T 1000, W {Wodd}", 2, 1000, Wodd, None),
+                  (f"B 4, T {tile + 1}, W {Wodd}", 4, tile + 1, Wodd, None),
+                  ("B 4, T 512, ragged identity tails [512, 300, 1, 0]", 4,
+                   512, W, [512, 300, 1, 0]),
+                  (f"B 4, T 1000, W {Wodd}, ragged tails [1000, {tile}, "
+                   f"{L + 1}, 0]", 4, 1000, Wodd, [1000, tile, L + 1, 0])]
+    scan_err, n_bad = 0.0, {"a padded step changed h": 0,
+                            "two launches differ in their bits": 0}
+    for name, B, T, Wc, tails in scan_cases:
+        args = scan_inputs(B, T, Wc, tails)
+        got = rg_lru_scan_cuda(*args)
+        want = rg_lru_scan_torch(*args)
+        scan_err = max(scan_err, check(f"rg_lru_scan float32 {name}", (got,),
+                                       (want,), "float32"))
+        again = rg_lru_scan_cuda(*args)
+        n_bad["two launches differ in their bits"] += int(
+            not torch.equal(bits(got), bits(again)))
+        if tails is not None:   # the identity steps carry h unchanged
+            last = got[torch.arange(B), torch.tensor(
+                [max(x - 1, 0) for x in tails], device="cuda")]
+            for b, n in enumerate(tails):
+                if n == 0:
+                    last[b] = args[2][b]
+            n_bad["a padded step changed h"] += int(
+                not torch.equal(bits(got[:, -1]), bits(last)))
+        del args, got, want, again
+    check_hybrid("rg_lru_scan", n_bad)
+
+    out = []
     for B, T in ((HYBRID_SHAPE["B"], P), (4, C)):
-        args = scan_inputs(B, T)
+        args = scan_inputs(B, T, W)
         ms = time_graph_ms(lambda i=0: rg_lru_scan_cuda(*args), 20)
         plain = time_ms(lambda i=0: rg_lru_scan_torch(*args), 1, warmup=1)
         n_bytes = 3 * B * T * W * 4 + 2 * B * W * 4
         b_ms, b_by = bound_ms(n_bytes, 6 * B * T * W, FP32_FLOPS)
         log(f"  rg_lru_scan B {B}, T {T}, W {W} timing: {ms:.4f} ms = "
-            f"{n_bytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} ms ({b_by}); "
-            f"plain {plain:.3f} ms; library none")
+            f"{n_bytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f} % of it; plain {plain:.3f} ms; library "
+            f"none")
         if T == P:
             out.append({"name": "rg_lru_scan", "route": "cuda",
                         "source": "src/repro_torch/kernels/csrc/"

@@ -44,7 +44,7 @@ SIGNATURES = {
     "retention_attention_tc_launch": [_P] * 5 + [_I] * 9 + [_P],
     "capacity_loss_fwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
-    "rg_lru_scan_launch": [_P] * 4 + [_I] * 3 + [_P],
+    "rg_lru_scan_launch": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib = None

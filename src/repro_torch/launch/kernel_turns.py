@@ -7,7 +7,9 @@ commit unpacked with ``git archive`` into a git-ignored directory, and
 this one). Each run imports that tree's chip_smoke.py in a fresh
 process, builds the tree's kernels and runs its kernel phases (decode,
 chunk, retention, capacity: every case held against the plain
-versions, then the main-path timings), in the order parent, change,
+versions, then the main-path timings; and, where the tree has it, the
+hybrid kernel phase: the head-dim-256 variants and the RG-LRU scan), in
+the order parent, change,
 change, parent. Prints each run's kernel times and, per kernel, the
 change's mean over the parent's mean; exits non-zero if a run fails.
 Needs one CUDA card.
@@ -37,6 +39,9 @@ g.manual_seed(0)
 with torch.no_grad():
     entries = [cs.decode_phase(g), *cs.chunk_phase(g), *cs.retention_phase(g)]
 entries += cs.capacity_phase(g)
+if hasattr(cs, "hybrid_kernel_phase"):
+    with torch.no_grad():
+        entries += cs.hybrid_kernel_phase(g)
 print(json.dumps({e["name"]: e["ms"] for e in entries}), flush=True)
 """
 

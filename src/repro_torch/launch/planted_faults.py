@@ -305,14 +305,24 @@ MOE_FAULTS = [
      "self.cnv)\n"
      "                self.cnv = nv_dev[i].clone()\n", ("moe-stream",)),
 ]
-# faults in the hybrid family's paths: the RG-LRU scan kernel and the
-# head-dim-256 tensor-core P.V (read by chip_smoke.hybrid_kernel_phase),
+# faults in the hybrid family's paths: the RG-LRU scan kernel's start
+# and its carry between chunks (read by chip_smoke.scan_kernel_phase),
+# the head-dim-256 tensor-core P.V (read by the rest of
+# chip_smoke.hybrid_kernel_phase),
 # and the lane reset of a recurrent state (read by the bf16 hybrid
 # stream's one-shot margin); --hybrid runs the sound build and these
 HYBRID_FAULTS = [
     ("hybrid: the scan kernel starts every lane from h = 0, not h0",
-     "rg_lru_scan.cu", "  float h = h0[(long)b * W + w];",
-     "  float h = 0.f * h0[(long)b * W + w];", ("hybrid-kernels",)),
+     "rg_lru_scan.cu", "  float h = live ? h0[(long)blockIdx.y * W + w] : 0.f;",
+     "  float h = live ? 0.f * h0[(long)blockIdx.y * W + w] : 0.f;",
+     ("hybrid-kernels",)),
+    ("hybrid: the scan kernel gives each chunk the carry after its own "
+     "map, not before it (the carry between chunks one chunk late)",
+     "rg_lru_scan.cu",
+     "    if (k == s) cin = h;\n    h = __fmaf_rn(agg_a[k][c], h, "
+     "agg_b[k][c]);",
+     "    h = __fmaf_rn(agg_a[k][c], h, agg_b[k][c]);\n"
+     "    if (k == s) cin = h;", ("hybrid-kernels",)),
     ("hybrid: the D-256 P.V reads V's columns 0-127 into both halves of O",
      "hopper_flash.cuh",
      "wgmma_rs(hi, pa[kk], desc_mnmajor(v_s + 2 * box + kk * 16 * 128, "
@@ -544,7 +554,8 @@ def child(phases):
         try:
             with torch.no_grad():
                 cs.hybrid_kernel_phase(g)
-        except AssertionError as e:   # a padded scan step that moved h
+        except AssertionError as e:   # a padded scan step that moved h,
+            # or two launches that differ
             print(f"hybrid kernels: {str(e).splitlines()[0]}")
             readings.append({"case": "hybrid kernel phase", "kind": "raised",
                              "reading": math.inf, "limit": 0.0})

@@ -24,8 +24,9 @@ batch 4 x 2000 tokens under budget 512:
    read from CUDA events around the call instead (an upper bound), and
    the script says so.
 
-For a hybrid architecture the RG-LRU scan kernel's device time is
-printed beside the top operators. For an MoE architecture it then
+For a hybrid architecture the RG-LRU scan's device time (every
+instance of its kernel summed) and its share of busy are printed beside
+the top operators. For an MoE architecture it then
 prints layer 0's FFN over a chunk's
 [4, 512, d] and over the single-shot [4, 2000, d], split into router,
 dispatch, experts and combine (profiling.print_moe_stages).
@@ -95,11 +96,12 @@ def profile_mode(eng, tokens, chunked: bool, fused: bool):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:10.3f} ms {ms / busy * 100:6.2f} %  {e.count:6d} x  "
               f"{e.key[:100]}")
-    scan = [e for e in kernels if "rg_lru_scan_kernel" in e.key]
-    if scan:
+    scan = [e for e in kernels if "rg_lru_scan" in e.key]
+    if scan:   # every instance of csrc/rg_lru_scan.cu (one per channel tile)
         ms = sum(e.self_device_time_total for e in scan) / 1e3
-        print(f"  the RG-LRU scan kernel: {ms:.3f} ms "
-              f"({sum(e.count for e in scan)} launches)")
+        print(f"  the RG-LRU scan: {ms:.3f} ms {ms / busy * 100:.2f} % of "
+              f"busy ({sum(e.count for e in scan)} launches of "
+              f"{len(scan)} kernels)")
     return wall, busy
 
 

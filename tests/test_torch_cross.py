@@ -291,7 +291,9 @@ def test_oneshot_programs_stay_bounded(arch):
 
 def _trace(cls, cfg, seed=3):
     """3 requests with distinct ragged memories: two priority-0 requests
-    and a priority-3 one that arrives after the first round."""
+    and a priority-3 one that arrives after the first round; every
+    prompt 2 chunks with a ragged tail (one admission bucket of the JAX
+    scheduler)."""
     key, S, feat = _mem_spec(cfg)
     rng = np.random.RandomState(seed)
     return [cls(rid=i, prompt=rng.randint(0, cfg.vocab_size, L).astype(
@@ -299,7 +301,7 @@ def _trace(cls, cfg, seed=3):
                 extra_inputs={key: rng.randn(n, feat).astype(np.float32)})
             for i, (L, m, pr, n) in enumerate([(30, 12, 0, S),
                                                (21, 10, 0, S - 5),
-                                               (40, 5, 3, S // 2)])]
+                                               (31, 5, 3, S // 2)])]
 
 
 def _drive(sched, reqs):

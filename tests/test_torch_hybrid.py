@@ -46,7 +46,7 @@ from repro.serve.prefix_cache import PrefixCache as JPrefixCache
 from repro_torch import bridge
 from repro_torch.configs import ServeConfig, get_config, get_smoke_config
 from repro_torch.core.policies import make_policy
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, rg_lru
 from repro_torch.models import blocks
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import build_engine
@@ -58,7 +58,7 @@ from repro_torch.serve.scheduler import Scheduler
 HYBRID = "recurrentgemma-2b"
 GEMMA3 = "gemma3-12b"
 TOL = dict(atol=1e-5, rtol=1e-5)
-SERVE = dict(budget=8, prefill_chunk=8, decode_segment=4)
+SERVE = dict(budget=8, prefill_chunk=8, decode_segment=2)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -199,6 +199,107 @@ def test_rg_lru_scan_matches_jax(T_, tails):
         for b, n in enumerate(tails):
             np.testing.assert_array_equal(
                 got[b, -1], got[b, n - 1] if n else h0[b])
+
+
+def _plan_hits(T, W):
+    """How often the kernel, as scan_plan launches it for one lane,
+    writes each (step, channel): CTA x, thread s * cw + c takes channel
+    x * cw + c (if < W) and, in each tile of n_sub * chunk steps, steps
+    s * chunk .. (s + 1) * chunk - 1 of it (if < T)."""
+    chunk, cw, n_sub, (gx, gy) = rg_lru.scan_plan(1, T, W)
+    assert gy == 1 and (n_sub * cw) % 32 == 0
+    assert n_sub == rg_lru.SUBS or T <= n_sub * chunk
+    t = (np.arange(0, T, n_sub * chunk)[:, None, None]
+         + np.arange(n_sub)[:, None] * chunk + np.arange(chunk)).reshape(-1)
+    t = t[t < T]
+    idx = []
+    for x in range(gx):
+        w = x * cw + np.arange(cw)
+        idx.append((t[:, None] * W + w[w < W]).reshape(-1))
+    return np.bincount(np.concatenate(idx), minlength=T * W)
+
+
+@pytest.mark.parametrize("W", [2560, 24])
+def test_rg_lru_scan_plan_covers_every_step_once(W):
+    """scan_plan's grid and threads cover every (lane, step, channel)
+    exactly once, for T about a chunk (L), a tile, a verify round and a
+    long prompt; at W 2560 the grid reaches two CTAs an SM for B 1 to 8
+    (the channel tile narrows to 8 at B 1, 16 at B 2)."""
+    L, tile = rg_lru.CHUNK, rg_lru.SUBS * rg_lru.CHUNK
+    for T in (1, 3, L - 1, L, L + 1, tile - 1, tile, tile + 1, 4096):
+        hits = _plan_hits(T, W)
+        assert hits.shape == (T * W,) and (hits == 1).all(), T
+    if W == 2560:
+        for B, cw in ((1, 8), (2, 16), (4, 32), (8, 32)):
+            assert rg_lru.scan_plan(B, 4096, W)[1] == cw
+            assert rg_lru.scan_plan(B, 4096, W)[3][0] * B >= \
+                rg_lru.TARGET_CTAS
+
+
+def _fma(x, y, z):
+    """float32 fma: the product of two float32 is exact in float64."""
+    return (x.astype(np.float64) * y + z).astype(np.float32)
+
+
+def _chunked_scan(a_log, bx, h0):
+    """The kernel's composition order in numpy float32: gates as the
+    plain version makes them; per tile of SUBS chunks of CHUNK steps,
+    each chunk's running map (A_u, B_u) from its first step, then the
+    chunk maps walked in order from the carry, h_u = fma(A_u, c, B_u)."""
+    a, g = (x.numpy() for x in rg_lru.rg_lru_gates(torch.as_tensor(a_log),
+                                                    torch.as_tensor(bx)))
+    B, T, W = a.shape
+    L, S = rg_lru.CHUNK, rg_lru.SUBS
+    n = -(-T // (S * L)) * S * L
+    a = np.concatenate([a, np.ones((B, n - T, W), np.float32)], 1)
+    g = np.concatenate([g, np.zeros((B, n - T, W), np.float32)], 1)
+    h, out = h0.copy(), np.empty((B, n, W), np.float32)
+    for t0 in range(0, n, S * L):
+        at = a[:, t0:t0 + S * L].reshape(B, S, L, W)
+        A = at.copy()
+        Bc = g[:, t0:t0 + S * L].reshape(B, S, L, W).copy()
+        for u in range(1, L):
+            A[:, :, u] = A[:, :, u - 1] * at[:, :, u]
+            Bc[:, :, u] = _fma(at[:, :, u], Bc[:, :, u - 1], Bc[:, :, u])
+        cin = np.empty((B, S, 1, W), np.float32)
+        for k in range(S):
+            cin[:, k, 0] = h
+            h = _fma(A[:, k, -1], h, Bc[:, k, -1])
+        out[:, t0:t0 + S * L] = _fma(A, cin, Bc).reshape(B, S * L, W)
+    return out[:, :T]
+
+
+@pytest.mark.parametrize("T_,tails", [(129, None),
+                                      (600, [600, 300, 129, 128, 17, 0])])
+def test_rg_lru_chunked_order_matches_plain_and_jax(T_, tails):
+    """The kernel's chunked composition order, emulated in numpy
+    float32, against the plain sequential scan and _rg_lru_scan (an
+    associative scan) within 1e-5, from h0 != 0; with ragged identity
+    tails that end inside a chunk, on a chunk's and a tile's edge and
+    before the first step, every lane ends on the bits of its last real
+    step (h0 with none)."""
+    rng = np.random.RandomState(T_)
+    B, W = (len(tails) if tails else 2), 40
+    a_log = (-8.0 * rng.rand(B, T_, W) * 0.05).astype(np.float32)
+    bx = rng.randn(B, T_, W).astype(np.float32)
+    if tails is not None:
+        pad = np.arange(T_)[None, :, None] >= np.array(tails)[:, None, None]
+        a_log[np.broadcast_to(pad, a_log.shape)] = 0.0
+        bx[np.broadcast_to(pad, bx.shape)] = 0.0
+    h0 = rng.randn(B, W).astype(np.float32)
+    got = _chunked_scan(a_log, bx, h0)
+    plain = rg_lru.rg_lru_scan_torch(torch.as_tensor(a_log),
+                                     torch.as_tensor(bx),
+                                     torch.as_tensor(h0)).numpy()
+    want = np.asarray(jax.jit(JB._rg_lru_scan)(
+        jnp.asarray(a_log), jnp.asarray(bx), jnp.asarray(h0)))
+    np.testing.assert_allclose(got, plain, **TOL)
+    np.testing.assert_allclose(got, want, **TOL)
+    if tails is not None:
+        for b, n in enumerate(tails):
+            np.testing.assert_array_equal(
+                got[b, -1].view(np.int32),
+                (got[b, n - 1] if n else h0[b]).view(np.int32))
 
 
 # ------------------------------------------------------------ the block

@@ -221,33 +221,39 @@ def test_extract_insert_resume_bit_exact():
 @pytest.mark.parametrize("interleaved", [False, True])
 @pytest.mark.parametrize("policy,greedy", [("trimkv", False), ("h2o", True)])
 def test_swap_resume_matches_jax(policy, greedy, interleaved):
-    """swap_preempt=True (the default), one lane: a decoding request is
-    swapped out by a higher-priority arrival and resumed; ids, n_swaps,
-    n_resumes and dispatches equal the JAX scheduler's, and the victim's
-    ids its uninterrupted one-shot run's."""
+    """swap_preempt=True (the default), two lanes (as the sampled
+    scheduler cases, whose compiled lane programs the JAX engine then
+    shares): both decode when a higher-priority arrival swaps one out,
+    and it is resumed; ids, n_swaps, n_resumes and dispatches equal the
+    JAX scheduler's, and the victim's ids its uninterrupted one-shot
+    run's."""
+    lens, new = [9, 7, 11], [12, 12, 4]
     runs = []
     for cls, make_eng, make_sched in (
             (JRequest, _jax_engine, JScheduler),
             (Request, _port_engine, Scheduler)):
         eng = make_eng(policy, sched_policy="priority")
-        sched = make_sched(eng, n_lanes=1, greedy=greedy,
+        sched = make_sched(eng, n_lanes=2, greedy=greedy,
                            interleaved=interleaved)
-        reqs = _requests(cls, [9, 7], [12, 4], priority=[0, 3])
+        reqs = _requests(cls, lens, new, priority=[0, 0, 3])
         sched.submit(reqs[0])
+        sched.submit(reqs[1])
         for _ in range(4):
             sched.step()
-        assert sched.active[0]
-        sched.submit(reqs[1])
+        assert all(sched.active)
+        sched.submit(reqs[2])
         sched.run()
         runs.append((sched, eng))
     (js, je), (ps, pe) = runs
     _assert_same(ps, js, pe, je)
     assert ps.n_swaps >= 1 and ps.n_resumes >= 1
-    assert ps.results[0].n_preempts >= 1
-    r = _requests(Request, [9], [12])[0]
-    want = pe.generate(r.prompt[None], r.max_new, chunked=True,
-                       greedy=greedy, seed=r.seed)["ids"][0]
-    assert ps.results[0].tokens == want.tolist()
+    victims = [r for r in _requests(Request, lens, new)
+               if ps.results[r.rid].n_preempts >= 1]
+    assert victims
+    for r in victims:
+        want = pe.generate(r.prompt[None], r.max_new, chunked=True,
+                           greedy=greedy, seed=r.seed)["ids"][0]
+        assert ps.results[r.rid].tokens == want.tolist(), r.rid
 
 
 def test_park_revive_matches_jax():

@@ -487,13 +487,14 @@ def _run(eng, sched_cls, req_cls, reqs_args, interleaved, n_lanes=2,
     sched = sched_cls(eng, n_lanes=n_lanes, interleaved=interleaved)
     reqs = _requests(req_cls, *reqs_args)
     if preempt:
-        # the first request decodes alone, then a better-ranked arrival
-        # swaps it out
-        sched.submit(reqs[0])
+        # the first n_lanes requests decode, then a better-ranked arrival
+        # swaps one of them out
+        for r in reqs[:n_lanes]:
+            sched.submit(r)
         for _ in range(4):
             sched.step()
-        assert sched.active[0]
-        sched.submit(reqs[1])
+        assert all(sched.active)
+        sched.submit(reqs[n_lanes])
         sched.run()
     else:
         sched.run(reqs)
@@ -503,7 +504,11 @@ def _run(eng, sched_cls, req_cls, reqs_args, interleaved, n_lanes=2,
 @pytest.mark.parametrize("interleaved", [False, True])
 @pytest.mark.parametrize("policy", ["trimkv", "h2o"])
 def test_spec_scheduler_matches_jax(policy, interleaved):
-    trace = ([5, 11, 19, 8], [6, 3, 8, 5])
+    """Four requests on two lanes (prompts of 1 and 2 chunks, so every
+    admission grid is the JAX scheduler's 1- or 2-chunk bucket, which
+    the swap case shares): ids, stats() and dispatches equal the JAX
+    scheduler's, and ids equal spec_k 0's."""
+    trace = ([5, 11, 15, 8], [6, 3, 8, 5])
     je, te = _engines(policy)
     js = _run(je, JScheduler, JRequest, trace, interleaved)
     ts = _run(te, Scheduler, Request, trace, interleaved)
@@ -519,17 +524,19 @@ def test_spec_scheduler_matches_jax(policy, interleaved):
 def test_spec_swap_preempt_matches_jax(interleaved):
     """A request swapped out mid-generation with speculation on resumes
     (its drafter history reseeded from its tokens), as in the JAX
-    scheduler, and its ids equal spec_k 0's."""
+    scheduler, and its ids equal spec_k 0's. Two lanes, as the other
+    scheduler cases (so the JAX engine's compiled lane programs serve
+    both): both decode when a better-ranked arrival takes one."""
     host = dict(decode_segment=2, sched_policy="priority")
-    trace = ([9, 7], [12, 4], [0, 3])
+    trace = ([9, 7, 10], [12, 12, 4], [0, 0, 3])
     je, te = _engines(**host)
-    js = _run(je, JScheduler, JRequest, trace, interleaved, 1, True)
-    ts = _run(te, Scheduler, Request, trace, interleaved, 1, True)
+    js = _run(je, JScheduler, JRequest, trace, interleaved, 2, True)
+    ts = _run(te, Scheduler, Request, trace, interleaved, 2, True)
     _assert_same(ts, js, te, je)
     assert ts.n_swaps >= 1 and ts.n_resumes >= 1
-    assert ts.results[0].n_preempts >= 1
+    assert sum(r.n_preempts for r in ts.results.values()) >= 1
     _, base = _engines(spec_k=0, **host)
-    plain = _run(base, Scheduler, Request, trace, interleaved, 1, True)
+    plain = _run(base, Scheduler, Request, trace, interleaved, 2, True)
     for rid, rs in plain.results.items():
         assert ts.results[rid].tokens == rs.tokens, rid
 
