@@ -7,8 +7,8 @@ Builds every kernel from src/repro_torch/kernels/csrc with nvcc — the
 decode kernel, the bf16 tensor-core retention and chunk kernels
 (wgmma + TMA, head dim 64, 128 and 256), the float32 CUDA-core
 retention and chunk kernels (head dim up to 128 and 256), the
-capacity-loss kernels (a forward with its sum pass, a backward) and the
-RG-LRU scan kernel — then:
+capacity-loss kernels (a forward with its sum pass, a backward), the
+RG-LRU scan kernel and the selective-scan kernel — then:
 
 1. kernels — each CUDA kernel against its plain PyTorch version on the
    card at the main-path shapes (Hq 32, Hkv 8, D 128, B 4, M 512,
@@ -63,6 +63,13 @@ RG-LRU scan kernel — then:
    at T 1, 511, 4096 from h0 != 0 and with ragged identity tails
    (padded steps carry h bit for bit), within TOL; each timed beside
    its bound (attention also beside one SDPA call; the scan has none);
+1d. the selective scan — ssm_kernel_phase: the kernel against its plain
+   version (the JAX code's loop over materialised dA and dBx), ys and
+   h_last within TOL, at T 1, 37, 512, 2000 and 4096, B 1 and 4, d_inner
+   8192 and 4099, bf16 and float32 inputs, ragged n_valid with 0 and T,
+   from h0 != 0; a second launch and a lane's padded tail bit for bit;
+   timed in a CUDA graph at B 4, T 2000 and T 512 beside its bound
+   (bytes and float32 operations) and the exponentials on the SFU;
 2. serve — trimkv-paper-4b at full width (36 layers, bfloat16, random
    weights from a seed, perturbed gate biases) through Engine.generate,
    batch 4, prompt 2000, budget 512, 32 new tokens, single-shot and
@@ -223,6 +230,20 @@ RG-LRU scan kernel — then:
    identical, logits and h within TOL) and the lane scheduler with swap
    preemption, phased and interleaved (ids and slot positions identical
    after every step, logits within TOL);
+2i. ssm — falcon-mamba-7b (ssm_phase) at full width and depth (64
+   Mamba-1 layers, 7.27 B parameters), bf16, seeded weights, conv biases
+   ~ N(0, 0.1), dt_proj biases ~ U(-6, -2): Engine.generate at batch 4,
+   prompt 2000, single-shot and chunked (512), fused and eager (exact
+   launches: the selective scan once per layer a prefill or chunk, no
+   attention kernel; graphs against eager with each layer's h within
+   GRAPH_LOGIT_TOL), a replayed graph decode step's busy ms and kernel
+   launches; streams on 4 lanes (8 poisson_requests, seed 0, prompts
+   256-2000, max_new 16-64), phased and interleaved at spec_k 0 and 2
+   (hybrid_stream's checks, and every retired lane's h and conv 0); one
+   lane's swap-out and resume timed beside a recompute; then float32 at
+   2 layers card (kernels) against CPU (plain): generate (ids identical,
+   logits and h within TOL) and the lane scheduler with swap
+   preemption, phased and interleaved;
 3. parity — the same config cut to 2 layers, one set of weights on the
    card (kernels) and on the CPU (plain versions), after single-shot
    and after chunked prefill, with exact launch counts: in float32
@@ -277,7 +298,8 @@ phase's one-shot calls and phased streams, the MoE phase's one-shot
 calls and phased streams and the hybrid phase's, the
 bf16 retention kernel over the serve, policy, qwen2.5-14b, cross, MoE,
 gemma3-12b and hybrid one-shot phases, the RG-LRU scan over the hybrid
-phase's one-shot calls, phased stream and float32 parity, the D-256
+phase's one-shot calls, phased stream and float32 parity, the selective
+scan over the ssm phase's, the D-256
 variants (``*_d256``) over the gemma3-12b and hybrid phases (float32:
 the hybrid parity), the float32 chunk kernel over the float32 parity
 runs, the reuse phase's float32 drains, the lifecycle phase and the
@@ -565,14 +587,18 @@ def decode_phase(g):
     # yardstick: SDPA over the cache with the in-flight token appended
     # and a key mask; the concatenation and GQA repeat are made before
     # timing
-    lib_in = []
-    for q, kc, vc, pos, (kn, vn) in sets:
-        k = torch.cat([kc, kn[:, :, None]], 2).repeat_interleave(G, 1)
-        v = torch.cat([vc, vn[:, :, None]], 2).repeat_interleave(G, 1)
-        ok = torch.cat([pos >= 0, torch.ones((B, Hkv, 1), dtype=torch.bool,
-                                             device="cuda")], 2)
-        lib_in.append((q[:, :, None], k, v,
-                       ok.repeat_interleave(G, 1)[:, :, None]))
+    def sdpa_inputs(sets):
+        lib_in = []
+        for q, kc, vc, pos, (kn, vn) in sets:
+            k = torch.cat([kc, kn[:, :, None]], 2).repeat_interleave(G, 1)
+            v = torch.cat([vc, vn[:, :, None]], 2).repeat_interleave(G, 1)
+            ok = torch.cat([pos >= 0, torch.ones(
+                (B, Hkv, 1), dtype=torch.bool, device="cuda")], 2)
+            lib_in.append((q[:, :, None], k, v,
+                           ok.repeat_interleave(G, 1)[:, :, None]))
+        return lib_in
+
+    lib_in = sdpa_inputs(sets)
     lib_fn = lambda i=0: F.scaled_dot_product_attention(  # noqa: E731
         *lib_in[i % 8][:3], attn_mask=lib_in[i % 8][3])
     lib = time_graph_ms(lib_fn, 200)
@@ -604,10 +630,14 @@ def decode_phase(g):
     m2_plain = time_ms(lambda i=0: decode_attention_torch(
         *sets2[i % 8][:4], t, new_kv=sets2[i % 8][4]), 20)
     m2_b, m2_by = bound_ms(*decode_work(B, Hq, Hkv, M2, D))
+    lib_in = sdpa_inputs(sets2)
+    m2_lib = time_graph_ms(lambda i=0: F.scaled_dot_product_attention(
+        *lib_in[i % 8][:3], attn_mask=lib_in[i % 8][3]), 200)
     log(f"  decode_attention M {M2} (FullKV) timing (CUDA graph): "
         f"{m2_ms:.4f} ms; bound {m2_b:.5f} ms ({m2_by}); plain "
-        f"{m2_plain:.4f} ms; {split_plan(M2, B * Hkv)[0]} splits")
-    del sets2
+        f"{m2_plain:.4f} ms; library {m2_lib:.4f} ms (SDPA, masked); "
+        f"{split_plan(M2, B * Hkv)[0]} splits")
+    del sets2, lib_in
     return {"name": "decode_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
             "replaces": "src/repro/kernels/decode_attention.py:112",
@@ -716,16 +746,25 @@ def chunk_phase(g):
                      50 if dtype == torch.bfloat16 else 20)
         plain = time_ms(lambda i=0: chunk_attention_torch(
             *args, need_probs=False), 5)
-        q, kc, vc, ck, cv, cpos, chunk_pos = args
-        keys = torch.cat([ck, kc.transpose(1, 2)], 2).repeat_interleave(G, 1)
-        vals = torch.cat([cv, vc.transpose(1, 2)], 2).repeat_interleave(G, 1)
-        kpos = torch.cat([cpos, chunk_pos[:, None].expand(B, Hkv, C)], 2)
-        dist = chunk_pos[:, None, :, None] - kpos[:, :, None, :]
-        vis = (kpos[:, :, None, :] >= 0) & (dist >= 0)     # [B,Hkv,C,M+C]
-        qh = q.transpose(1, 2).contiguous()
-        mask = vis.repeat_interleave(G, 1)
+        def sdpa_inputs(args):
+            """(q, keys, values, key mask) of one SDPA call computing
+            the chunk kernel's function, and the visible (query, key)
+            pairs [B, Hkv, C, M + C]."""
+            q, kc, vc, ck, cv, cpos, chunk_pos = args
+            keys = torch.cat([ck, kc.transpose(1, 2)], 2).repeat_interleave(
+                G, 1)
+            vals = torch.cat([cv, vc.transpose(1, 2)], 2).repeat_interleave(
+                G, 1)
+            kpos = torch.cat([cpos, chunk_pos[:, None].expand(B, Hkv, C)], 2)
+            dist = chunk_pos[:, None, :, None] - kpos[:, :, None, :]
+            vis = (kpos[:, :, None, :] >= 0) & (dist >= 0)
+            return (q.transpose(1, 2).contiguous(), keys, vals,
+                    vis.repeat_interleave(G, 1)), vis
+
+        q = args[0]
+        lib_args, vis = sdpa_inputs(args)
         lib = time_ms(lambda i=0: F.scaled_dot_product_attention(
-            qh, keys, vals, attn_mask=mask), 20)
+            *lib_args[:3], attn_mask=lib_args[3]), 20)
         el = q.element_size()
         n_bytes = (2 * B * C * Hq * D * el + 2 * B * C * Hkv * D * el
                    + 2 * B * Hkv * M * D * el + B * Hkv * M * 4 + B * C * 4)
@@ -750,16 +789,20 @@ def chunk_phase(g):
                                   + B * Hkv * 1536 * 4)
             m2_flops = 4 * D * G * B * Hkv * C * (2048 + (C + 1) / 2)
             m2_b, m2_by = bound_ms(m2_bytes, m2_flops, fps)
+            m2_lib_args, _ = sdpa_inputs(m2)
+            m2_lib = time_ms(lambda i=0: F.scaled_dot_product_attention(
+                *m2_lib_args[:3], attn_mask=m2_lib_args[3]), 20)
             log(f"  {name} M 2048 (FullKV) timing: {m2_ms:.4f} ms = "
                 f"{m2_flops / m2_ms / 1e9:.1f} TFLOP/s; bound {m2_b:.4f} ms "
-                f"({m2_by}); plain {m2_plain:.4f} ms")
-            del m2
+                f"({m2_by}); plain {m2_plain:.4f} ms; library "
+                f"{m2_lib:.4f} ms (SDPA, masked)")
+            del m2, m2_lib_args
         out.append({"name": name, "route": "cuda",
                     "source": f"src/repro_torch/kernels/csrc/{src}",
                     "replaces": "src/repro/kernels/chunk_attention.py:117",
                     "max_abs_err": errs[dtype], "ms": ms, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib})
-        del args, keys, vals, mask, qh
+        del args, lib_args, vis
         torch.cuda.empty_cache()
     return out
 
@@ -1102,7 +1145,8 @@ def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
     call's launches against the exact count (a decode step launches the
     decode kernel once per layer and once more per cross layer, over its
     memory; a recurrent layer launches no attention kernel and the
-    RG-LRU scan once a prefill or chunk), finite logits, valid ids, the
+    RG-LRU scan once a prefill or chunk, a mamba layer the selective
+    scan once a prefill or chunk), finite logits, valid ids, the
     policy's aux (aux_violations); then graphs against eager
     (check_graphs): identical ids and slot positions in every layer,
     logits, every layer's aux and a recurrent layer's h within
@@ -1114,18 +1158,21 @@ def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
     B, N = tokens.shape[0], shape["N"]
     kinds = cfg.layer_kinds()
     L, n_chunks = cfg.num_layers, -(-tokens.shape[1] // shape["chunk"])
-    n_rec = kinds.count("recurrent")
-    n_attn = L - n_rec
+    n_rec, n_ssm = kinds.count("recurrent"), kinds.count("mamba")
+    n_attn = L - n_rec - n_ssm
     n_dec = n_attn + kinds.count("cross")
     sfx = "" if cfg.dtype == "bfloat16" else "_f32"
     none = dict.fromkeys(ops.KERNELS, 0)        # serving trains nothing
     expect = {
-        False: {**none, "retention_attention" + sfx: n_attn,
-                "decode_attention": n_dec * N, "rg_lru_scan": n_rec},
-        True: {**none, "chunk_attention" + sfx: n_attn * n_chunks,
-               "decode_attention": n_dec * N,
-               "rg_lru_scan": n_rec * n_chunks},
+        False: {**none, "decode_attention": n_dec * N, "rg_lru_scan": n_rec,
+                "selective_scan": n_ssm},
+        True: {**none, "decode_attention": n_dec * N,
+               "rg_lru_scan": n_rec * n_chunks,
+               "selective_scan": n_ssm * n_chunks},
     }
+    if n_attn:
+        expect[False]["retention_attention" + sfx] = n_attn
+        expect[True]["chunk_attention" + sfx] = n_attn * n_chunks
     if eng.device.type == "cpu":          # the plain versions count none
         expect = {False: none, True: none}
     results = {}
@@ -1175,7 +1222,8 @@ def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
             del out
         name = "chunked" if chunked else "single-shot"
         g, e = (results[f"{name} {m}"] for m in ("fused", "eager"))
-        aux_scale = max(a.abs().max().item() for a in e["aux"])
+        aux_scale = max((a.abs().max().item() for a in e["aux"]),
+                        default=0.0)
         readings = {
             "ids differ": int((g["ids"] != e["ids"]).sum()),
             "slot positions differ": sum(int((a != b).sum())
@@ -1183,9 +1231,9 @@ def generate_pairs(eng, cfg, tokens, label, extra_inputs=None,
             "logit gap": ((g["logits"] - e["logits"]).abs().max()
                           / e["logits"][:, :cfg.vocab_size].abs().max()
                           ).item(),
-            "aux gap": max((a - b).abs().max().item()
-                           for a, b in zip(g["aux"], e["aux"]))
-            / max(aux_scale, 1e-30),
+            "aux gap": max(((a - b).abs().max().item()
+                            for a, b in zip(g["aux"], e["aux"])),
+                           default=0.0) / max(aux_scale, 1e-30),
             "h gap": max([((a - b).abs().max() / b.abs().max().clamp_min(
                 1e-30)).item() for a, b in zip(g["h"], e["h"])],
                 default=0.0)}
@@ -1390,9 +1438,9 @@ def twin_readings(fused, eager, vocab):
         lf, le = lf[:, :vocab], le[:, :vocab]
         gap = max(gap, ((lf - le).abs().max()
                         / le.abs().max().clamp_min(1e-30)).item())
-        scale = max(a.abs().max().item() for a in ae)
-        aux_gap = max(aux_gap, max((a - b).abs().max().item()
-                                   for a, b in zip(af, ae))
+        scale = max((a.abs().max().item() for a in ae), default=0.0)
+        aux_gap = max(aux_gap, max(((a - b).abs().max().item()
+                                    for a, b in zip(af, ae)), default=0.0)
                       / max(scale, 1e-30))
     return {"ids differ": ids, "slot positions differ": pos,
             "logit gap": gap, "aux gap": aux_gap}
@@ -4446,12 +4494,13 @@ def step_launches(eng, steps, spec_k=0):
     per replay each cache layer launches the decode kernel once a decode
     position ((spec_k + 1) a verify round; a cross layer once more, over
     its memory) and the chunk kernel once a chunk sub-step; each
-    recurrent layer the RG-LRU scan once a chunk sub-step. None on the
-    CPU (the plain versions count none)."""
+    recurrent layer the RG-LRU scan and each mamba layer the selective
+    scan once a chunk sub-step. None on the CPU (the plain versions count
+    none)."""
     from repro_torch.kernels import ops
     kinds = eng.cfg.layer_kinds()
-    n_rec = kinds.count("recurrent")
-    n_attn = len(kinds) - n_rec
+    n_rec, n_ssm = kinds.count("recurrent"), kinds.count("mamba")
+    n_attn = len(kinds) - n_rec - n_ssm
     n_dec = n_attn + kinds.count("cross")
     chunks = steps["chunk"] + steps["mixed"] + steps["spec_mixed"]
     expect = dict.fromkeys(ops.KERNELS, 0)
@@ -4462,6 +4511,7 @@ def step_launches(eng, steps, spec_k=0):
         + (spec_k + 1) * (steps["spec_segment"] + steps["spec_mixed"]))
     expect["chunk_attention"] = n_attn * chunks
     expect["rg_lru_scan"] = n_rec * chunks
+    expect["selective_scan"] = n_ssm * chunks
     return expect
 
 
@@ -4561,18 +4611,21 @@ def hybrid_oneshot(cfg, model):
     return launches
 
 
-def hybrid_stream(cfg, model, n_requests=8):
-    """Continuous batching of recurrentgemma-2b in bf16: 4 lanes, budget
-    512, chunks 512, segments 16, prefill_budget 1024, n_requests from
-    poisson_requests (seed 0, prompts 256-2048, max_new 16-48, 8
-    requests/s), phased and interleaved, at spec_k 0 and spec_k 2: every
-    request DONE with its max_new tokens, dispatch_count on the formula,
-    the launches the steps imply (step_launches: the scan kernel once per
-    recurrent layer a chunk sub-step), ids against each request's
-    one-shot run up to CROSS_MARGIN_STEPS, and spec_k 2's ids identical
-    to spec_k 0's of the same mode. Then one lane's swap-out and resume,
-    timed, with extract -> resume bit-exact on every leaf. Returns the
-    phased spec_k 0 run's launch counts."""
+def hybrid_stream(cfg, model, n_requests=8, label="hybrid", prompt_hi=2048,
+                  new_hi=48, check=None):
+    """Continuous batching of recurrentgemma-2b (or of the ssm phase's
+    model, with its label and check) in bf16: 4 lanes, budget 512,
+    chunks 512, segments 16, prefill_budget 1024, n_requests from
+    poisson_requests (seed 0, prompts 256-prompt_hi, max_new
+    16-new_hi, 8 requests/s), phased and interleaved, at spec_k 0 and
+    spec_k 2: every request DONE with its max_new tokens, dispatch_count
+    on the formula, the launches the steps imply (step_launches: a scan
+    kernel once per recurrent or mamba layer a chunk sub-step), ids
+    against each request's one-shot run up to CROSS_MARGIN_STEPS, every
+    lane's h and conv 0 once the run has retired it, and spec_k 2's ids
+    identical to spec_k 0's of the same mode. Then one
+    lane's swap-out and resume, timed, with extract -> resume bit-exact
+    on every leaf. Returns the phased spec_k 0 run's launch counts."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import poisson_requests
@@ -4585,13 +4638,14 @@ def hybrid_stream(cfg, model, n_requests=8):
     lanes = 4
     base = dict(device="cuda", budget=512, prefill_chunk=512,
                 decode_segment=16, prefill_budget=1024, swap_preempt=False)
+    check = check or check_hybrid
     eng = build_engine(cfg, model, **base)
     reqs = poisson_requests(n_requests, 8.0, vocab=cfg.vocab_size,
-                            prompt_lo=256, prompt_hi=2048, new_lo=16,
-                            new_hi=48, seed=0)
+                            prompt_lo=256, prompt_hi=prompt_hi, new_lo=16,
+                            new_hi=new_hi, seed=0)
     row = state_row_bytes(host_row_template(cfg, 512))
     name = f"{cfg.name} {cfg.num_layers} layers"
-    log(f"hybrid stream {name}: {len(reqs)} requests, prompts "
+    log(f"{label} stream {name}: {len(reqs)} requests, prompts "
         f"{[r.prompt_len for r in reqs]}, max_new "
         f"{[r.max_new for r in reqs]}; a bf16 lane row {row:,} B")
     oneshot, tol = oneshot_refs(eng, cfg, reqs)
@@ -4627,13 +4681,18 @@ def hybrid_stream(cfg, model, n_requests=8):
                     for r in ids[0, mode]),
                 "no verify round": int(spec > 0
                                        and sched.n_verify_rounds == 0),
+                # every lane is retired (reset) at the end of a run
+                "retired lanes' h and conv entries not 0": sum(
+                    int(st[k].count_nonzero())
+                    for st in sched.lanes.state["layers"]
+                    for k in ("h", "conv") if k in st),
             }
-            stream_line(f"hybrid stream {name} {mode} spec_k {spec}", sched,
-                        e, res, reqs, wall, launches)
+            stream_line(f"{label} stream {name} {mode} spec_k {spec}",
+                        sched, e, res, reqs, wall, launches)
             log(f"  one-shot comparison: {len(report)} of {len(reqs)} "
                 f"requests differ; margin reading {margin:.3e} (limit "
                 f"{tol}): " + ("; ".join(report) if report else "none"))
-            check_stream(f"hybrid {name} {mode} spec_k {spec}", violations,
+            check_stream(f"{label} {name} {mode} spec_k {spec}", violations,
                          margin, tol)
             sched.close()
         del e
@@ -4642,30 +4701,34 @@ def hybrid_stream(cfg, model, n_requests=8):
     out_ms, in_ms, recompute, snap, leaves = lane_swap_ms(eng, lanes, r)
     rec_bytes = sum(v.nbytes for st in snap.state["layers"]
                     for k, v in st.items() if k in ("h", "conv"))
-    log(f"hybrid {name}: one lane's swap-out (extract, crc32, put) "
+    log(f"{label} {name}: one lane's swap-out (extract, crc32, put) "
         f"{out_ms:.2f} ms and resume (get + verify, install) "
-        f"{in_ms:.2f} ms for {row:,} B (its recurrent layers' h "
+        f"{in_ms:.2f} ms for {row:,} B (its recurrent or mamba layers' h "
         f"and conv {rec_bytes:,} B); "
         f"a recompute (its chunked prefill at batch 1, warm, "
         f"{r.prompt_len} tokens) {recompute:.2f} ms")
-    check_hybrid(f"{name} swap", {
+    check(f"{name} swap", {
         "leaves not bit-exact after extract and resume": leaves})
     del eng
     torch.cuda.empty_cache()
     return launches_phased
 
 
-def hybrid_parity(num_layers=3):
+def hybrid_parity(num_layers=3, model_fn=None, label="hybrid",
+                  need=("rg_lru_scan", "chunk_attention_f32"), check=None):
     """float32 recurrentgemma-2b at full width cut to one unit (recurrent,
-    recurrent, local), one set of weights on the card (kernels: the scan
-    and the float32 attention kernels at D 256, G 10) and on the CPU
-    (plain versions): Engine.generate at batch 2, a prompt of 300,
-    single-shot and chunked (chunks of 64), budget 64, then the lane
-    scheduler (3 lanes, priority order, swap preemption: 5 requests,
-    prompts 40-150, one better-ranked after the first step), phased and
-    interleaved (traced_drain): ids exact, slot positions equal after
-    every step, logits within TOL of the largest |logit|. Returns the
-    card's launch counts."""
+    recurrent, local; or model_fn(num_layers)'s model, with its label,
+    its kernels that must launch and its check), one set of weights on
+    the card (kernels: the scan and the float32 attention kernels at
+    D 256, G 10) and on the CPU (plain versions): Engine.generate at
+    batch 2, a prompt of 300, single-shot and chunked (chunks of 64),
+    budget 64 (ids exact, slot positions equal, logits and every h
+    within TOL of their largest magnitude), then the lane scheduler (3
+    lanes, priority order, swap preemption: 5 requests, prompts 40-150,
+    one better-ranked after the first step), phased and interleaved
+    (traced_drain): ids exact, slot positions equal after every step,
+    logits within TOL of the largest |logit|. Returns the card's launch
+    counts."""
     import numpy as np
     import torch
     from repro_torch.data.synthetic import make_batch
@@ -4673,7 +4736,9 @@ def hybrid_parity(num_layers=3):
     from repro_torch.serve.engine import build_engine
     from repro_torch.serve.request import Request
 
-    cfg, gpu = hybrid_model("float32", num_layers=num_layers, seed=95)
+    check = check or check_hybrid
+    cfg, gpu = (model_fn(num_layers) if model_fn else
+                hybrid_model("float32", num_layers=num_layers, seed=95))
     cpu = copy.deepcopy(gpu).to("cpu")
     serve = dict(budget=64, prefill_chunk=64, decode_segment=4,
                  sched_policy="priority")
@@ -4696,13 +4761,13 @@ def hybrid_parity(num_layers=3):
                      / b["h"].abs().max()).item()
                     for a, b in zip(g["state"]["layers"],
                                     c["state"]["layers"]) if "h" in a)
-        label = (f"hybrid parity {cfg.name} {num_layers} layers float32 "
-                 f"{'chunked' if chunked else 'single-shot'}")
-        log(f"{label}: card vs CPU: {int((g['ids'] != c['ids']).sum())} ids "
+        run = (f"{label} parity {cfg.name} {num_layers} layers float32 "
+               f"{'chunked' if chunked else 'single-shot'}")
+        log(f"{run}: card vs CPU: {int((g['ids'] != c['ids']).sum())} ids "
             f"and {flips} slot positions differ, logits |diff| / max |logit| "
             f"{gap:.3e}, h |diff| / max |h| {h_gap:.3e} "
             f"(tol {TOL['float32']})")
-        check_hybrid(label, {
+        check(run, {
             "ids that differ": int((g["ids"] != c["ids"]).sum()),
             "slot positions that differ": flips,
             "logits beyond TOL": int(not gap <= TOL["float32"]),
@@ -4729,21 +4794,19 @@ def hybrid_parity(num_layers=3):
                               [a.cpu() for a in aux])
                              for pos, logits, aux in trace]
         twins = twin_readings(runs["cuda"], runs["cpu"], cfg.vocab_size)
-        label = f"hybrid parity {cfg.name} {num_layers} layers float32 {mode}"
-        log(f"{label}: card vs CPU over {len(runs['cpu'][1])} scheduler "
+        run = f"{label} parity {cfg.name} {num_layers} layers float32 {mode}"
+        log(f"{run}: card vs CPU over {len(runs['cpu'][1])} scheduler "
             f"steps: {twins['ids differ']} requests' ids and "
             f"{twins['slot positions differ']} slot positions differ, "
             f"logits |diff| / max |logit| {twins['logit gap']:.3e} (tol "
             f"{TOL['float32']}); card launches "
             f"{ {k: v for k, v in launches.items() if v} }")
-        check_hybrid(label, {
+        check(run, {
             "requests whose ids differ": twins["ids differ"],
             "slot positions that differ": twins["slot positions differ"],
             "logits beyond TOL": int(not twins["logit gap"]
                                      <= TOL["float32"]),
-            "no launch on the card": int(not launches["rg_lru_scan"]
-                                         or not launches[
-                                             "chunk_attention_f32"]),
+            "no launch on the card": int(not all(launches[k] for k in need)),
         })
     del cpu, gpu
     torch.cuda.empty_cache()
@@ -4862,6 +4925,279 @@ def gemma3_stream(cfg, model, n_requests=6):
         check_stream(f"gemma3 {name} {mode}", violations, margin, tol)
         sched.close()
     return launches_phased
+
+
+# ----------------------------------------------------------------- ssm
+
+# falcon-mamba-7b: the main path's prefill (batch 4, prompt 2000, chunks
+# of 512); its float32 card-vs-CPU parity at 2 of its 64 layers
+SSM_SHAPE = dict(B=4, P=2000, N=32, chunk=512, budget=512)
+SSM_PARITY_LAYERS = 2
+# the H100's special function units: exponentials a clock on one SM,
+# and its SMs (NVIDIA's Hopper architecture white paper)
+SFU_EXP_PER_CLOCK = 16
+H100_SMS = 132
+
+
+def check_ssm(name, violations):
+    """Raise unless every count of the ssm phase is 0."""
+    bad = {k: v for k, v in violations.items() if v}
+    if bad:
+        raise AssertionError(f"ssm {name}: {bad}")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's largest SM clock, as nvidia-smi reports it."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return float(res.stdout.strip().splitlines()[0]) * 1e6
+
+
+def ssm_scan_work(B, T, di, n, el):
+    """(bytes, float32 operations, exponentials) of one selective scan:
+    dt, x, B and C read once, ys and h_last written once, A and h0 read
+    once; per (lane, step, channel, state) dt * A, the exponential, the
+    multiply of dt x by B, the multiply-add into h and the multiply-add
+    into y (the exponential counted as one operation), per (lane, step,
+    channel) dt * x."""
+    n_bytes = (B * T * di * (4 + el + 4) + 2 * B * T * n * el + di * n * 4
+               + 2 * B * di * n * 4 + B * 4)
+    return n_bytes, B * T * di * (7 * n + 1), B * T * di * n
+
+
+def ssm_kernel_phase(g):
+    """The selective-scan kernel against its plain version on the card
+    (the JAX code's loop over materialised dA and dBx), ys and h_last
+    within TOL, over T 1, 37, 512, 2000 and 4096, B 1 and 4, di 8192 and
+    an odd width (4099), bf16 and float32 inputs, ragged n_valid with 0
+    and T, from h0 != 0; a second launch returns the same bits, and a
+    lane's padded tail holds h at its last real step bit for bit (h0 with
+    none: a lane's steps alone give its bits). Then timed in a CUDA graph
+    at the main path's prefill (B 4, T 2000) and a chunk (B 4, T 512),
+    beside its bounds: bytes and float32 operations at the H100's peak
+    rates, and the exponentials on the SFU. Returns its entry (launches
+    filled in by main)."""
+    import torch
+    from repro_torch.kernels.selective_scan import (selective_scan_cuda,
+                                                    selective_scan_torch)
+    n, di, odd = 16, 8192, 4099
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def scan_inputs(B, T, D, dtype, n_valid=None):
+        dev = "cuda"
+        raw = torch.randn((B, T, D), generator=g, device=dev) - 2.0
+        dt = torch.logaddexp(raw, torch.zeros_like(raw))     # softplus
+        xs = torch.randn((B, T, D), generator=g, device=dev).to(dtype)
+        Bm = torch.randn((B, T, n), generator=g, device=dev).to(dtype)
+        Cm = torch.randn((B, T, n), generator=g, device=dev).to(dtype)
+        a_log = torch.log(torch.arange(1, n + 1, device=dev,
+                                       dtype=f32)).expand(D, n)
+        A = -torch.exp(a_log + 0.1 * torch.randn((D, n), generator=g,
+                                                 device=dev))
+        h0 = torch.randn((B, D, n), generator=g, device=dev)
+        nv = torch.tensor(n_valid if n_valid is not None else [T] * B,
+                          dtype=torch.int32, device=dev)
+        return dt, xs, Bm, Cm, A.contiguous(), h0, nv
+
+    def bits(x):
+        return x.contiguous().view(torch.int32)
+
+    cases = [("B 4, T 1", 4, 1, di, bf16, None),
+             ("B 4, T 37", 4, 37, di, bf16, None),
+             ("B 4, T 512, ragged [512, 300, 1, 0]", 4, 512, di, bf16,
+              [512, 300, 1, 0]),
+             ("B 4, T 2000 (the main path's prefill)", 4, 2000, di, bf16,
+              None),
+             ("B 1, T 4096", 1, 4096, di, bf16, None),
+             (f"B 1, T 37, di {odd}", 1, 37, odd, bf16, None),
+             (f"B 4, T 512, di {odd}, ragged [0, 512, 17, 300]", 4, 512,
+              odd, bf16, [0, 512, 17, 300]),
+             ("float32, B 4, T 512, ragged [512, 129, 0, 1]", 4, 512, di,
+              f32, [512, 129, 0, 1]),
+             ("float32, B 1, T 2000", 1, 2000, di, f32, None)]
+    err, n_bad = 0.0, {"two launches differ in their bits": 0,
+                       "a padded step changed h": 0}
+    for name, B, T, D, dtype, tails in cases:
+        args = scan_inputs(B, T, D, dtype, tails)
+        got = selective_scan_cuda(*args)
+        want = selective_scan_torch(*args)
+        dname = "bf16" if dtype == bf16 else "float32"
+        err = max(err, check(f"selective_scan {dname} inputs {name}", got,
+                             want, "float32"))
+        again = selective_scan_cuda(*args)
+        n_bad["two launches differ in their bits"] += int(not all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(got, again)))
+        for b, m in enumerate(tails or []):
+            if m == 0:
+                n_bad["a padded step changed h"] += int(not torch.equal(
+                    bits(got[1][b]), bits(args[5][b])))
+            elif m < T:    # lane b's first m steps alone
+                one = [a[b:b + 1, :m].contiguous() for a in args[:4]]
+                ys_m, h_m = selective_scan_cuda(
+                    *one, args[4], args[5][b:b + 1].contiguous(),
+                    torch.full((1,), m, dtype=torch.int32, device="cuda"))
+                n_bad["a padded step changed h"] += int(not (
+                    torch.equal(bits(got[1][b]), bits(h_m[0]))
+                    and torch.equal(bits(got[0][b, :m]), bits(ys_m[0]))))
+        del args, got, want, again
+        torch.cuda.empty_cache()
+    check_ssm("selective_scan", n_bad)
+
+    clock = max_sm_clock_hz()
+    out = []
+    for B, T in ((SSM_SHAPE["B"], SSM_SHAPE["P"]),
+                 (SSM_SHAPE["B"], SSM_SHAPE["chunk"])):
+        args = scan_inputs(B, T, di, bf16)
+        ms = time_graph_ms(lambda i=0: selective_scan_cuda(*args), 10)
+        plain = time_ms(lambda i=0: selective_scan_torch(*args), 1, warmup=1)
+        n_bytes, n_ops, n_exp = ssm_scan_work(B, T, di, n, 2)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, FP32_FLOPS)
+        exp_ms = n_exp / (SFU_EXP_PER_CLOCK * H100_SMS * clock) * 1e3
+        log(f"  selective_scan B {B}, T {T}, di {di}, n {n}, bf16 timing: "
+            f"{ms:.4f} ms = {n_bytes / ms / 1e6:.1f} GB/s; bound {b_ms:.4f} "
+            f"ms ({b_by}: {n_bytes / 1e6:.1f} MB at 3.35 TB/s, "
+            f"{n_ops / 1e9:.2f} GFLOP at 67 TF/s {n_ops / FP32_FLOPS * 1e3:.4f}"
+            f" ms), {100 * b_ms / ms:.1f} % of it; the {n_exp:.3e} "
+            f"exponentials on the SFU ({SFU_EXP_PER_CLOCK} a clock per SM, "
+            f"{H100_SMS} SMs, {clock / 1e9:.3f} GHz) {exp_ms:.4f} ms, "
+            f"{100 * exp_ms / ms:.1f} % of it; plain {plain:.3f} ms; library "
+            f"none")
+        if T == SSM_SHAPE["P"]:
+            out.append({"name": "selective_scan", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/"
+                                  "selective_scan.cu",
+                        "replaces": "none: src/repro/models/blocks.py:942 "
+                                    "and :1181 are lax.scan loops in XLA, "
+                                    "no Pallas kernel",
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None})
+        del args
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_model(dtype="bfloat16", num_layers=None, seed=100, device="cuda"):
+    """falcon-mamba-7b at full width (num_layers cuts the depth), seeded
+    weights, every mamba block's conv_b ~ N(0, 0.1) and dt_proj bias ~
+    U(-6, -2) (0 at init, where their paths would hold nothing; the bias
+    puts dt = softplus(.) near Mamba's initial range of 0.001-0.1). No
+    layer has a cache, so no gate. Returns (cfg, model)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"), dtype=dtype)
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    t0 = time.perf_counter()
+    model = T.init_params(cfg, seed=seed, device=device)
+    T.init_gate_params(model, cfg, seed=seed + 1)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 2)
+    for block in model.layers:
+        block.conv_b.copy_(0.1 * torch.randn(block.conv_b.shape, generator=g,
+                                             device=device))
+        block.dt_proj.bias.copy_(-6.0 + 4.0 * torch.rand(
+            block.dt_proj.bias.shape, generator=g, device=device))
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"ssm: {cfg.name} {cfg.num_layers} mamba layers (d {cfg.d_model}, "
+        f"d_inner {cfg.d_inner}, ssm_state {cfg.ssm_state}, dt_rank "
+        f"{cfg.dt_rank}), {cfg.dtype}, {n_params / 1e9:.3f} B parameters, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    return cfg, model
+
+
+def graph_decode_step(eng, B, steps=8):
+    """A replayed decode step program of the engine's one-shot programs
+    at batch B (after a generate filled its state): device busy ms and
+    kernel launches a step from torch.profiler, and the ms a step
+    between CUDA events over ``steps`` replays."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profiling import device_kernels
+    progs = eng._programs(B)
+    tok = [torch.zeros((B,), dtype=torch.int64, device="cuda")]
+
+    def run(k):
+        for _ in range(k):
+            tok[0] = progs.decode(tok[0])[0]
+    run(2)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    run(steps)
+    ev[1].record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(steps)
+        torch.cuda.synchronize()
+    _, busy, launches = device_kernels(prof.key_averages())
+    return busy / steps, launches / steps, ev[0].elapsed_time(ev[1]) / steps
+
+
+def ssm_oneshot(cfg, model):
+    """falcon-mamba-7b through Engine.generate at SSM_SHAPE, single-shot
+    and chunked, fused and eager (generate_pairs: exact launches, the
+    selective scan once per layer a prefill or chunk; graphs against
+    eager, every layer's h within GRAPH_LOGIT_TOL), then a replayed
+    graph decode step's busy ms and launches. Returns its launch
+    counts."""
+    from repro_torch.data.synthetic import make_batch
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import build_engine
+    sh = SSM_SHAPE
+    eng = build_engine(cfg, model, device="cuda", budget=sh["budget"],
+                       prefill_chunk=sh["chunk"])
+    tokens, _, _ = make_batch("copy", 0, sh["B"], sh["P"], cfg.vocab_size)
+    ops.reset_launches()
+    res = generate_pairs(eng, cfg, tokens, f"{cfg.name} {cfg.num_layers} "
+                         f"layers", shape=sh)
+    launches = dict(ops.LAUNCHES)
+    a, b = (res[f"{m} fused"]["ids"] for m in ("single-shot", "chunked"))
+    log(f"{cfg.name}: single-shot and chunked ids (B {sh['B']}, prompt "
+        f"{sh['P']}): {int((a != b).sum())} of {a.size} differ (one scan "
+        f"over 2000 steps against four over 512, bf16 projections of other "
+        f"shapes); static decode state "
+        f"{res['chunked fused']['state bytes']:,} B at batch {sh['B']}")
+    busy, n_kernels, step_ms = graph_decode_step(eng, sh["B"])
+    log(f"{cfg.name}: a replayed graph decode step at batch {sh['B']}: "
+        f"device busy {busy:.3f} ms, {n_kernels:.0f} kernel launches "
+        f"(torch.profiler), {step_ms:.3f} ms a step between CUDA events "
+        f"= {sh['B'] / step_ms * 1e3:.1f} tok/s")
+    del eng
+    return launches
+
+
+def ssm_phase():
+    """The ssm family: falcon-mamba-7b at full width and depth (64
+    layers, bf16) one-shot (ssm_oneshot) and streamed (hybrid_stream's
+    checks: 8 requests, prompts 256-2000, max_new 16-64, phased and
+    interleaved at spec_k 0 and 2, a lane's swap and resume against a
+    recompute), then float32 card-vs-CPU parity at SSM_PARITY_LAYERS
+    layers (hybrid_parity's checks: ids identical, logits and every h
+    within TOL). Returns ({kernel: launches} of the one-shot calls and
+    the phased stream, of the float32 parity)."""
+    import torch
+    with timed("ssm one-shot"):
+        cfg, model = ssm_model()
+        launches = ssm_oneshot(cfg, model)
+    with timed("ssm stream"):
+        stream = hybrid_stream(cfg, model, label="ssm",
+                               prompt_hi=SSM_SHAPE["P"], new_hi=64,
+                               check=check_ssm)
+    launches = {k: launches[k] + stream[k] for k in launches}
+    del model
+    torch.cuda.empty_cache()
+    with timed("ssm parity"):
+        f32 = hybrid_parity(
+            SSM_PARITY_LAYERS, label="ssm", need=("selective_scan",),
+            check=check_ssm, model_fn=lambda n: ssm_model(
+                "float32", num_layers=n, seed=105))
+    torch.cuda.empty_cache()
+    return launches, f32
 
 
 def train_phase(kernel_ms):
@@ -5051,6 +5387,8 @@ def main() -> int:
         log("kernels at head dim 256 (recurrentgemma-2b G 10, gemma3-12b "
             "G 2) and the RG-LRU scan:")
         kernels += hybrid_kernel_phase(g)
+        log("the selective scan at falcon-mamba-7b's shape (di 8192, n 16):")
+        kernels += ssm_kernel_phase(g)
     with timed("capacity"):
         kernels += capacity_phase(g)
     torch.cuda.empty_cache()
@@ -5102,6 +5440,10 @@ def main() -> int:
         for k in ("decode_attention", "chunk_attention_f32",
                   "retention_attention_f32", "rg_lru_scan"):
             launches[k] += hybrid_f32[k]
+        # the ssm family (falcon-mamba-7b): the selective scan kernel
+        ssm, ssm_f32 = ssm_phase()
+        launches["selective_scan"] = (ssm["selective_scan"]
+                                      + ssm_f32["selective_scan"])
         # the D-256 variants' main paths: gemma3-12b and the hybrid phase
         for k in ("chunk_attention", "retention_attention"):
             launches[k + "_d256"] = gemma3[k] + hybrid[k]

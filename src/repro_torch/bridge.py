@@ -17,7 +17,9 @@ layer's memory slab is [B, S, Hkv, D] in the JAX decode state and
 in_x, in_gate, lru_wa, lru_wx and out as dense layers, conv_w
 [conv_width, W], conv_b and the float32 lru_lam as they are, and no
 gate (its gates subtree is None); its state {h, conv} has one layout
-in both.
+in both. So does a mamba block's (ssm family: norm, in_proj, x_proj,
+dt_proj with its bias and out_proj as dense layers, conv_w, conv_b and
+the float32 A_log and D as they are; no gate in any layer).
 """
 from __future__ import annotations
 
@@ -89,6 +91,13 @@ def params_from_jax(np_tree, cfg, *, device="cuda") -> Transformer:
 
 
 def _copy_block(block, p):
+    if block.kind == "mamba":
+        _copy(block.norm.scale, p["norm"]["scale"])
+        for name in ("in_proj", "x_proj", "dt_proj", "out_proj"):
+            _copy_dense(getattr(block, name), p[name])
+        for name in ("conv_w", "conv_b", "A_log", "D"):
+            _copy(getattr(block, name), p[name])
+        return
     _copy(block.norm1.scale, p["norm1"]["scale"])
     _copy(block.norm2.scale, p["norm2"]["scale"])
     if block.kind == "recurrent":

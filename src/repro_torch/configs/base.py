@@ -204,12 +204,12 @@ ARCH_IDS = (
 )
 
 # architectures whose config module the port carries: the dense GQA
-# configs, the two cross-memory families, the two MoE configs and the
-# hybrid (RG-LRU + local attention) config
+# configs, the two cross-memory families, the two MoE configs, the
+# hybrid (RG-LRU + local attention) config and the SSM (Mamba-1) config
 PORTED_ARCHS = ("trimkv-paper-4b", "qwen2.5-14b", "codeqwen1.5-7b",
                 "minitron-8b", "gemma3-12b", "llama-3.2-vision-90b",
                 "seamless-m4t-large-v2", "granite-moe-3b-a800m",
-                "mixtral-8x7b", "recurrentgemma-2b")
+                "mixtral-8x7b", "recurrentgemma-2b", "falcon-mamba-7b")
 
 
 def _module(arch_id: str):

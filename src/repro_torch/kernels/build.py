@@ -45,6 +45,7 @@ SIGNATURES = {
     "capacity_loss_fwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "capacity_loss_bwd_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "rg_lru_scan_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "selective_scan_launch": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lib = None

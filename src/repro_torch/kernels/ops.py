@@ -11,7 +11,8 @@ kernels (``retention_attention_f32``, ``chunk_attention_f32``). The
 capacity loss counts its forward kernel under ``capacity_loss`` and,
 when autograd runs its backward, the backward kernel under
 ``capacity_loss_bwd``; the hybrid family's RG-LRU scan under
-``rg_lru_scan``. CPU calls count nothing.
+``rg_lru_scan``, the ssm family's selective scan under
+``selective_scan``. CPU calls count nothing.
 """
 from __future__ import annotations
 
@@ -26,10 +27,13 @@ from repro_torch.kernels.decode_attention import (decode_attention_cuda,
 from repro_torch.kernels.retention_attention import (
     retention_attention_cuda, retention_attention_torch)
 from repro_torch.kernels.rg_lru import rg_lru_scan_cuda, rg_lru_scan_torch
+from repro_torch.kernels.selective_scan import (selective_scan_cuda,
+                                                selective_scan_torch)
 
 KERNELS = ("decode_attention", "chunk_attention", "retention_attention",
            "chunk_attention_f32", "retention_attention_f32",
-           "capacity_loss", "capacity_loss_bwd", "rg_lru_scan")
+           "capacity_loss", "capacity_loss_bwd", "rg_lru_scan",
+           "selective_scan")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
@@ -101,6 +105,16 @@ def rg_lru_scan(a_log, bx, h0):
         return rg_lru_scan_torch(a_log, bx, h0)
     LAUNCHES["rg_lru_scan"] += 1
     return rg_lru_scan_cuda(a_log, bx, h0)
+
+
+def selective_scan(dt, xs, Bm, Cm, A, h0, n_valid):
+    """The Mamba-1 selective scan over T steps from h0 [B, di, n], steps
+    past n_valid [B] the identity: (ys [B, T, di], h_last [B, di, n]),
+    float32. See kernels/selective_scan.py."""
+    if _on_cpu(dt):
+        return selective_scan_torch(dt, xs, Bm, Cm, A, h0, n_valid)
+    LAUNCHES["selective_scan"] += 1
+    return selective_scan_cuda(dt, xs, Bm, Cm, A, h0, n_valid)
 
 
 def capacity_loss_log(log_beta, M: float):

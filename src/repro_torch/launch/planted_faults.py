@@ -18,6 +18,8 @@ each planted fault must exceed one.
 
     PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --hybrid
 
+    PYTHONPATH=src python3 -m repro_torch.launch.planted_faults --ssm
+
 Needs one CUDA card and the repository's chip_smoke.py. For the sources
 as they are and for each fault in FAULTS (one textual change to a
 kernel source), LANE_FAULTS (one to the lane layer; --lanes runs the
@@ -32,7 +34,9 @@ sound build and these alone) and MOE_FAULTS (one to the MoE FFN's
 routing or to the lanes under the no-drop MoE stream; --moe runs the
 sound build and these alone) and HYBRID_FAULTS (one to the RG-LRU scan
 kernel, the head-dim-256 P.V or a recurrent lane's reset; --hybrid runs
-the sound build and these alone) it
+the sound build and these alone) and SSM_FAULTS (one to the selective
+scan kernel or a mamba lane's reset; --ssm runs the sound build and
+these alone) it
 copies src/repro_torch and chip_smoke.py into a temporary directory,
 applies the change, and runs,
 in a fresh process that builds that copy's kernels, the chip_smoke
@@ -334,10 +338,25 @@ HYBRID_FAULTS = [
      "\"aux\": 0.0, \"h\": 0.0,\n                    \"conv\": 0.0, ",
      "\"aux\": 0.0,\n                    ", ("hybrid-stream",)),
 ]
+# faults in the ssm family's paths: the selective scan kernel's start and
+# its padded steps (read by chip_smoke.ssm_kernel_phase), and the lane
+# reset of a mamba state (read by the bf16 ssm stream); --ssm runs the
+# sound build and these
+SSM_FAULTS = [
+    ("ssm: the selective scan kernel starts every lane from h = 0, not h0",
+     "selective_scan.cu", "    h[s] = live ? __ldg(h0 + st + s) : 0.f;",
+     "    h[s] = live ? 0.f * __ldg(h0 + st + s) : 0.f;", ("ssm-kernels",)),
+    ("ssm: the selective scan kernel's padded steps (past n_valid) update "
+     "h as real ones", "selective_scan.cu",
+     "    h[s] = valid ? hn : h[s];", "    h[s] = hn;", ("ssm-kernels",)),
+    ("ssm: a lane reset leaves a mamba layer's h (the next request starts "
+     "from the last one's state)", "core/cache.py",
+     "\"aux\": 0.0, \"h\": 0.0,", "\"aux\": 0.0,", ("ssm-stream",)),
+]
 SOUND = ("decode", "chunk", "retention", "capacity", "parity", "stream",
          "serve", "policy", "stream-policies", "lifecycle", "reuse",
          "cross-kernels", "cross", "moe", "moe-stream", "hybrid-kernels",
-         "hybrid-stream")
+         "hybrid-stream", "ssm-kernels", "ssm-stream")
 
 
 def child(phases):
@@ -583,6 +602,38 @@ def child(phases):
                 print(json.dumps(readings), flush=True)
                 os._exit(0)
         torch.cuda.empty_cache()
+    if "ssm-kernels" in phases:
+        cs.check_ssm = lambda name, violations: record_aux(
+            f"ssm {name}", violations)
+        g.manual_seed(0)
+        with torch.no_grad():
+            cs.ssm_kernel_phase(g)
+        torch.cuda.empty_cache()
+    if "ssm-stream" in phases:
+        def record_ssm_stream(name, violations, margin=0.0, tol=math.inf):
+            for kind, n in violations.items():
+                readings.append({"case": f"stream {name}", "kind": kind,
+                                 "reading": float(n), "limit": 0.0})
+            readings.append({"case": f"stream {name}", "kind": "margin",
+                             "reading": margin, "limit": tol})
+
+        cs.check_stream = record_ssm_stream
+        cs.check_ssm = lambda name, violations: record_aux(
+            f"ssm {name}", violations)
+        try:
+            with torch.no_grad():
+                cfg, model = cs.ssm_model()
+                cs.hybrid_stream(cfg, model, label="ssm",
+                                 prompt_hi=cs.SSM_SHAPE["P"], new_hi=64,
+                                 check=cs.check_ssm)
+        except (AssertionError, RuntimeError) as e:
+            print(f"stream ssm: {str(e).splitlines()[0]}")
+            readings.append({"case": "stream ssm phase", "kind": "raised",
+                             "reading": math.inf, "limit": 0.0})
+            if not isinstance(e, AssertionError):
+                print(json.dumps(readings), flush=True)
+                os._exit(0)
+        torch.cuda.empty_cache()
     if "parity" in phases:
         limit, cs.BF16_LOGIT_TOL = cs.BF16_LOGIT_TOL, math.inf
         try:
@@ -628,17 +679,17 @@ def run(fault, phases):
     return json.loads(lines[-1]), [x for x in lines if x.startswith(
         ("parity", "capacity:", "stream", "serve", "policy", "Table",
          "lifecycle", "reuse", "cross", "  moe_apply", "moe stream",
-         "  one-shot comparison"))]
+         "  one-shot comparison", "ssm"))]
 
 
 def main(only: str | None = None) -> int:
     """only: None (every fault), "--lanes", "--policies", "--lifecycle",
-    "--reuse", "--cross", "--moe" or "--hybrid"."""
+    "--reuse", "--cross", "--moe", "--hybrid" or "--ssm"."""
     ok = True
     faults, sound = {
         None: (FAULTS + LANE_FAULTS + POLICY_FAULTS + LIFECYCLE_FAULTS
-               + REUSE_FAULTS + CROSS_FAULTS + MOE_FAULTS + HYBRID_FAULTS,
-               SOUND),
+               + REUSE_FAULTS + CROSS_FAULTS + MOE_FAULTS + HYBRID_FAULTS
+               + SSM_FAULTS, SOUND),
         "--lanes": (LANE_FAULTS, ("stream", "serve")),
         "--policies": (POLICY_FAULTS, ("policy", "stream-policies")),
         "--lifecycle": (LIFECYCLE_FAULTS, ("lifecycle",)),
@@ -646,6 +697,7 @@ def main(only: str | None = None) -> int:
         "--cross": (CROSS_FAULTS, ("cross-kernels", "cross")),
         "--moe": (MOE_FAULTS, ("moe", "moe-stream")),
         "--hybrid": (HYBRID_FAULTS, ("hybrid-kernels", "hybrid-stream")),
+        "--ssm": (SSM_FAULTS, ("ssm-kernels", "ssm-stream")),
     }[only]
     for fault in [None, *faults]:
         title = "sound build" if fault is None else f"fault: {fault[0]}"

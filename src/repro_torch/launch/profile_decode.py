@@ -6,7 +6,8 @@ device busy time, for the eager step and for its CUDA graph.
         [--arch granite-moe-3b-a800m] [--smoke] [--layers 8]
 
 Needs one CUDA card. Builds --arch (default trimkv-paper-4b; a dense,
-MoE or hybrid architecture, its smoke config with --smoke, cut to --layers)
+MoE, hybrid or ssm architecture, its smoke config with --smoke, cut to
+--layers)
 at full width (bf16, random weights from a seed), prefills batch 4 x
 2000 tokens in
 chunks of 512 under --budget (default 512) and --policy (default

@@ -5,7 +5,8 @@ time, and the operators that take it.
         [--arch granite-moe-3b-a800m] [--smoke] [--layers 8]
 
 Needs one CUDA card. Builds --arch (default trimkv-paper-4b; a dense,
-MoE or hybrid architecture, its smoke config with --smoke, cut to --layers)
+MoE, hybrid or ssm architecture, its smoke config with --smoke, cut to
+--layers)
 at full width (bf16, random weights from a seed) and, for single-shot
 prefill and for
 chunked prefill (chunks of 512) eager and as the chunk program's CUDA
@@ -26,7 +27,8 @@ batch 4 x 2000 tokens under budget 512:
 
 For a hybrid architecture the RG-LRU scan's device time (every
 instance of its kernel summed) and its share of busy are printed beside
-the top operators. For an MoE architecture it then
+the top operators, and so is the selective scan's for an ssm
+architecture. For an MoE architecture it then
 prints layer 0's FFN over a chunk's
 [4, 512, d] and over the single-shot [4, 2000, d], split into router,
 dispatch, experts and combine (profiling.print_moe_stages).
@@ -96,12 +98,15 @@ def profile_mode(eng, tokens, chunked: bool, fused: bool):
         ms = e.self_device_time_total / 1e3
         print(f"  {ms:10.3f} ms {ms / busy * 100:6.2f} %  {e.count:6d} x  "
               f"{e.key[:100]}")
-    scan = [e for e in kernels if "rg_lru_scan" in e.key]
-    if scan:   # every instance of csrc/rg_lru_scan.cu (one per channel tile)
-        ms = sum(e.self_device_time_total for e in scan) / 1e3
-        print(f"  the RG-LRU scan: {ms:.3f} ms {ms / busy * 100:.2f} % of "
-              f"busy ({sum(e.count for e in scan)} launches of "
-              f"{len(scan)} kernels)")
+    for key, label in (("rg_lru_scan", "the RG-LRU scan"),
+                       ("selective_scan", "the selective scan")):
+        # every instance of the kernel (one per template instantiation)
+        scan = [e for e in kernels if key in e.key]
+        if scan:
+            ms = sum(e.self_device_time_total for e in scan) / 1e3
+            print(f"  {label}: {ms:.3f} ms {ms / busy * 100:.2f} % of busy "
+                  f"({sum(e.count for e in scan)} launches of {len(scan)} "
+                  f"kernels)")
     return wall, busy
 
 

@@ -27,7 +27,8 @@ def device_kernels(events):
 # the architectures the profiles build: those without a cross-attention
 # memory (their prompts are tokens alone)
 PROFILE_ARCHS = tuple(a for a in PORTED_ARCHS
-                      if get_config(a).family in ("dense", "moe", "hybrid"))
+                      if get_config(a).family in ("dense", "moe", "hybrid",
+                                                  "ssm"))
 
 
 def add_arch_args(ap: argparse.ArgumentParser):

@@ -1,4 +1,4 @@
-"""Transformer blocks of the dense, MoE, cross-memory and hybrid
+"""Transformer blocks of the dense, MoE, cross-memory, hybrid and ssm
 families: init, state and apply in prefill, chunked-prefill, decode and
 training modes.
 
@@ -10,7 +10,9 @@ Ported from ``repro/models/blocks.py`` for the kinds "global" and
 ``CrossBlock``: the vision layers of the vlm family and the decoder
 layers of the encdec family) and "recurrent" (the hybrid family's
 RG-LRU block, ``RecurrentBlock``: a gated causal conv and the RG-LRU
-recurrence + FFN, no KV cache and no gate). A block is an
+recurrence + FFN, no KV cache and no gate) and "mamba" (the ssm
+family's Mamba-1 block, ``MambaBlock``: a causal conv and the selective
+scan, gated by silu(z), no FFN, no KV cache and no gate). A block is an
 ``nn.Module`` holding its retention gate (or None); the apply
 functions are plain functions over it. Self-attention goes through
 ``kernels.ops``, which runs the CUDA kernels on the card and their
@@ -28,8 +30,11 @@ memory slab xk, xv [B, Hkv, S, D] (the JAX package keeps
 axis) and mem_len [B] int32 (slots >= mem_len are masked; 0 = no
 memory); a recurrent layer's is {h [B, lru_width] float32 (in a bf16
 model too), conv [B, conv_width - 1, lru_width] in the model dtype: the
-last pre-conv inputs, oldest first}. The RG-LRU scan over a prompt goes
-through ``kernels.ops.rg_lru_scan`` (the CUDA kernel on the card).
+last pre-conv inputs, oldest first}; a mamba layer's is {h [B, d_inner,
+ssm_state] float32, conv [B, conv_width - 1, d_inner]}. The RG-LRU
+scan over a prompt goes through ``kernels.ops.rg_lru_scan``, the
+selective scan through ``kernels.ops.selective_scan`` (the CUDA
+kernels on the card).
 """
 from __future__ import annotations
 
@@ -52,8 +57,9 @@ from repro_torch.models.common import (NEG_INF, MLP, RMSNorm, apply_rope,
 
 DENSE_KINDS = ("global", "local")
 ATTENTION_KINDS = DENSE_KINDS + ("cross",)
-PORTED_KINDS = ATTENTION_KINDS + ("recurrent",)
-# a cross layer's memory leaves and a recurrent layer's state
+RECURRENT_KINDS = ("recurrent", "mamba")
+PORTED_KINDS = ATTENTION_KINDS + RECURRENT_KINDS
+# a cross layer's memory leaves and a recurrent or mamba layer's state
 MEMORY_LEAVES = ("xk", "xv", "mem_len")
 RECURRENT_LEAVES = ("h", "conv")
 RG_LRU_C = 8.0  # Griffin's fixed recurrence-sharpness constant
@@ -310,16 +316,50 @@ class RecurrentBlock(nn.Module):
         self.gate = None
 
 
+class MambaBlock(nn.Module):
+    """The ssm family's Mamba-1 block, as ``init_block`` lays it out:
+    norm, in_proj [d, 2 d_inner] (the scan's input x and the gate z), a
+    depthwise causal conv conv_w [conv_width, d_inner] and conv_b,
+    x_proj [d_inner, dt_rank + 2 ssm_state] (dt's low-rank input, B and
+    C), dt_proj [dt_rank, d_inner] with its bias, the float32 A_log
+    [d_inner, ssm_state] (log 1 .. ssm_state in every channel) and skip
+    D [d_inner] (1), and out_proj [d_inner, d]. No FFN, no KV cache, so
+    no retention gate (``gate`` stays None)."""
+
+    def __init__(self, cfg, kind: str, *, device, generator):
+        super().__init__()
+        dtype = to_dtype(cfg.dtype)
+        d, di, n, r = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+        kw = dict(dtype=dtype, device=device, generator=generator)
+        self.kind = kind
+        self.norm = RMSNorm(d, device=device)
+        self.in_proj = dense(d, 2 * di, **kw)
+        conv = torch.empty((cfg.conv_width, di), dtype=torch.float32,
+                           device=device)
+        conv.normal_(0.0, 1.0, generator=generator)
+        self.conv_w = nn.Parameter((conv * 0.1).to(dtype))
+        self.conv_b = nn.Parameter(torch.zeros((di,), dtype=dtype,
+                                               device=device))
+        self.x_proj = dense(di, r + 2 * n, **kw)
+        self.dt_proj = dense(r, di, bias=True, **kw)
+        A = np.tile(np.arange(1, n + 1, dtype=np.float32), (di, 1))
+        self.A_log = nn.Parameter(torch.as_tensor(np.log(A), device=device))
+        self.D = nn.Parameter(torch.ones((di,), dtype=torch.float32,
+                                         device=device))
+        self.out_proj = dense(di, d, **kw)
+        self.gate = None
+
+
 def init_block(cfg, kind: str, *, device, generator) -> nn.Module:
     _require_ported(kind)
-    cls = {"cross": CrossBlock, "recurrent": RecurrentBlock}.get(kind,
-                                                                 DenseBlock)
+    cls = {"cross": CrossBlock, "recurrent": RecurrentBlock,
+           "mamba": MambaBlock}.get(kind, DenseBlock)
     return cls(cfg, kind, device=device, generator=generator)
 
 
 def init_block_gate(cfg, kind: str, *, device, generator):
     """Retention gate for a block that owns a growing KV cache (None for
-    a recurrent block)."""
+    a recurrent or mamba block)."""
     _require_ported(kind)
     if not cfg.trimkv or kind not in ATTENTION_KINDS:
         return None
@@ -331,12 +371,13 @@ def init_block_state(cfg, kind: str, batch: int, budget: int, dtype,
                      device, slab_len: int | None = None):
     """A layer's state: the slot cache, and for a cross layer its memory
     slab of slab_len (default memory_len(cfg)) slots, all masked; for a
-    recurrent layer h (float32) and conv (dtype), zero."""
+    recurrent layer h [B, lru_width] and for a mamba layer h [B,
+    d_inner, ssm_state] (float32), and conv (dtype), zero."""
     _require_ported(kind)
-    if kind == "recurrent":
-        w = cfg.lru_width
-        return {"h": torch.zeros((batch, w), dtype=torch.float32,
-                                 device=device),
+    if kind in RECURRENT_KINDS:
+        w = cfg.lru_width if kind == "recurrent" else cfg.d_inner
+        h = (batch, w) if kind == "recurrent" else (batch, w, cfg.ssm_state)
+        return {"h": torch.zeros(h, dtype=torch.float32, device=device),
                 "conv": torch.zeros((batch, cfg.conv_width - 1, w),
                                     dtype=dtype, device=device)}
     M = (min(budget, cfg.window) if (kind == "local" and cfg.window > 0)
@@ -540,17 +581,30 @@ def _recurrent_decode(block: RecurrentBlock, cfg, x_t, state, active,
     bit-identically) and returns (x_out, state, {h, conv} of this step,
     unmasked, or None)."""
     xb, gate = _recurrent_in(block, cfg, x_t)
-    full = torch.cat([state["conv"], xb[:, None]], dim=1)     # [B,W,ch]
-    xb = torch.einsum("bwc,wc->bc", full, block.conv_w) + block.conv_b
+    xb, full = _conv_step(block, xb, state)
     a_log, bx = _rg_lru_inputs(block, xb)
     a, g = rg_lru_gates(a_log, bx)
     h = a * state["h"] + g
-    sig = {"h": h, "conv": full[:, 1:]}
+    sig = _commit_step(state, {"h": h, "conv": full[:, 1:]}, active)
+    return (_recurrent_out(block, cfg, x_t, h, gate), state,
+            sig if return_sig else None)
+
+
+def _conv_step(block, x, state):
+    """The causal conv's output for one step's input x [B, ch] after the
+    state's W - 1 history rows, and those rows with x ([B, W, ch])."""
+    full = torch.cat([state["conv"], x[:, None]], dim=1)
+    return torch.einsum("bwc,wc->bc", full, block.conv_w) + block.conv_b, full
+
+
+def _commit_step(state, sig, active):
+    """Write a recurrent or mamba layer's new {h, conv} (sig) into
+    ``state`` in place, lanes outside ``active`` keeping theirs
+    bit-identically. Returns sig."""
     new = sig if active is None else _select_rows(active, sig, state)
     for k in RECURRENT_LEAVES:
         state[k].copy_(new[k])
-    return (_recurrent_out(block, cfg, x_t, h, gate), state,
-            sig if return_sig else None)
+    return sig
 
 
 def _recurrent_prefill(block: RecurrentBlock, cfg, x, state, n_valid=None):
@@ -580,6 +634,77 @@ def _recurrent_prefill(block: RecurrentBlock, cfg, x, state, n_valid=None):
     return _recurrent_out(block, cfg, x, h_seq, gate), new
 
 
+# ====================================================== block: mamba
+#
+# The ssm family's Mamba-1 block (the JAX package's "mamba" branches):
+# x + out_proj(y * silu(z)) with (x_in, z) = in_proj(norm(x)), xs =
+# silu(conv(x_in)), and y = the selective scan over xs plus D * xs. No
+# FFN. Its state is {h, conv}; decode writes it in place, prefill
+# builds it anew.
+
+
+def _mamba_in(block: MambaBlock, cfg, x):
+    """(the conv's input, the gate z) of in_proj(norm(x))."""
+    normed = rmsnorm_apply(block.norm.scale, x, cfg.norm_eps)
+    return dense_apply(block.in_proj, normed).chunk(2, dim=-1)
+
+
+def _mamba_ssm_inputs(block: MambaBlock, cfg, xs):
+    """(dt float32 after softplus, B, C, A = -exp(A_log)) of the conv
+    output xs [..., d_inner]."""
+    r, n = cfg.dt_rank, cfg.ssm_state
+    dt_in, Bm, Cm = dense_apply(block.x_proj, xs).split([r, n, n], dim=-1)
+    dt = _softplus(dense_apply(block.dt_proj, dt_in).float())
+    return dt, Bm, Cm, -torch.exp(block.A_log)
+
+
+def _mamba_out(block: MambaBlock, x, y, xs, z):
+    """x + out_proj((y + D xs) * silu(z)), the product in float32."""
+    y = (y + xs.float() * block.D) * F.silu(z.float())
+    return x + dense_apply(block.out_proj, y.to(x.dtype))
+
+
+def _mamba_decode(block: MambaBlock, cfg, x_t, state, active, return_sig):
+    """One decode step of a mamba block (x_t [B, d]), as _mamba_step.
+    Writes h and conv into ``state`` in place (lanes outside ``active``
+    keep theirs bit-identically) and returns (x_out, state, {h, conv} of
+    this step, unmasked, or None)."""
+    xs, z = _mamba_in(block, cfg, x_t)
+    xs, full = _conv_step(block, xs, state)
+    xs = F.silu(xs)
+    dt, Bm, Cm, A = _mamba_ssm_inputs(block, cfg, xs)
+    dA = torch.exp(dt[..., None] * A)                          # [B,di,n]
+    dBx = (dt * xs.float())[..., None] * Bm[:, None, :].float()
+    h = dA * state["h"] + dBx
+    y = torch.einsum("bdn,bn->bd", h, Cm.float())
+    sig = _commit_step(state, {"h": h, "conv": full[:, 1:]}, active)
+    return (_mamba_out(block, x_t, y, xs, z), state,
+            sig if return_sig else None)
+
+
+def _mamba_prefill(block: MambaBlock, cfg, x, state, n_valid=None):
+    """A mamba block over x [B, C, d] continuing ``state``: the conv sees
+    the state's W - 1 history rows, the selective scan
+    (ops.selective_scan) starts from its h. n_valid ([B] tensor, or None
+    for all C): steps past a row's count are padding, the identity, so
+    h after C steps is h at its last real input; a row with 0 keeps its
+    state bit-identically. Returns (x_out, new state)."""
+    B, C, _ = x.shape
+    xs_raw, z = _mamba_in(block, cfg, x)
+    ext = torch.cat([state["conv"], xs_raw], dim=1)
+    xs = F.silu(_causal_conv(ext, block.conv_w, block.conv_b, C))
+    dt, Bm, Cm, A = _mamba_ssm_inputs(block, cfg, xs)
+    nvb = valid_counts(n_valid, B, C, x.device)
+    ys, h_last = ops.selective_scan(dt.contiguous(), xs.contiguous(),
+                                    Bm.contiguous(), Cm.contiguous(),
+                                    A.contiguous(), state["h"].contiguous(),
+                                    nvb.contiguous())
+    new = {"h": h_last, "conv": _conv_tail(ext, cfg.conv_width, nvb)}
+    if torch.is_tensor(n_valid) and n_valid.ndim == 1:
+        new = _select_rows(nvb > 0, new, state)
+    return _mamba_out(block, x, ys, xs, z), new
+
+
 def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
                        active=None, return_sig=False):
     """x_t: [B, d]; state: the block's slot cache; t: [B] per-lane
@@ -595,9 +720,11 @@ def apply_block_decode(block: DenseBlock, cfg, x_t, state, t, *, policy,
     replay needs neither. The signal is made of values the step
     computes anyway, so asking for it changes nothing else. A recurrent
     block writes its {h, conv} in place and its signal is this step's
-    {h, conv} (unmasked), as the JAX package's."""
+    {h, conv} (unmasked), as the JAX package's; so does a mamba block."""
     if block.kind == "recurrent":
         return _recurrent_decode(block, cfg, x_t, state, active, return_sig)
+    if block.kind == "mamba":
+        return _mamba_decode(block, cfg, x_t, state, active, return_sig)
     cache = state
     B = x_t.shape[0]
     normed = rmsnorm_apply(block.norm1.scale, x_t, cfg.norm_eps)
@@ -704,11 +831,11 @@ def apply_block_verify_commit(cfg, kind, state, sig, t, n_commit, live,
     sig: apply_block_verify's signals; n_commit: [B] accepted-prefix
     length (0..C, 0 for non-live lanes); t: round-entry clock. Returns
     the same cache, bit-identical to having decoded only the accepted
-    prefix; a cross layer's memory is left as it is. A recurrent layer
-    takes the stacked {h, conv} of position n_commit - 1 (a lane that
-    commits nothing keeps its own)."""
+    prefix; a cross layer's memory is left as it is. A recurrent or mamba
+    layer takes the stacked {h, conv} of position n_commit - 1 (a lane
+    that commits nothing keeps its own)."""
     _require_ported(kind)
-    if kind == "recurrent":
+    if kind in RECURRENT_KINDS:
         B = n_commit.shape[0]
         take = live & (n_commit > 0)
         idx = (n_commit - 1).clamp(min=0).long()
@@ -732,10 +859,13 @@ def apply_block_prefill(block: DenseBlock, cfg, x, state, *, policy,
     policy's chunk aux is the mean attention of the last obs_window
     queries over the prompt (_obs_probs). A cross layer reads the memory
     installed in ``state`` (transformer.install_memory) and keeps it. A
-    recurrent block runs its recurrence from the (fresh) state."""
+    recurrent or mamba block runs its recurrence from the (fresh)
+    state."""
     del budget  # the cache carries M
     if block.kind == "recurrent":
         return (*_recurrent_prefill(block, cfg, x, state), None)
+    if block.kind == "mamba":
+        return (*_mamba_prefill(block, cfg, x, state), None)
     B, T, _ = x.shape
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
     positions = (q_offset + torch.arange(T, device=x.device))[None].expand(
@@ -782,10 +912,12 @@ def apply_block_prefill_chunk(block: DenseBlock, cfg, x, state, t0, *,
     select), and the chunk tokens' aux is the mean attention of each
     row's last obs_window real queries (_obs_probs_chunk_lanes).
 
-    A recurrent block continues its conv and recurrence over the chunk's
-    real steps (_recurrent_prefill)."""
+    A recurrent or mamba block continues its conv and recurrence over
+    the chunk's real steps (_recurrent_prefill, _mamba_prefill)."""
     if block.kind == "recurrent":
         return (*_recurrent_prefill(block, cfg, x, state, n_valid), None)
+    if block.kind == "mamba":
+        return (*_mamba_prefill(block, cfg, x, state, n_valid), None)
     B, C, _ = x.shape
     dev = x.device
     normed = rmsnorm_apply(block.norm1.scale, x, cfg.norm_eps)
@@ -924,13 +1056,13 @@ def apply_block_train(block: DenseBlock, cfg, x, *, gated=False,
     """Training forward of a dense or MoE block over x [B, T, d] (with
     causal=False and kv_positions: an encoder layer). Returns (x_out,
     cap, router): the block's capacity loss, zero when not gated, and
-    its MoE router aux, zero without experts. Cross and recurrent blocks
-    train with their families (ROADMAP queue 1 item 7)."""
+    its MoE router aux, zero without experts. Cross, recurrent and mamba
+    blocks train with their families (ROADMAP queue 1 item 7)."""
     if block.kind not in DENSE_KINDS:
         raise NotImplementedError(
             f"training a {block.kind!r} block is not ported to repro_torch "
-            f"yet; see ROADMAP queue 1 item 7, gate training for the "
-            f"cross and hybrid families")
+            f"yet; see ROADMAP queue 1 item 7, training for the cross, "
+            f"hybrid and ssm families")
     attn_out, cap = self_attn_train(block, cfg, x, gated=gated, cap_M=cap_M,
                                     causal=causal,
                                     kv_positions=kv_positions)

@@ -1,19 +1,20 @@
-"""The model stack of the dense, MoE, cross-memory and hybrid families:
+"""The model stack of the dense, MoE, cross-memory, hybrid and ssm
+families:
 init, logits, decode state, the cross-attention memory (vision
 projection or encoder, install_memory), single-shot and chunked
 prefill, decode, sampling, speculative verify rounds, the token loops
 and the training forward.
 
 Ported from ``repro/models/transformer.py`` (the dense, moe, vlm,
-encdec and hybrid families). The model is a ``Transformer`` module
+encdec, hybrid and ssm families). The model is a ``Transformer`` module
 holding its blocks in order (and, for encdec, its encoder); the JAX
 package's scans over
 layers become Python loops, and its scans over tokens and chunks become
 loops over step functions (``serve.graphs`` captures the steps as CUDA
 graphs). The decode state is {"t": [B] int32 per-lane clock, "layers":
 [one flat state dict per layer]} (blocks.init_block_state: a slot
-cache, plus a cross layer's memory slab; a recurrent layer's {h,
-conv}); ``bridge.state_to_numpy`` gives it the JAX package's layout.
+cache, plus a cross layer's memory slab; a recurrent or mamba layer's
+{h, conv}); ``bridge.state_to_numpy`` gives it the JAX package's layout.
 Decode updates the caches in place.
 """
 from __future__ import annotations
@@ -72,7 +73,7 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
-FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "encdec", "hybrid", "ssm")
 # the extra_inputs key that carries a cross family's memory
 MEM_KEYS = {"vlm": "vision_embeds", "encdec": "source_embeds"}
 
@@ -856,13 +857,13 @@ def forward_train(model: Transformer, cfg, tokens, *, gated=False,
     residual stream between blocks; backward recomputes the block, its
     L_cap forward included. Without autograd (the teacher under
     ``torch.no_grad``) nothing is checkpointed. The dense and moe
-    families: the cross and hybrid families' gate training is ROADMAP
+    families: the cross, hybrid and ssm families' training is ROADMAP
     queue 1 item 7."""
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"training the {cfg.family!r} family is not ported to "
-            f"repro_torch yet; see ROADMAP queue 1 item 7, gate training "
-            f"for the cross and hybrid families")
+            f"repro_torch yet; see ROADMAP queue 1 item 7, training for "
+            f"the cross, hybrid and ssm families")
     h = _embed(model, tokens)
     cap_total = torch.zeros((), dtype=torch.float32, device=h.device)
     router_total = torch.zeros((), dtype=torch.float32, device=h.device)

@@ -5,8 +5,13 @@ keep score.
 Discrete outcomes must match exactly — every slot's pos, k, v, beta
 and aux, hence every victim — with tied scores (beta = 1, the default
 gates, where the tie-break alone picks the victim) and with spread
-(perturbed) beta. Inputs are drawn with numpy and handed to both.
+(perturbed) beta. Inputs are drawn with numpy and handed to both. The
+JAX package's cache_insert runs jitted per (policy, incoming_score):
+one compile a shape, where an eager call compiles each operation.
 """
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +23,19 @@ from repro_torch.core import cache as tcache
 from repro_torch.core.policies import TrimKV
 
 B, H, M, D = 2, 2, 8, 4
+# the heuristic policies' windows in test_cache_insert_admits_the_token_*
+HEURISTIC_KW = dict(recent_window=8, sink_tokens=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_insert(policy="trimkv", incoming_score=None):
+    """jcache.cache_insert under the JAX policy's keep score, jitted."""
+    from repro.core.policies import POLICIES as JPOL
+    keep = (JTrimKV() if policy == "trimkv" else
+            JPOL[policy](**HEURISTIC_KW)).keep_scores
+    return jax.jit(lambda c, k, v, beta, t, aux=None: jcache.cache_insert(
+        c, k, v, beta, t, keep, incoming_score=incoming_score,
+        incoming_aux=aux))
 
 
 def _cache(rng, beta_mode, t=20):
@@ -31,6 +49,16 @@ def _cache(rng, beta_mode, t=20):
             "v": rng.randn(B, H, M, D).astype(np.float32),
             "beta": beta, "pos": pos,
             "aux": np.zeros((B, H, M), np.float32)}
+
+
+@jax.jit
+def _jax_merge(c, k_c, v_c, beta_c, pos_c, aux_c, t_end):
+    """The JAX package's TRIM-KV chunk scores and top-M merge, jitted."""
+    jpol = JTrimKV()
+    js = jpol.chunk_scores(pos_c=pos_c, beta_c=beta_c, aux_c=aux_c, k_c=k_c,
+                           t=t_end)
+    return jcache.cache_topm_merge(c, k_c, v_c, beta_c, pos_c, aux_c, t_end,
+                                   jpol.keep_scores, js)
 
 
 def _to_jax(c):
@@ -55,7 +83,7 @@ def test_cache_insert_sequence_matches_jax(beta_mode, lane_clock):
     rng = np.random.RandomState(0)
     c0 = _cache(rng, beta_mode)
     cj, ct = _to_jax(c0), _to_torch(c0)
-    jpol, tpol = JTrimKV(), TrimKV()
+    tpol = TrimKV()
     t = np.array([20, 23], np.int32) if lane_clock else np.int32(20)
     for step in range(12):
         k_t = rng.randn(B, H, D).astype(np.float32)
@@ -63,9 +91,9 @@ def test_cache_insert_sequence_matches_jax(beta_mode, lane_clock):
         beta_t = (np.ones((B, H), np.float32) if beta_mode == "tied" else
                   rng.uniform(0.5, 1.0, (B, H)).astype(np.float32))
         ts = t + step
-        cj = jcache.cache_insert(cj, jnp.asarray(k_t), jnp.asarray(v_t),
-                                 jnp.asarray(beta_t), jnp.asarray(ts),
-                                 jpol.keep_scores, incoming_score=1.0)
+        cj = _jax_insert(incoming_score=1.0)(
+            cj, jnp.asarray(k_t), jnp.asarray(v_t), jnp.asarray(beta_t),
+            jnp.asarray(ts))
         out = tcache.cache_insert(ct, torch.as_tensor(k_t),
                                   torch.as_tensor(v_t),
                                   torch.as_tensor(beta_t),
@@ -83,9 +111,8 @@ def test_cache_insert_writes_nothing_when_incoming_loses():
     cj, ct = _to_jax(c0), _to_torch(c0)
     k_t = rng.randn(B, H, D).astype(np.float32)
     beta_t = np.full((B, H), 0.9, np.float32)
-    cj = jcache.cache_insert(cj, jnp.asarray(k_t), jnp.asarray(k_t),
-                             jnp.asarray(beta_t), 20, JTrimKV().keep_scores,
-                             incoming_score=0.0)
+    cj = _jax_insert(incoming_score=0.0)(
+        cj, jnp.asarray(k_t), jnp.asarray(k_t), jnp.asarray(beta_t), 20)
     tcache.cache_insert(ct, torch.as_tensor(k_t), torch.as_tensor(k_t),
                         torch.as_tensor(beta_t), 20, TrimKV().keep_scores,
                         incoming_score=0.0)
@@ -112,15 +139,12 @@ def test_cache_topm_merge_matches_jax(beta_mode, lane_clock):
     beta_c = (np.ones((B, H, C), np.float32) if beta_mode == "tied" else
               rng.uniform(0.5, 1.0, (B, H, C)).astype(np.float32))
     aux_c = np.zeros((B, H, C), np.float32)
-    jpol, tpol = JTrimKV(), TrimKV()
+    tpol = TrimKV()
     jargs = [jnp.asarray(a) for a in (k_c, v_c, beta_c, pos_c, aux_c)]
     targs = [torch.as_tensor(a) for a in (k_c, v_c, beta_c, pos_c, aux_c)]
-    js = jpol.chunk_scores(pos_c=jargs[3], beta_c=jargs[2], aux_c=jargs[4],
-                           k_c=jargs[0], t=jnp.asarray(t_end))
     ts = tpol.chunk_scores(pos_c=targs[3], beta_c=targs[2], aux_c=targs[4],
                            k_c=targs[0], t=torch.as_tensor(t_end))
-    want = jcache.cache_topm_merge(_to_jax(c0), *jargs, jnp.asarray(t_end),
-                                   jpol.keep_scores, js)
+    want = _jax_merge(_to_jax(c0), *jargs, jnp.asarray(t_end))
     got = tcache.cache_topm_merge(_to_torch(c0), *targs,
                                   torch.as_tensor(t_end), tpol.keep_scores,
                                   ts)
@@ -165,9 +189,9 @@ def test_cache_insert_nan_beta_freezes_the_head(case):
     rng = np.random.RandomState(5)
     k_t = rng.randn(1, 2, D).astype(np.float32)
     beta_t = np.full((1, 2), 0.95, np.float32)
-    cj = jcache.cache_insert(_to_jax(c0), jnp.asarray(k_t), jnp.asarray(k_t),
-                             jnp.asarray(beta_t), 4, JTrimKV().keep_scores,
-                             incoming_score=1.0)
+    cj = _jax_insert(incoming_score=1.0)(
+        _to_jax(c0), jnp.asarray(k_t), jnp.asarray(k_t), jnp.asarray(beta_t),
+        4)
     ct = tcache.cache_insert(_to_torch(c0), torch.as_tensor(k_t),
                              torch.as_tensor(k_t), torch.as_tensor(beta_t), 4,
                              TrimKV().keep_scores, incoming_score=1.0)
@@ -187,24 +211,21 @@ def test_cache_insert_admits_the_token_under_heuristic_policies(name):
     1e30 itself (lane 0, a recency window over the whole cache); the
     incoming aux lands in the victim's slot. Eight inserts against the
     JAX package, identical slots."""
-    from repro.core.policies import POLICIES as JPOL
     from repro_torch.core.policies import POLICIES as TPOL
     rng = np.random.RandomState(6)
     c0 = _cache(rng, "perturbed")
     c0["pos"][0] = np.arange(12, 20, dtype=np.int32)   # all recent at t 20
     c0["aux"] = rng.uniform(0, 1, (B, H, M)).astype(np.float32)
-    kw = dict(recent_window=8, sink_tokens=2)
-    jpol, tpol = JPOL[name](**kw), TPOL[name](**kw)
+    tpol = TPOL[name](**HEURISTIC_KW)
     cj, ct = _to_jax(c0), _to_torch(c0)
     for step in range(8):
         k_t = rng.randn(B, H, D).astype(np.float32)
         aux_t = rng.uniform(0, 1, (B, H)).astype(np.float32)
         beta_t = rng.uniform(0.5, 1.0, (B, H)).astype(np.float32)
         ts = np.array([20, 21], np.int32) + step
-        cj = jcache.cache_insert(cj, jnp.asarray(k_t), jnp.asarray(k_t),
-                                 jnp.asarray(beta_t), jnp.asarray(ts),
-                                 jpol.keep_scores,
-                                 incoming_aux=jnp.asarray(aux_t))
+        cj = _jax_insert(name)(cj, jnp.asarray(k_t), jnp.asarray(k_t),
+                               jnp.asarray(beta_t), jnp.asarray(ts),
+                               jnp.asarray(aux_t))
         tcache.cache_insert(ct, torch.as_tensor(k_t), torch.as_tensor(k_t),
                             torch.as_tensor(beta_t), torch.as_tensor(ts),
                             tpol.keep_scores,

@@ -146,7 +146,7 @@ def test_memory_from_inputs_matches_jax(arch):
     _, S, _ = _mem_spec(cfg)
     lens = [S, S // 2 + 1, 1]
     extra = _memory(cfg, 3, 1, lens)
-    want, want_len = JT._memory_from_inputs(
+    want, want_len = jax.jit(JT._memory_from_inputs, static_argnums=1)(
         params, cfg_j, {k: jnp.asarray(v) for k, v in extra.items()})
     got, got_len = T.memory_from_inputs(model, cfg, extra)
     np.testing.assert_array_equal(got_len.numpy(), np.asarray(want_len))
@@ -171,9 +171,9 @@ def test_chunked_attention_kv_positions_matches_jax(causal):
     pos[1, ::3] = -1
     pos[2] = -1                                   # no visible key at all
     kw = dict(causal=causal, q_block=8, kv_block=16)
-    want = jcommon.chunked_attention(jnp.asarray(q), jnp.asarray(k),
-                                     jnp.asarray(v), log_beta=jnp.asarray(lb),
-                                     kv_positions=jnp.asarray(pos), **kw)
+    want = jax.jit(functools.partial(jcommon.chunked_attention, **kw))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        log_beta=jnp.asarray(lb), kv_positions=jnp.asarray(pos))
     got = common.chunked_attention(
         torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
         log_beta=torch.as_tensor(lb), kv_positions=torch.as_tensor(pos), **kw)
@@ -191,8 +191,9 @@ def test_memory_attend_matches_jax():
     xk = rng.randn(B, S, Hkv, D).astype(np.float32)
     xv = rng.randn(B, S, Hkv, D).astype(np.float32)
     mem_len = np.array([S, 7, 0, 1], np.int32)
-    want = jcache.memory_attend(jnp.asarray(q), jnp.asarray(xk),
-                                jnp.asarray(xv), jnp.asarray(mem_len))
+    want = jax.jit(jcache.memory_attend)(jnp.asarray(q), jnp.asarray(xk),
+                                         jnp.asarray(xv),
+                                         jnp.asarray(mem_len))
     got = memory_attend(torch.as_tensor(q),
                         torch.as_tensor(xk.transpose(0, 2, 1, 3)),
                         torch.as_tensor(xv.transpose(0, 2, 1, 3)),

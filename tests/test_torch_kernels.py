@@ -113,9 +113,8 @@ def test_decode_attention_all_slots_empty():
     q = np.random.RandomState(1).randn(B, Hq, D).astype(np.float32)
     kc = np.ones((B, Hkv, M, D), np.float32)
     pos = np.full((B, Hkv, M), -1, np.int32)
-    want = jops.decode_attention(jnp.asarray(q), jnp.asarray(kc),
-                                 jnp.asarray(kc), jnp.asarray(pos), 3,
-                                 return_probs=True, impl="pallas")
+    want = _jit(jops.decode_attention, return_probs=True, impl="pallas")(
+        jnp.asarray(q), jnp.asarray(kc), jnp.asarray(kc), jnp.asarray(pos), 3)
     got = ops.decode_attention(torch.as_tensor(q), torch.as_tensor(kc),
                                torch.as_tensor(kc), torch.as_tensor(pos), 3,
                                return_probs=True)

@@ -378,9 +378,9 @@ def test_cache_lane_ops_and_inactive_insert_match_jax():
         got = getattr(tcache, name)(
             {k: torch.as_tensor(v).clone() for k, v in c0.items()},
             torch.as_tensor(mask))
-        want = getattr(jcache, name)({k: jnp.asarray(v)
-                                      for k, v in c0.items()},
-                                     jnp.asarray(mask))
+        want = jax.jit(getattr(jcache, name))({k: jnp.asarray(v)
+                                               for k, v in c0.items()},
+                                              jnp.asarray(mask))
         for k in c0:
             np.testing.assert_array_equal(got[k].numpy(),
                                           np.asarray(want[k]), err_msg=k)
@@ -393,10 +393,11 @@ def test_cache_lane_ops_and_inactive_insert_match_jax():
         torch.as_tensor(k_t), torch.as_tensor(v_t), torch.as_tensor(beta_t),
         torch.as_tensor(t), TrimKV().keep_scores, incoming_score=1.0,
         active=torch.as_tensor(active))
-    want = jcache.cache_insert(
+    want = jax.jit(functools.partial(
+        jcache.cache_insert, keep_scores_fn=JTrimKV().keep_scores,
+        incoming_score=1.0))(
         {k: jnp.asarray(v) for k, v in c0.items()}, jnp.asarray(k_t),
         jnp.asarray(v_t), jnp.asarray(beta_t), jnp.asarray(t),
-        JTrimKV().keep_scores, incoming_score=1.0,
         active=jnp.asarray(active))
     for k in c0:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),

@@ -177,7 +177,8 @@ def test_extract_insert_resume_bit_exact():
     js, _ = _jax_engine().prefill(tokens, chunked=True)
     lanes = [2, 0]
     sub = T.extract_lanes(state, lanes)
-    jsub = jax.device_get(JT.extract_lanes(js, np.asarray(lanes, np.int32)))
+    jsub = jax.device_get(jax.jit(JT.extract_lanes)(
+        js, np.asarray(lanes, np.int32)))
     got = bridge.state_to_numpy(sub, cfg)
     for gl, wl in zip(got["layers"], jsub["layers"]):
         np.testing.assert_array_equal(gl["pos"], wl["pos"])

@@ -332,12 +332,14 @@ def test_block_verify_is_refused_with_the_jax_message():
     cfg_j, params, gates, cfg, model = _models("mixtral-8x7b")
     policy = make_policy(ServeConfig(**SERVE))
     x = np.zeros((2, 3, cfg.d_model), np.float32)
-    jp = jax.tree.map(lambda a: a[0], params["layers"][0])
-    jst = JT.init_decode_state(cfg_j, 2, 16)["layers"][0]
-    with pytest.raises(ValueError) as want:
-        JB.apply_block_verify(jp, None, cfg_j, "local", jnp.asarray(x),
-                              jax.tree.map(lambda a: a[0], jst), 0,
-                              policy=policy)
+    def first(tree):
+        return jax.tree.map(lambda a: a[0], tree)
+
+    with pytest.raises(ValueError) as want:   # raised while tracing
+        jax.jit(lambda layers, x: JB.apply_block_verify(
+            first(layers), None, cfg_j, "local", x,
+            first(JT.init_decode_state(cfg_j, 2, 16)["layers"][0]), 0,
+            policy=policy))(params["layers"][0], jnp.asarray(x))
     state = T.init_decode_state(cfg, 2, 16, "cpu")["layers"][0]
     with pytest.raises(ValueError) as got:
         blocks.apply_block_verify(model.layers[0], cfg, torch.as_tensor(x),

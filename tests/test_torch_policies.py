@@ -83,6 +83,13 @@ def _clocks():
     return [("scalar", T_NOW), ("lanes", np.array([40, 37, 45], np.int32))]
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_scores(name, method):
+    """A JAX policy's keep_scores or chunk_scores, jitted: one compile a
+    shape, where an eager call compiles each of its operations."""
+    return jax.jit(getattr(jpol.POLICIES[name](**KW), method))
+
+
 def _assert_scores(got, want):
     got, want = got.numpy(), np.asarray(want)
     np.testing.assert_allclose(got, want, **TOL)
@@ -95,7 +102,7 @@ def _assert_scores(got, want):
 def test_keep_scores_match_jax(name, clock):
     t = clock[1]
     c = _cache(0)
-    want = jpol.POLICIES[name](**KW).keep_scores(_jax(c), jnp.asarray(t))
+    want = _jax_scores(name, "keep_scores")(_jax(c), jnp.asarray(t))
     got = tpol.POLICIES[name](**KW).keep_scores(_torch(c),
                                                 torch.as_tensor(t))
     _assert_scores(got, want)
@@ -115,7 +122,7 @@ def test_chunk_scores_match_jax(name):
               beta_c=rng.uniform(0.5, 1.0, (B, H, C)).astype(np.float32),
               aux_c=rng.uniform(0.0, 1.0, (B, H, C)).astype(np.float32),
               k_c=rng.randn(B, H, C, D).astype(np.float32))
-    want = jpol.POLICIES[name](**KW).chunk_scores(
+    want = _jax_scores(name, "chunk_scores")(
         **{k: jnp.asarray(v) for k, v in kw.items()}, t=jnp.asarray(t_end))
     got = tpol.POLICIES[name](**KW).chunk_scores(
         **{k: torch.as_tensor(v) for k, v in kw.items()},
@@ -152,8 +159,8 @@ def test_decode_update_matches_jax_in_place(name, active):
 
 def test_key_diversity_matches_jax_on_lone_and_empty_slots():
     c = _cache(4)
-    want = np.asarray(jpol._key_diversity(jnp.asarray(c["k"]),
-                                          jnp.asarray(c["pos"])))
+    want = np.asarray(jax.jit(jpol._key_diversity)(jnp.asarray(c["k"]),
+                                                   jnp.asarray(c["pos"])))
     got = tpol._key_diversity(torch.as_tensor(c["k"]),
                               torch.as_tensor(c["pos"])).numpy()
     np.testing.assert_allclose(got, want, **TOL)
@@ -338,7 +345,7 @@ def test_obs_probs_chunk_lanes_matches_jax():
     cp = np.where(idx[None] < nv[:, None], t0[:, None] + idx[None],
                   -1).astype(np.int32)
     start = t0 + nv - W
-    want = JB._obs_probs_chunk_lanes(
+    want = jax.jit(JB._obs_probs_chunk_lanes, static_argnums=(5, 6))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(cp), jnp.asarray(nv),
         jnp.asarray(start), 4, W)
     got = TB._obs_probs_chunk_lanes(

@@ -84,7 +84,8 @@ def test_ngram_draft_matches_jax(k):
     for b in range(B):
         hist[b, :int(rng.randint(0, H + 1))] = -1
     tok = rng.randint(0, 5, size=(B,)).astype(np.int32)
-    want = np.asarray(JT.ngram_draft(jnp.asarray(hist), jnp.asarray(tok), k))
+    want = np.asarray(jax.jit(JT.ngram_draft, static_argnums=2)(
+        jnp.asarray(hist), jnp.asarray(tok), k))
     got = T.ngram_draft(torch.as_tensor(hist, dtype=torch.int64),
                         torch.as_tensor(np.array(tok), dtype=torch.int64), k)
     np.testing.assert_array_equal(got.numpy(), want)
